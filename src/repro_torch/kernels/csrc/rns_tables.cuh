@@ -1,0 +1,21 @@
+// Constant tables of one RNS profile, passed to a kernel BY VALUE (about
+// 2 KB of kernel parameters), so no fixed pool of __constant__ slots caps
+// how many profiles one process can use.  Mirrors RnsTablesC in
+// kernels/build.py.
+#pragma once
+
+#define RNS_MAX_K 21
+
+struct RnsTables {
+  int K;
+  int moduli[RNS_MAX_K];
+  int half[RNS_MAX_K];              // MRC digits of M/2 (sign threshold)
+  float w[RNS_MAX_K];               // float32(W_j), W_j = prod_{i<j} m_i
+  int inv[RNS_MAX_K * RNS_MAX_K];   // inv[i*RNS_MAX_K+j] = m_i^-1 mod m_j
+};
+
+// floor-mod for m > 0 (C's % truncates toward zero)
+__device__ __forceinline__ int floor_mod(int v, int m) {
+  int r = v % m;
+  return r < 0 ? r + m : r;
+}
