@@ -6,23 +6,35 @@
 from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  Phases (any failure makes the exit code non-zero):
 
-  [build]     compile the three CUDA kernels from the checkout's sources
-              (one nvcc each, in parallel) and print ``ptxas -v``;
-  [serve]     full-width smollm-135m with the rns9 MLP datapath through
-              ContinuousEngine.run on mixed-length requests (after one
-              short warm-up request), with every kernel's launch count
-              set to 0 just before and read after, and a copy kept of
-              each distinct call the wrappers see; then
-              the same traffic re-served under torch.profiler for the
-              device's idle share;
-  [kernels]   hold each kernel bit for bit against its plain PyTorch
-              version on the card, on the inputs [serve] gave it (every
-              distinct shape) and on boundary cases of every profile, and
-              time kernel, plain version and (rns_matmul) torch._int_mm;
-  [identity]  the same seeded weights and prompts at a reduced depth on the
-              card (kernels) and on the CPU (plain path): one RNS
-              projection bit-equal, first-step logits within LOGIT_TOL,
-              every greedy token equal.
+  [build]       compile the four CUDA sources from the checkout (one nvcc
+                each, in parallel) and print ``ptxas -v``;
+  [serve]       full-width smollm-135m with the rns9 MLP datapath through
+                ContinuousEngine.run on mixed-length requests (after one
+                short warm-up request): the per-op path, weights
+                re-encoded every step, three kernels.  Every kernel's
+                launch count is set to 0 just before and read after, and
+                a copy is kept of each distinct call the wrappers see;
+                then the same traffic is re-served under torch.profiler
+                for the device's idle share;
+  [serve_fused] the same traffic on the fused path: resident weights
+                (encoded once at engine build), the deferred MLP and the
+                fused kernels (``rns_backend="cuda_fused"``), with the
+                launches of every decode step held to 30 each of the
+                three fused kernels and rns_convert, and none of
+                rns_matmul or rns_normalize;
+  [kernels]     hold all six kernels bit for bit against their plain
+                PyTorch versions on the card, on the inputs both serves
+                gave them (every distinct shape) and on boundary cases of
+                every profile, and time kernel, plain version and
+                (rns_matmul) torch._int_mm;
+  [identity]    the same seeded weights and prompts at a reduced depth:
+                per-op path on the card (kernels) vs the CPU (plain path)
+                -- one RNS projection bit-equal, first-step logits within
+                LOGIT_TOL, every greedy token equal; on the card, the
+                fused resident per-op path vs the re-encode per-op path
+                -- logits and tokens bit-equal; the deferred fused path on
+                the card vs the CPU -- logits within LOGIT_TOL, every
+                greedy token equal.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -51,6 +63,23 @@ FULL_LAYERS = 30
 # the port counts every call: FULL_LAYERS times these per decode step.
 JAX_DECODE_RNS_OPS = {"converts": 5, "matmuls": 3, "normalizes": 3,
                       "fused": 0, "fallbacks": 0, "weight_converts": 3}
+# The same for the fused path (resident weights, deferred MLP, fused
+# backend), from tests/test_torch_fused.py: per layer, wi is a fused
+# encode+matmul, wg a fused dot, the gate one convert, wo a fused
+# matmul+normalize.
+JAX_FUSED_DECODE_RNS_OPS = {"converts": 2, "matmuls": 3, "normalizes": 2,
+                            "fused": 3, "fallbacks": 0, "weight_converts": 0}
+FUSED_SERVE = dict(rns_backend="cuda_fused", rns_defer=True,
+                   resident_weights=True)
+# kernel launches of one full-width decode step on each path
+DECODE_LAUNCHES = {
+    "serve": {"rns_convert": 150, "rns_matmul": 90, "rns_normalize": 90,
+              "rns_fused_encode_matmul": 0, "rns_fused_matmul_normalize": 0,
+              "rns_fused_dot": 0},
+    "serve_fused": {"rns_convert": 30, "rns_matmul": 0, "rns_normalize": 0,
+                    "rns_fused_encode_matmul": 30,
+                    "rns_fused_matmul_normalize": 30, "rns_fused_dot": 30},
+}
 
 # NVIDIA H100 SXM data-sheet peaks (700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -131,19 +160,60 @@ def _max_abs_err(torch, got, want) -> float:
 
 def phase_build():
     from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    logs = build.build_all({name: mod.SOURCE
+                            for name, mod in _sources().items()})
+    print(f"[build] ok in {time.perf_counter() - t0:.1f}s")
+    for name, log in logs.items():        # one line per compiled kernel
+        entry = spill = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill stores" in line:
+                spill = line.split(",")[1].strip()
+            elif "registers" in line and entry:
+                regs = line.split("Used")[1].split(",")[0].strip()
+                print(f"  {name}: {entry} {regs}, {spill}")
+
+
+def _sources():
+    """{library name: ops module} of every CUDA source."""
     from repro_torch.kernels.rns_convert import ops as c_ops
+    from repro_torch.kernels.rns_fused import ops as f_ops
     from repro_torch.kernels.rns_matmul import ops as m_ops
     from repro_torch.kernels.rns_normalize import ops as n_ops
 
-    t0 = time.perf_counter()
-    logs = build.build_all({"rns_convert": c_ops.SOURCE,
-                            "rns_matmul": m_ops.SOURCE,
-                            "rns_normalize": n_ops.SOURCE})
-    print(f"[build] ok in {time.perf_counter() - t0:.1f}s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+    return {"rns_convert": c_ops, "rns_matmul": m_ops,
+            "rns_normalize": n_ops, "rns_fused": f_ops}
+
+
+def _kernel_mods():
+    """{kernel (wrapper) name: ops module}; the module's ``launches`` is
+    an int, or a dict by wrapper name for the fused kernels."""
+    src = _sources()
+    return {"rns_convert": src["rns_convert"],
+            "rns_matmul": src["rns_matmul"],
+            "rns_normalize": src["rns_normalize"],
+            "rns_fused_encode_matmul": src["rns_fused"],
+            "rns_fused_matmul_normalize": src["rns_fused"],
+            "rns_fused_dot": src["rns_fused"]}
+
+
+def _launches() -> dict:
+    out = {}
+    for name, mod in _kernel_mods().items():
+        n = mod.launches
+        out[name] = n[name] if isinstance(n, dict) else n
+    return out
+
+
+def _reset_launches():
+    for name, mod in _kernel_mods().items():
+        if isinstance(mod.launches, dict):
+            mod.launches[name] = 0
+        else:
+            mod.launches = 0
 
 
 def _residues(torch, p, shape, g, dev):
@@ -151,20 +221,53 @@ def _residues(torch, p, shape, g, dev):
                         for m in p.moduli]).to(torch.int32)
 
 
+def _cost(torch, kernel, K, args, kw):
+    """(label, bytes, ops, rate) of one call: each input read once, each
+    output written once; matmul ops at the int8 rate."""
+    if kernel == "rns_convert":
+        x, s = args
+        T = x.numel()
+        out_bytes = 1 if kw.get("out_dtype", torch.int8) == torch.int8 \
+            else 4
+        return (f"x{list(x.shape)} scale{list(s.shape)}",
+                x.element_size() * T + 4 * s.numel() + K * T * out_bytes,
+                T, F32_OPS_PER_S)
+    if kernel == "rns_normalize":
+        r, = args
+        T = r[0].numel()
+        return (f"{list(r.shape)}", r.element_size() * K * T + 4 * T,
+                2 * K * T, F32_OPS_PER_S)
+    if kernel in ("rns_matmul", "rns_fused_matmul_normalize"):
+        a, b = args
+        _, D, N = b.shape
+        M = a.numel() // (K * D)
+        out = K * M * N * 4 if kernel == "rns_matmul" else M * N * 4
+        return (f"{list(a.shape)}{a.dtype}@{list(b.shape)}",
+                a.element_size() * K * M * D + b.element_size() * K * D * N
+                + out, 2 * K * M * N * D, INT8_OPS_PER_S)
+    x, s, b = args                  # rns_fused_encode_matmul / rns_fused_dot
+    _, D, N = b.shape
+    M = x.numel() // D
+    out = K * M * N * 4 if kernel == "rns_fused_encode_matmul" else M * N * 4
+    return (f"x{list(x.shape)} scale{list(s.shape)}@{list(b.shape)}",
+            4 * M * D + 4 * s.numel() + b.element_size() * K * D * N + out,
+            2 * K * M * N * D, INT8_OPS_PER_S)
+
+
 def phase_kernels(torch, dev, record, calls):
-    """Bit-exactness and times of the three kernels on the inputs [serve]
-    gave them, plus boundary cases; fills ``record``."""
+    """Bit-exactness and times of the six kernels on the inputs the two
+    serves gave them, plus boundary cases; fills ``record``."""
     from repro_torch.core.moduli import PROFILES, get_profile
     from repro_torch.core.rns import encode_exact
 
     if not calls:
-        raise AssertionError("no main-path calls recorded: [serve] did not "
-                             "run, so there are no main-path inputs")
+        raise AssertionError("no main-path calls recorded: the serves did "
+                             "not run, so there are no main-path inputs")
     g = torch.Generator(device=dev).manual_seed(0)
-    mods = _counters()
+    mods = _kernel_mods()
     bad = []
 
-    def case(kernel, label, fn, plain, nbytes, ops, rate, timed=True,
+    def case(kernel, label, fn, plain, nbytes=0, ops=0, rate=1, timed=True,
              library=None, calls_in_serve=None):
         got, want = fn(), plain()
         err = _max_abs_err(torch, got, want)
@@ -182,7 +285,7 @@ def phase_kernels(torch, dev, record, calls):
         record.setdefault(kernel, []).append(entry)
         if err != 0:
             bad.append(f"{kernel} {label}: max_abs_err={err}")
-        print(f"  {kernel:14s} {label:40s} " + " ".join(
+        print(f"  {kernel:26s} {label:52s} " + " ".join(
             f"{k}={v}" for k, v in entry.items() if k != "case"))
 
     def int_mm(a, b):
@@ -201,37 +304,17 @@ def phase_kernels(torch, dev, record, calls):
             return lambda: (None, "torch._int_mm needs more than 16 rows")
         return timed
 
-    # ---- the main path's own inputs: every distinct call of [serve]
+    # ---- the main paths' own inputs: every distinct call of both serves
     for entry in sorted(calls.values(),
                         key=lambda e: (e["kernel"], -e["calls"])):
         kernel, prof, args, kw = (entry["kernel"], entry["profile"],
                                   entry["args"], entry["kw"])
-        p = get_profile(prof)
-        K = p.n_digits
+        K = get_profile(prof).n_digits
+        label, nbytes, ops, rate = _cost(torch, kernel, K, args, kw)
         library = None
-        if kernel == "rns_convert":
-            x, s = args
-            T = x.numel()
-            out_bytes = 1 if kw.get("out_dtype", torch.int8) == torch.int8 \
-                else 4
-            label = f"x{list(x.shape)} scale{list(s.shape)}"
-            nbytes = x.element_size() * T + 4 * s.numel() + K * T * out_bytes
-            ops, rate = T, F32_OPS_PER_S
-        elif kernel == "rns_matmul":
+        if kernel == "rns_matmul":
             a, b = args
-            _, D, N = b.shape
-            M = a.numel() // (K * D)
-            label = f"{list(a.shape)}@{list(b.shape)}"
-            nbytes = K * (M * D * a.element_size() + D * N * b.element_size()
-                          + 4 * M * N)
-            ops, rate = 2 * K * M * N * D, INT8_OPS_PER_S
-            library = int_mm(a.reshape(K, M, D), b)
-        else:
-            r, = args
-            T = r[0].numel()
-            label = f"{list(r.shape)}"
-            nbytes = r.element_size() * K * T + 4 * T
-            ops, rate = 2 * K * T, F32_OPS_PER_S
+            library = int_mm(a.reshape(K, -1, b.shape[1]), b)
         mod = mods[kernel]
         wrapper, plain = getattr(mod, kernel), getattr(mod, kernel + "_plain")
         case(kernel, label,
@@ -241,8 +324,8 @@ def phase_kernels(torch, dev, record, calls):
              calls_in_serve=entry["calls"])
 
     # ---- boundary cases: every profile, odd shapes, ROADMAP C.1
-    c_ops, m_ops, n_ops = (mods[k] for k in ("rns_convert", "rns_matmul",
-                                             "rns_normalize"))
+    c_ops, m_ops, n_ops, f_ops = (mods[k] for k in (
+        "rns_convert", "rns_matmul", "rns_normalize", "rns_fused_dot"))
     for name in sorted(PROFILES):
         p = get_profile(name)
         x = 50 * torch.randn((4, 3, 96), generator=g, device=dev)
@@ -252,27 +335,53 @@ def phase_kernels(torch, dev, record, calls):
         case("rns_convert", f"{name} half-way/clip [4,3,96]",
              lambda: c_ops.rns_convert(p, x, s, bits=8, out_dtype=od),
              lambda: c_ops.rns_convert_plain(p, x, s, bits=8, out_dtype=od),
-             0, 0, 1, timed=False)
+             timed=False)
     for name in sorted(n for n, p in PROFILES.items() if p.int8_safe):
         p = get_profile(name)
         a = _residues(torch, p, (37, 300), g, dev).to(torch.int8)
         b = _residues(torch, p, (300, 70), g, dev).to(torch.int8)
         case("rns_matmul", f"{name} [K,37,300]@[K,300,70]",
              lambda: m_ops.rns_matmul(p, a, b),
-             lambda: m_ops.rns_matmul_plain(p, a, b), 0, 0, 1, timed=False)
+             lambda: m_ops.rns_matmul_plain(p, a, b), timed=False)
     c1 = torch.as_tensor(encode_exact("rns5", [4_503_599_542_737_792,
                                                -4_503_599_542_737_792]),
                          device=dev)
+    c1_want = torch.tensor([13505986560.0, -13505986560.0], device=dev)
     case("rns_normalize", "rns5 ROADMAP C.1",
-         lambda: n_ops.rns_normalize("rns5", c1),
-         lambda: torch.tensor([13505986560.0, -13505986560.0], device=dev),
-         0, 0, 1, timed=False)
+         lambda: n_ops.rns_normalize("rns5", c1), lambda: c1_want,
+         timed=False)
+    one = torch.as_tensor(encode_exact("rns5", [[1]]).astype("int8"),
+                          device=dev)
+    case("rns_fused_matmul_normalize", "rns5 ROADMAP C.1",
+         lambda: f_ops.rns_fused_matmul_normalize(
+             "rns5", c1.reshape(-1, 2, 1), one).reshape(-1),
+         lambda: c1_want, timed=False)
     for name in sorted(PROFILES):
         p = get_profile(name)
         r = _residues(torch, p, (4096,), g, dev)
         case("rns_normalize", f"{name} uniform [K,4096]",
              lambda: n_ops.rns_normalize(p, r),
-             lambda: n_ops.rns_normalize_plain(p, r), 0, 0, 1, timed=False)
+             lambda: n_ops.rns_normalize_plain(p, r), timed=False)
+        # the fused kernels at ragged M, D, N, row scales, both a dtypes
+        x = torch.randn((13, 130), generator=g, device=dev)
+        s = 127.0 / x.abs().amax(dim=1, keepdim=True)
+        bd = torch.int8 if p.int8_safe else torch.int32
+        b = _residues(torch, p, (130, 37), g, dev).to(bd)
+        for kernel in ("rns_fused_dot", "rns_fused_encode_matmul"):
+            case(kernel, f"{name} x[13,130] rows @[K,130,37]",
+                 lambda k=kernel: getattr(f_ops, k)(p, x, s, b, bits=8),
+                 lambda k=kernel: getattr(f_ops, k + "_plain")(p, x, s, b,
+                                                               bits=8),
+                 timed=False)
+        for ad in ((torch.int8, torch.int32) if p.int8_safe
+                   else (torch.int32,)):
+            a = _residues(torch, p, (13, 37), g, dev).to(ad)
+            b2 = _residues(torch, p, (37, 21), g, dev).to(bd)
+            case("rns_fused_matmul_normalize",
+                 f"{name} [K,13,37]{ad}@[K,37,21]",
+                 lambda: f_ops.rns_fused_matmul_normalize(p, a, b2),
+                 lambda: f_ops.rns_fused_matmul_normalize_plain(p, a, b2),
+                 timed=False)
     torch.cuda.synchronize()
     if bad:
         raise AssertionError("kernels disagree with their plain versions:\n"
@@ -280,22 +389,13 @@ def phase_kernels(torch, dev, record, calls):
     print("[kernels] ok: every kernel bit-equal to its plain version")
 
 
-def _counters():
-    from repro_torch.kernels.rns_convert import ops as c_ops
-    from repro_torch.kernels.rns_matmul import ops as m_ops
-    from repro_torch.kernels.rns_normalize import ops as n_ops
-
-    return {"rns_convert": c_ops, "rns_matmul": m_ops,
-            "rns_normalize": n_ops}
-
-
 @contextlib.contextmanager
 def _recording(torch, calls: dict):
-    """Keep, for each distinct call the three wrappers see (kernel,
+    """Keep, for each distinct call the six wrappers see (kernel,
     profile, input shapes and dtypes, options), its number of calls and
     a copy of its first call's inputs: what [kernels] checks and times.
     The wrappers themselves, and their launch counts, are untouched."""
-    mods = _counters()
+    mods = _kernel_mods()
     saved = {name: getattr(mod, name) for name, mod in mods.items()}
 
     def recorder(name, fn):
@@ -324,39 +424,78 @@ def _recording(torch, calls: dict):
             setattr(mod, name, saved[name])
 
 
-def phase_serve(torch, launches: dict, calls: dict):
+@contextlib.contextmanager
+def _step_launches(log: list):
+    """Append (step stats, kernel launches made inside that step) for
+    every ContinuousEngine.step run in the block."""
+    from repro_torch.serve.engine import ContinuousEngine
+
+    step = ContinuousEngine.step
+
+    def counted(self):
+        before = _launches()
+        out = step(self)
+        after = _launches()
+        log.append((out, {k: after[k] - before[k] for k in after}))
+        return out
+
+    ContinuousEngine.step = counted
+    try:
+        yield log
+    finally:
+        ContinuousEngine.step = step
+
+
+def phase_serve(torch, path: str, launches: dict, calls: dict,
+                serve_kw: dict, per_layer_ops: dict):
+    """Serve the SERVE traffic at full width on one path (``serve_kw``
+    for :func:`serve`), with counts from 0 and every distinct wrapper call
+    recorded and merged into ``calls``; ``launches[path]`` gets the run's
+    launches."""
     from repro_torch.launch.serve import serve
 
-    mods = _counters()
     # one short request first, so that first-use costs (kernel libraries
     # loaded, cuBLAS handles, the caching allocator) stay out of the
     # measured run: without it one call's TTFT p50 was 2.1 s, not 0.9 s
     serve("smollm-135m", full=True, rns="rns9", device="cuda", requests=1,
-          prompt_lens=(7,), new=2, max_seqs=SERVE["max_seqs"])
+          prompt_lens=(7,), new=2, max_seqs=SERVE["max_seqs"], **serve_kw)
     torch.cuda.synchronize()
-    for m in mods.values():
-        m.launches = 0
+    _reset_launches()
+    steps_log: list = []
+    path_calls: dict = {}
     t0 = time.perf_counter()
-    with _recording(torch, calls):
+    with _recording(torch, path_calls), _step_launches(steps_log):
         engine, results, stats = serve("smollm-135m", full=True, rns="rns9",
-                                       device="cuda", **SERVE)
+                                       device="cuda", **SERVE, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches.update({k: m.launches for k, m in mods.items()})
+    launches[path] = run = _launches()
     cfg = engine.cfg
     assert cfg.n_layers == FULL_LAYERS and cfg.d_model == 576
     steps = stats["steps"]
     decode_only = [s for s in steps if not s["admitted"] and s["decoded"]]
-    per_step = {k: v * FULL_LAYERS for k, v in JAX_DECODE_RNS_OPS.items()}
+    per_step = {k: v * FULL_LAYERS for k, v in per_layer_ops.items()}
     for s in steps:
         phases = len(s["admitted"]) + int(s["decoded"])
         want = {k: v * phases for k, v in per_step.items()}
         assert s["rns_ops"].as_dict() == want, (s["step"], s["rns_ops"])
-    assert all(v > 0 for v in launches.values()), launches
-    calls_by_kernel = {k: sum(e["calls"] for e in calls.values()
-                              if e["kernel"] == k) for k in mods}
-    assert calls_by_kernel == launches, (calls_by_kernel, launches)
     assert all(s["rns_ops"].fallbacks == 0 for s in steps)
+    want_launch = DECODE_LAUNCHES[path]
+    decode_launches = [lc for st, lc in steps_log
+                       if not st["admitted"] and st["decoded"]]
+    assert decode_launches, "no decode-only step"
+    for lc in decode_launches:
+        assert lc == want_launch, (path, lc)
+    for k, n in run.items():
+        assert (n > 0) == (want_launch[k] > 0), (path, k, n)
+    calls_by_kernel = {k: sum(e["calls"] for e in path_calls.values()
+                              if e["kernel"] == k) for k in run}
+    assert calls_by_kernel == run, (calls_by_kernel, run)
+    for key, entry in path_calls.items():
+        if key in calls:
+            calls[key]["calls"] += entry["calls"]
+        else:
+            calls[key] = entry
     assert len(results) == SERVE["requests"]
     for toks in results.values():
         assert len(toks) == SERVE["new"]
@@ -372,16 +511,17 @@ def phase_serve(torch, launches: dict, calls: dict):
             s["step_time_s"] for s in decode_only) if decode_only else None,
         "decode_step_rns_ops": (decode_only[0]["rns_ops"].as_dict()
                                 if decode_only else None),
-        "launches": dict(launches),
-        "distinct_calls": len(calls),
+        "decode_step_launches": decode_launches[0],
+        "launches": dict(run),
+        "distinct_calls": len(path_calls),
     }
     out.update(_profile_serve(torch, engine, results, stats["wall_s"]))
-    print(json.dumps({"serve": out}))
-    print("[serve] ok")
+    print(json.dumps({path: out}))
+    print(f"[{path}] ok")
 
 
 def _profile_serve(torch, engine, results, unprofiled_wall_s) -> dict:
-    """Device busy share over the [serve] traffic (prefills and decode
+    """Device busy share over the serve traffic (prefills and decode
     steps, the same prompts), re-served on the warm engine under
     torch.profiler.  The profiler's host cost lengthens that run, so the
     share is given against its own wall time and against the unprofiled
@@ -408,10 +548,11 @@ def _profile_serve(torch, engine, results, unprofiled_wall_s) -> dict:
         if getattr(ev, "device_type", None) is not None and \
                 str(ev.device_type).endswith("CUDA") and dt:
             busy_us += dt
-            for k in ("rns_convert", "rns_matmul", "rns_normalize"):
+            for k in ("rns_convert", "rns_matmul", "rns_normalize",
+                      "rns_fused"):
                 if k in ev.key:
                     by_name[k] = by_name.get(k, 0.0) + dt / 1e3
-    out = {"profiled_run": "the [serve] traffic re-served under "
+    out = {"profiled_run": "the serve traffic re-served under "
                            "torch.profiler on the warm engine",
            "profiled_wall_s": wall, "profiled_tokens_equal": same}
     if busy_us == 0:
@@ -427,10 +568,24 @@ def _profile_serve(torch, engine, results, unprofiled_wall_s) -> dict:
     return out
 
 
+def _first_logits(torch, M, model, cfg, prompts, device):
+    out = []
+    for pr in prompts:
+        tok = torch.as_tensor(pr[None].astype("int64"), device=device)
+        n = torch.tensor([len(pr)], device=device)
+        out.append(M.prefill_ragged(model, cfg, tok, n)[0].cpu())
+    return out
+
+
+def _tokens(results) -> list:
+    return [results[r].tolist() for r in sorted(results)]
+
+
 def phase_identity(torch):
     from repro_torch.configs.base import get_config
     from repro_torch.core.rns_matmul import RnsDotConfig
     from repro_torch.models import model as M
+    from repro_torch.models.resident import encode_resident
     from repro_torch.serve.engine import ContinuousEngine, ServeConfig
     import numpy as np
 
@@ -465,25 +620,23 @@ def phase_identity(torch):
     nudged = copy.deepcopy(cpu_model)
     w = nudged.blocks[0].attn.wo
     w.data = torch.nextafter(w.data, torch.full_like(w.data, float("inf")))
-    worst = quant = ulp = 0.0
     float_cfg = dataclasses.replace(cfg, rns=None)
-    for pr in prompts:
-        tok = torch.as_tensor(pr[None].astype(np.int64))
-        n = torch.tensor([len(pr)])
-        lc, _ = M.prefill_ragged(cpu_model, cfg, tok, n)
-        lg, _ = M.prefill_ragged(gpu_model, cfg, tok.cuda(), n.cuda())
-        lf, _ = M.prefill_ragged(cpu_model, float_cfg, tok, n)
-        ln, _ = M.prefill_ragged(nudged, cfg, tok, n)
-        worst = max(worst, float((lg.cpu() - lc).abs().max()))
-        quant = max(quant, float((lf - lc).abs().max()))
-        ulp = max(ulp, float((ln - lc).abs().max()))
+    lc = _first_logits(torch, M, cpu_model, cfg, prompts, "cpu")
+    lg = _first_logits(torch, M, gpu_model, cfg, prompts, "cuda")
+    lf = _first_logits(torch, M, cpu_model, float_cfg, prompts, "cpu")
+    ln = _first_logits(torch, M, nudged, cfg, prompts, "cpu")
+
+    def gap(xs, ys):
+        return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
+
+    worst, quant, ulp = gap(lg, lc), gap(lf, lc), gap(ln, lc)
     kw = dict(max_cache=80, max_new_tokens=8, page_size=16, max_seqs=4)
     res_g, _ = ContinuousEngine(gpu_model, ServeConfig(**kw),
                                 device="cuda").run(prompts)
     res_c, _ = ContinuousEngine(cpu_model, ServeConfig(**kw),
                                 device="cpu").run(prompts)
-    match = sum(int(a == b) for r in res_c
-                for a, b in zip(res_c[r].tolist(), res_g[r].tolist()))
+    match = sum(int(a == b) for ta, tb in zip(_tokens(res_c), _tokens(res_g))
+                for a, b in zip(ta, tb))
     total = sum(len(v) for v in res_c.values())
     print(f"  first-step logits max |card - cpu| = {worst} "
           f"(tolerance {LOGIT_TOL}); on the cpu alone, one ulp on one "
@@ -497,10 +650,61 @@ def phase_identity(torch):
         raise AssertionError(f"first-step logits differ by {worst}")
     if match != total:
         raise AssertionError(f"greedy tokens differ: {match}/{total}")
+
+    # on the card: fused kernels on resident weights == the per-op cuda
+    # path re-encoding its weights, bit for bit (JAX promises resident ==
+    # re-encode and fused == unfused)
+    fused_cfg = dataclasses.replace(cfg, rns=dataclasses.replace(
+        cfg.rns, backend="cuda_fused"))
+    res_model = encode_resident(copy.deepcopy(gpu_model), fused_cfg)
+    lr = _first_logits(torch, M, res_model, fused_cfg, prompts, "cuda")
+    l_equal = all(torch.equal(a, b) for a, b in zip(lr, lg))
+    res_f, _ = ContinuousEngine(copy.deepcopy(gpu_model), ServeConfig(
+        rns_backend="cuda_fused", resident_weights=True, **kw),
+        device="cuda").run(prompts)
+    t_equal = _tokens(res_f) == _tokens(res_g)
+    print(f"  card, fused resident per-op vs re-encode per-op: logits "
+          f"bit-equal {l_equal}, greedy tokens equal {t_equal}")
+    if not (l_equal and t_equal):
+        raise AssertionError("fused resident per-op path differs from the "
+                             "re-encode per-op path on the card")
+
+    # the deferred fused path, card vs CPU
+    def_cfg = dataclasses.replace(cfg, rns=dataclasses.replace(
+        cfg.rns, backend="cuda_fused", defer=True))
+    def_cpu = encode_resident(copy.deepcopy(cpu_model), def_cfg)
+    def_gpu = encode_resident(copy.deepcopy(gpu_model), def_cfg)
+    ldc = _first_logits(torch, M, def_cpu, def_cfg, prompts, "cpu")
+    ldg = _first_logits(torch, M, def_gpu, def_cfg, prompts, "cuda")
+    d_worst, d_quant = gap(ldg, ldc), gap(lf, ldc)
+    dkw = dict(rns_backend="cuda_fused", rns_defer=True,
+               resident_weights=True, **kw)
+    res_dg, _ = ContinuousEngine(copy.deepcopy(gpu_model), ServeConfig(
+        **dkw), device="cuda").run(prompts)
+    res_dc, _ = ContinuousEngine(copy.deepcopy(cpu_model), ServeConfig(
+        **dkw), device="cpu").run(prompts)
+    d_match = sum(int(a == b) for ta, tb in zip(_tokens(res_dc),
+                                                _tokens(res_dg))
+                  for a, b in zip(ta, tb))
+    d_total = sum(len(v) for v in res_dc.values())
+    print(f"  deferred fused path: first-step logits max |card - cpu| = "
+          f"{d_worst} (tolerance {LOGIT_TOL}); its 8-bit datapath vs float "
+          f"on the cpu: {d_quant}; matching greedy tokens: "
+          f"{d_match}/{d_total}")
+    if not LOGIT_TOL < d_quant:
+        raise AssertionError(f"tolerance {LOGIT_TOL} would not tell the "
+                             f"deferred datapath ({d_quant}) from float")
+    if not d_worst <= LOGIT_TOL:
+        raise AssertionError(f"deferred first-step logits differ by "
+                             f"{d_worst}")
+    if d_match != d_total:
+        raise AssertionError(f"deferred greedy tokens differ: "
+                             f"{d_match}/{d_total}")
     print("[identity] ok")
 
 
 def _kernel_line(record: dict, launches: dict) -> dict:
+    fused_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused.cu"
     meta = {
         "rns_convert": ("src/repro_torch/kernels/rns_convert/csrc/"
                         "rns_convert.cu",
@@ -510,17 +714,25 @@ def _kernel_line(record: dict, launches: dict) -> dict:
         "rns_normalize": ("src/repro_torch/kernels/rns_normalize/csrc/"
                           "rns_normalize.cu",
                           "src/repro/kernels/rns_normalize/kernel.py:93"),
+        "rns_fused_encode_matmul": (
+            fused_src, "src/repro/kernels/rns_fused/kernel.py:82"),
+        "rns_fused_matmul_normalize": (
+            fused_src, "src/repro/kernels/rns_fused/kernel.py:141"),
+        "rns_fused_dot": (fused_src,
+                          "src/repro/kernels/rns_fused/kernel.py:194"),
     }
     out = []
     for name, (src, replaces) in meta.items():
         cases = record.get(name, [])
         timed = [c for c in cases if "ms" in c]
-        # the head of the line: the main-path input called most in [serve]
+        # the head of the line: the main-path input called most
         head = max(timed, key=lambda c: c.get("calls_in_serve", 0),
                    default={})
+        by_path = {path: run.get(name, 0) for path, run in launches.items()}
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches.get(name, 0),
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max((c["max_abs_err"] for c in cases),
                                default=None),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
@@ -548,11 +760,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} on {torch.cuda.get_device_name(0)}")
     record, launches, calls, failed = {}, {}, {}, []
-    for name, fn in [("build", phase_build),
-                     ("serve", lambda: phase_serve(torch, launches, calls)),
-                     ("kernels",
-                      lambda: phase_kernels(torch, dev, record, calls)),
-                     ("identity", lambda: phase_identity(torch))]:
+    for name, fn in [
+            ("build", phase_build),
+            ("serve", lambda: phase_serve(torch, "serve", launches, calls,
+                                          {}, JAX_DECODE_RNS_OPS)),
+            ("serve_fused", lambda: phase_serve(
+                torch, "serve_fused", launches, calls, FUSED_SERVE,
+                JAX_FUSED_DECODE_RNS_OPS)),
+            ("kernels", lambda: phase_kernels(torch, dev, record, calls)),
+            ("identity", lambda: phase_identity(torch))]:
         print(f"[{name}]", flush=True)
         t0 = time.perf_counter()
         try:

@@ -8,18 +8,27 @@ Every residue-domain computation reduces to three primitives:
 
 Backends:
 
-  * ``reference`` -- plain PyTorch (``core/``), on any device;
-  * ``cuda``      -- the hand-written kernels (``kernels/*/ops.py``).  A
+  * ``reference``  -- plain PyTorch (``core/``), on any device;
+  * ``cuda``       -- the hand-written kernels (``kernels/*/ops.py``).  A
     wrapper launches its kernel for a CUDA tensor and takes its plain
     version only for a tensor on the CPU;
-  * ``auto``      -- ``cuda`` for CUDA operands, ``reference`` otherwise.
+  * ``cuda_fused`` -- ``cuda``, plus the fused composite kernels
+    (``kernels/rns_fused``) at the ``fused_*`` call sites below;
+  * ``auto``       -- ``cuda`` for CUDA operands, ``reference`` otherwise.
 
-The fused composites and digit sharding of ``repro.core.dispatch`` are
-later slices of the port: asking for them raises.
+Fused composites: ``fused_encode_matmul`` / ``fused_matmul_normalize`` /
+``fused_dot`` run the convert -> matmul -> normalize chain as one kernel,
+bit-identical to the three stages, without the activation residues or
+the [K, ..., N] accumulator going through device memory.  On a backend
+that is not fused, or for a scale that cannot fold into one scale per
+activation row, they decompose into the primitives; the latter
+downgrade tallies ``fallbacks``.  Digit sharding is a later slice.
 
 ``count_ops()`` tallies primitive calls; the port runs eagerly, so the
 tally is of calls made (the JAX package tallies at trace time, once per
-call site reached, which gives the same numbers per step).
+call site reached, which gives the same numbers per layer and step).
+A fused composite tallies its constituent logical ops plus one
+``fused``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -32,14 +41,14 @@ import torch
 
 from repro_torch.core.moduli import get_profile
 
-__all__ = ["BACKENDS", "resolve_backend", "OpCounts", "count_ops", "convert",
-           "matmul", "normalize"]
+__all__ = ["BACKENDS", "resolve_backend", "is_fused", "fusion_active",
+           "OpCounts", "count_ops", "convert", "matmul", "normalize",
+           "fused_encode_matmul", "fused_matmul_normalize", "fused_dot"]
 
-BACKENDS = ("reference", "cuda")
-_LATER = {
-    "pallas_fused": "the fused backend (kernels/rns_fused)",
-    "cuda_fused": "the fused backend (kernels/rns_fused)",
-}
+BACKENDS = ("reference", "cuda", "cuda_fused")
+# a fused backend's primitives are its unfused counterpart's; only the
+# fused_* composites below change what runs
+_FUSED_TO_UNFUSED = {"cuda_fused": "cuda"}
 
 _state = threading.local()      # per-thread op-counter stacks
 
@@ -50,22 +59,36 @@ def resolve_backend(name: str | None, operand: torch.Tensor) -> str:
     name = name or "auto"
     if name == "auto":
         return "cuda" if operand.is_cuda else "reference"
-    if name in _LATER:
-        raise NotImplementedError(
-            f"backend {name!r}: {_LATER[name]} is a later slice of the port")
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; have {BACKENDS} or auto")
     return name
+
+
+def is_fused(name: str | None) -> bool:
+    """Whether the backend routes the composites through the fused
+    kernels (``auto`` never does)."""
+    return name in _FUSED_TO_UNFUSED
+
+
+def fusion_active(profile, backend: str | None) -> bool:
+    """Would the composites launch fused kernels for ``profile``?  The
+    JAX package also says no under a digit-sharding context; the port has
+    none yet (a later slice), so this is :func:`is_fused`."""
+    return is_fused(backend)
+
+
+def _unfused(name: str | None, operand: torch.Tensor) -> str:
+    be = resolve_backend(name, operand)
+    return _FUSED_TO_UNFUSED.get(be, be)
 
 
 # ------------------------------------------------------------ counters ----
 @dataclasses.dataclass(eq=False)  # identity semantics: counters nest
 class OpCounts:
     """Primitive tallies; ``weight_converts`` is the subset of ``converts``
-    spent re-encoding static weights.  ``fused`` and ``fallbacks`` (the
-    JAX package's fused launches and requested-backend downgrades) stay
-    0 here: this slice has neither, and a wrapper given a CUDA tensor
-    launches its kernel or raises."""
+    spent re-encoding static weights (0 on resident weights), ``fused``
+    counts composite kernel calls and ``fallbacks`` the composites that
+    decomposed because their scale could not fold into rows."""
 
     converts: int = 0
     matmuls: int = 0
@@ -112,7 +135,7 @@ def convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
     if weight:
         _tally("weight_converts")
     p = get_profile(profile)
-    be = resolve_backend(backend, x)
+    be = _unfused(backend, x)
     out_dtype = torch.int8 if p.int8_safe else torch.int32
     if be == "reference":
         from repro_torch.core.quantize import quantize_with_scale
@@ -129,7 +152,7 @@ def matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
            backend: str | None = None) -> torch.Tensor:
     """Digit-sliced modular matmul: [K,...,M,D] @ [K,D,N] -> [K,...,M,N]."""
     _tally("matmuls")
-    be = resolve_backend(backend, a_res)
+    be = _unfused(backend, a_res)
     if be == "reference":
         from repro_torch.core.rns_matmul import rns_matmul_res
 
@@ -144,12 +167,11 @@ def normalize(profile, res: torch.Tensor, *,
     """MRC-normalize residues [K, ...] to signed float32 values.
 
     The scaled form of ``repro.core.dispatch.normalize`` (its
-    ``inv_scale``, with a reference fallback for scales outside the
-    float32 range) has no caller on this slice's path: it comes with the
-    residue-tensor slice that passes scales.
+    ``inv_scale``) serves only fractional residue tensors (``frac_exp``
+    != 0, ROADMAP A.10), which the port does not have yet.
     """
     _tally("normalizes")
-    be = resolve_backend(backend, res)
+    be = _unfused(backend, res)
     if be == "reference":
         from repro_torch.core import mrc
 
@@ -157,3 +179,81 @@ def normalize(profile, res: torch.Tensor, *,
     from repro_torch.kernels.rns_normalize.ops import rns_normalize
 
     return rns_normalize(profile, res)
+
+
+# ------------------------------------------------- fused composites ----
+def _fused_scale_ok(x: torch.Tensor, scale) -> bool:
+    """The fused kernels take at most one scale per activation ROW: a
+    scalar, or a keepdims shape with a broadcast last dim."""
+    if not torch.is_tensor(scale) or scale.ndim == 0:
+        return True
+    xs, ss = tuple(x.shape), tuple(scale.shape)
+    return (len(ss) == len(xs) and ss[-1] == 1
+            and all(a in (1, b) for a, b in zip(ss, xs)))
+
+
+def _fuse(profile, x, scale, backend) -> bool:
+    """Whether a composite over activation ``x`` runs fused; a fused
+    backend with a scale that cannot fold into rows tallies a fallback."""
+    if not fusion_active(profile, backend):
+        return False
+    if not _fused_scale_ok(x, scale):
+        _tally("fallbacks")
+        return False
+    return True
+
+
+def fused_encode_matmul(profile, x: torch.Tensor, scale, w_res, *,
+                        bits: int = 16, backend: str | None = None):
+    """convert(x, scale) -> matmul with ``w_res`` [K, D, N] as one kernel:
+    [K, ..., N] int32 residues.  Tallies a convert, a matmul and a
+    ``fused``; decomposes into the primitives when not fused."""
+    p = get_profile(profile)
+    if not _fuse(p, x, scale, backend):
+        ub = _unfused(backend, x)
+        res = convert(p, x, scale, bits=bits, backend=ub)
+        return matmul(p, res, w_res, backend=ub)
+    _tally("converts")
+    _tally("matmuls")
+    _tally("fused")
+    from repro_torch.kernels.rns_fused.ops import rns_fused_encode_matmul
+
+    return rns_fused_encode_matmul(p, x, scale, w_res, bits=bits)
+
+
+def fused_matmul_normalize(profile, a_res: torch.Tensor, b_res, *,
+                           backend: str | None = None):
+    """matmul -> normalize as one kernel: [..., N] float32, unscaled.
+    Tallies a matmul, a normalize and a ``fused``."""
+    p = get_profile(profile)
+    if not fusion_active(p, backend):
+        ub = _unfused(backend, a_res)
+        return normalize(p, matmul(p, a_res, b_res, backend=ub), backend=ub)
+    _tally("matmuls")
+    _tally("normalizes")
+    _tally("fused")
+    from repro_torch.kernels.rns_fused.ops import rns_fused_matmul_normalize
+
+    return rns_fused_matmul_normalize(p, a_res, b_res)
+
+
+def fused_dot(profile, x: torch.Tensor, scale, w_res, *, bits: int = 16,
+              backend: str | None = None, shared_encode: bool = False):
+    """convert -> matmul -> normalize as one kernel: floats in, [..., N]
+    float32 out, unscaled.  Tallies a convert (none with
+    ``shared_encode``: x's conversion was tallied by a sibling composite
+    over the same x; the kernel still quantizes x itself), a matmul, a
+    normalize and a ``fused``."""
+    p = get_profile(profile)
+    if not _fuse(p, x, scale, backend):
+        ub = _unfused(backend, x)
+        res = convert(p, x, scale, bits=bits, backend=ub)
+        return normalize(p, matmul(p, res, w_res, backend=ub), backend=ub)
+    if not shared_encode:
+        _tally("converts")
+    _tally("matmuls")
+    _tally("normalizes")
+    _tally("fused")
+    from repro_torch.kernels.rns_fused.ops import rns_fused_dot
+
+    return rns_fused_dot(p, x, scale, w_res, bits=bits)

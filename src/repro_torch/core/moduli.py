@@ -71,6 +71,11 @@ class RnsProfile:
         return math.log2(self.M)
 
     @property
+    def signed_bits(self) -> int:
+        """Guaranteed exact signed-magnitude bits (|X| < M/2)."""
+        return int(math.floor(self.range_bits)) - 1
+
+    @property
     def max_digit(self) -> int:
         return max(self.moduli)
 

@@ -14,7 +14,7 @@ import torch
 from repro_torch.core.moduli import RnsProfile, get_profile
 
 __all__ = ["Tables", "tables", "moduli_vec", "encode_int32", "encode_exact",
-           "decode_exact"]
+           "decode_exact", "rns_add", "rns_mul"]
 
 
 class Tables:
@@ -78,6 +78,17 @@ def encode_int32(profile, v: torch.Tensor) -> torch.Tensor:
     value maps to M - |v|."""
     v = v.to(torch.int32)
     return torch.remainder(v[None], moduli_vec(profile, v.ndim + 1, v.device))
+
+
+def rns_add(profile, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """PAC sum of residues [K, ...] (floor-mod, like ``jnp.remainder``)."""
+    return torch.remainder(x + y, moduli_vec(profile, x.ndim, x.device))
+
+
+def rns_mul(profile, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """PAC product of residues [K, ...]: int32 digits below 2**8 keep the
+    product below 2**16, so no int32 overflow."""
+    return torch.remainder(x * y, moduli_vec(profile, x.ndim, x.device))
 
 
 def encode_exact(profile, values) -> np.ndarray:

@@ -1,3 +1,4 @@
-"""Hand-written CUDA kernels of the port, one package per Pallas kernel
-of ``repro.kernels``: ``ops.py`` holds the wrapper, its plain PyTorch
-version and its launch counter; ``csrc/`` the CUDA source."""
+"""Hand-written CUDA kernels of the port, one package per kernel package
+of ``repro.kernels``: ``ops.py`` holds the wrappers, their plain PyTorch
+versions and launch counters; ``csrc/`` the CUDA source.  The shared
+headers (profile tables, the quantize rule, the MRC) are in ``csrc/``."""

@@ -1,6 +1,6 @@
 """Build and bind the hand-written CUDA kernels (nvcc + ctypes).
 
-Each kernel is one ``.cu`` file with a plain C entry point.  It is
+Each kernel package is one ``.cu`` file with plain C entry points.  It is
 compiled for Hopper (``sm_90a``) at first use into ``build/`` at the root
 of the checkout, named by a hash of its sources and flags, and loaded
 with ``ctypes``.  Nothing here runs at import time: the CPU tests import

@@ -1,11 +1,12 @@
 // Forward conversion: float32 -> residue digit planes, one thread per
-// element.  v = clip(rint(x * s), -qmax, qmax), then residue_j = v mod m_j
-// (floor-mod).  Replaces the Pallas kernel
+// element.  v = clip(rint(x * s), -qmax, qmax) (csrc/rns_quantize.cuh),
+// then residue_j = v mod m_j (floor-mod).  Replaces the Pallas kernel
 // src/repro/kernels/rns_convert/kernel.py:rns_convert_tiles; see
 // kernels/rns_convert/ops.py for its bound and design.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rns_quantize.cuh"
 #include "rns_tables.cuh"
 
 template <typename OutT>
@@ -16,11 +17,7 @@ __global__ void rns_convert_kernel(const float* __restrict__ x,
                                    OutT* __restrict__ out) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= T) return;
-  // __fmul_rn: one rounded float32 product, never contracted; rintf
-  // rounds half to even like jnp.round / torch.round
-  float v = rintf(__fmul_rn(x[i], s[i / group]));
-  v = fminf(fmaxf(v, -qmax), qmax);
-  int q = (int)v;
+  const int q = quantize_rn(x[i], s[i / group], qmax);
   for (int j = 0; j < t.K; ++j) {
     out[(long long)j * T + i] = (OutT)floor_mod(q, t.moduli[j]);
   }

@@ -1,0 +1,237 @@
+"""Fused residue-datapath kernels: one projection's convert -> digit
+matmul -> MRC normalize chain, or the first or last two of its stages,
+in one kernel.
+
+Replaces the Pallas TPU kernels of ``src/repro/kernels/rns_fused/kernel.py``:
+``rns_fused_encode_matmul_tiles`` (``pl.pallas_call`` at ``kernel.py:96``),
+``rns_fused_matmul_normalize_tiles`` (``:151``) and ``rns_fused_dot_tiles``
+(``:205``).
+
+Bound on an H100 SXM at 700 W (data-sheet 3.35 TB/s, 1979 int8 TOP/s):
+bytes at the main path's shapes.  A decode ``rns_fused_dot``
+[8, 576] @ [9, 576, 1536] reads 8.0 MB of int8 weight residues for
+2 * 9 * 8 * 576 * 1536 = 127 M int8 operations: ~2.4 us of memory traffic
+against ~0.06 us of int8 tensor-core time; ``rns_fused_matmul_normalize``
+adds the 442 KB of int32 ``a_res`` [9, 8, 1536], and
+``rns_fused_encode_matmul`` writes [9, 8, 1536] int32 residues instead
+of [8, 1536] floats.  Prefill (144 rows) stays below the ~590 op/byte
+int8 ridge.
+
+Design (a simple first kernel, csrc/rns_fused.cu): a block owns an
+8 x 16 output tile for all K digits, one warp per digit, each lane one
+column and 4 of the tile's rows, the digit's accumulators in registers;
+32-deep K tiles staged in shared memory, the next one loaded into
+registers while the current one is multiplied; the quantize prologue
+(``csrc/rns_quantize.cuh``, the rule of ``rns_convert``) and the MRC
+epilogue (``csrc/rns_mrc.cuh``, the sum of ``rns_normalize``) are
+shared with the unfused kernels, so the fused kernels give their bits.
+CUDA cores, not int8 tensor cores; no split over D, so a decode
+projection with N = 576 runs 36 blocks.  The scale travels as one
+float per run of ``group`` activation rows (a scalar, per-row or
+per-token grid, never expanded to x's shape).
+
+On a CPU tensor each wrapper takes its plain version: the composition of
+the port's plain stages, as ``repro/kernels/rns_fused/ref.py`` composes
+the JAX ones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.moduli import get_profile
+from repro_torch.kernels import build
+from repro_torch.kernels.rns_convert.ops import _scale_runs, rns_convert_plain
+from repro_torch.kernels.rns_matmul.ops import rns_matmul_plain
+from repro_torch.kernels.rns_normalize.ops import (SUPPORTED_K,
+                                                   rns_normalize_plain)
+
+__all__ = ["rns_fused_encode_matmul", "rns_fused_matmul_normalize",
+           "rns_fused_dot", "rns_fused_encode_matmul_plain",
+           "rns_fused_matmul_normalize_plain", "rns_fused_dot_plain",
+           "SOURCE", "launches"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_fused.cu"
+_BK = 32                    # the kernel's K tile (csrc/rns_fused.cu)
+
+#: kernel launches made by each wrapper (CUDA tensors only)
+launches = {"rns_fused_encode_matmul": 0, "rns_fused_matmul_normalize": 0,
+            "rns_fused_dot": 0}
+
+
+def _bind(lib):
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    tab = ctypes.POINTER(build.RnsTablesC)
+    for name in ("rns_fused_encode_matmul", "rns_fused_dot"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, ll, f, p, i, i, i, i, i, tab, p, p]
+        fn.restype = ctypes.c_int
+    lib.rns_fused_matmul_normalize.argtypes = [p, i, p, i, i, i, i, i, tab,
+                                               p, p]
+    lib.rns_fused_matmul_normalize.restype = ctypes.c_int
+
+
+# ------------------------------------------------------ plain versions ----
+def rns_fused_encode_matmul_plain(profile, x, scale, b_res, *,
+                                  bits: int = 16) -> torch.Tensor:
+    """convert -> ``rns_matmul_res``: [K, ..., N] int32 residues."""
+    p = get_profile(profile)
+    res = rns_convert_plain(p, x, scale, bits=bits, out_dtype=torch.int32)
+    return rns_matmul_plain(p, res, b_res)
+
+
+def rns_fused_matmul_normalize_plain(profile, a_res,
+                                     b_res) -> torch.Tensor:
+    """``rns_matmul_res`` -> ``mrc.decode_float``: [..., N] float32."""
+    return rns_normalize_plain(profile,
+                               rns_matmul_plain(profile, a_res, b_res))
+
+
+def rns_fused_dot_plain(profile, x, scale, b_res, *,
+                        bits: int = 16) -> torch.Tensor:
+    """convert -> matmul -> normalize: [..., N] float32 (unscaled)."""
+    return rns_normalize_plain(profile, rns_fused_encode_matmul_plain(
+        profile, x, scale, b_res, bits=bits))
+
+
+# ------------------------------------------------------------ wrappers ----
+def _check_b(name, p, b_res, D, device):
+    if b_res.device != device:
+        raise ValueError(f"{name}: operands on {device} and {b_res.device}; "
+                         "need one CUDA device")
+    if b_res.ndim != 3 or b_res.shape[0] != p.n_digits or \
+            b_res.shape[1] != D:
+        raise ValueError(f"{name}: b_res {tuple(b_res.shape)} for {p.name} "
+                         f"and D={D}")
+    want = torch.int8 if p.int8_safe else torch.int32
+    if b_res.dtype != want:
+        raise ValueError(f"{name}: b_res {b_res.dtype}; {p.name} residues "
+                         f"are {want}")
+    if p.lazy_chunk - 1 < _BK:
+        raise ValueError(f"{name}: lazy_chunk {p.lazy_chunk} < tile")
+    return b_res.contiguous()
+
+
+def _row_scales(name, x, scale):
+    """(flat float32 scales, group): one scale per run of ``group``
+    flattened rows of x [..., D]; ``scale`` is a scalar or anything that
+    broadcasts to ``x.shape[:-1] + (1,)``."""
+    lead = tuple(x.shape[:-1])
+    if not torch.is_tensor(scale):
+        scale = torch.tensor(scale, dtype=torch.float32, device=x.device)
+    if scale.device != x.device:
+        raise ValueError(f"{name}: scale on {scale.device}, x on {x.device}")
+    if scale.ndim:
+        ss = tuple(scale.shape)
+        if (len(ss) > x.ndim or ss[-1] != 1 or any(
+                a not in (1, b) for a, b in zip(ss[-2::-1], lead[::-1]))):
+            raise ValueError(f"{name}: scale {ss} is not one scale per row "
+                             f"of x {tuple(x.shape)}")
+        scale = scale.reshape(ss[:-1])
+    return _scale_runs(lead, scale.to(torch.float32))
+
+
+def _quantized_call(name, p, x, scale, b_res, bits, out):
+    """Launch rns_fused_encode_matmul / rns_fused_dot into ``out``."""
+    D, N = x.shape[-1], b_res.shape[-1]
+    b2 = _check_b(name, p, b_res, D, x.device)
+    if p.n_digits not in SUPPORTED_K:
+        raise ValueError(f"{name}: K={p.n_digits} (have {SUPPORTED_K})")
+    x2 = x.to(torch.float32).contiguous()
+    s, group = _row_scales(name, x2, scale)
+    M = math.prod(x.shape[:-1])
+    if M and N:
+        lib = build.load("rns_fused", SOURCE, _bind)
+        with torch.cuda.device(x.device):
+            err = getattr(lib, name)(
+                x2.data_ptr(), s.data_ptr(), group,
+                float(2 ** (bits - 1) - 1), b2.data_ptr(),
+                int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
+                ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, name)
+        launches[name] += 1
+    return out
+
+
+def rns_fused_encode_matmul(profile, x: torch.Tensor, scale,
+                            b_res: torch.Tensor, *,
+                            bits: int = 16) -> torch.Tensor:
+    """x [..., D] float + row scales, b_res [K, D, N] -> [K, ..., N] int32
+    residues of ``convert(x, scale) @ b_res``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises).
+    """
+    p = get_profile(profile)
+    if x.device.type == "cpu" and b_res.device.type == "cpu":
+        return rns_fused_encode_matmul_plain(p, x, scale, b_res, bits=bits)
+    if not x.is_cuda:
+        raise ValueError(f"rns_fused_encode_matmul: x on {x.device}")
+    lead, N = tuple(x.shape[:-1]), b_res.shape[-1]
+    out = torch.empty((p.n_digits,) + lead + (N,), dtype=torch.int32,
+                      device=x.device)
+    return _quantized_call("rns_fused_encode_matmul", p, x, scale, b_res,
+                           bits, out)
+
+
+def rns_fused_dot(profile, x: torch.Tensor, scale, b_res: torch.Tensor, *,
+                  bits: int = 16) -> torch.Tensor:
+    """x [..., D] float + row scales, b_res [K, D, N] -> [..., N] float32
+    signed values (unscaled) of ``convert(x, scale) @ b_res``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises).
+    """
+    p = get_profile(profile)
+    if x.device.type == "cpu" and b_res.device.type == "cpu":
+        return rns_fused_dot_plain(p, x, scale, b_res, bits=bits)
+    if not x.is_cuda:
+        raise ValueError(f"rns_fused_dot: x on {x.device}")
+    lead, N = tuple(x.shape[:-1]), b_res.shape[-1]
+    out = torch.empty(lead + (N,), dtype=torch.float32, device=x.device)
+    return _quantized_call("rns_fused_dot", p, x, scale, b_res, bits, out)
+
+
+def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
+                               b_res: torch.Tensor) -> torch.Tensor:
+    """a_res [K, ..., D] (int8 or int32), b_res [K, D, N] -> [..., N]
+    float32 signed values (unscaled) of ``a_res @ b_res``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises).
+    """
+    name = "rns_fused_matmul_normalize"
+    p = get_profile(profile)
+    if a_res.device.type == "cpu" and b_res.device.type == "cpu":
+        return rns_fused_matmul_normalize_plain(p, a_res, b_res)
+    if not a_res.is_cuda:
+        raise ValueError(f"{name}: a_res on {a_res.device}")
+    K, D, N = p.n_digits, a_res.shape[-1], b_res.shape[-1]
+    if K not in SUPPORTED_K or a_res.shape[0] != K:
+        raise ValueError(f"{name}: a_res {tuple(a_res.shape)} for {p.name} "
+                         f"(kernel digit counts {SUPPORTED_K})")
+    if a_res.dtype not in (torch.int8, torch.int32) or (
+            a_res.dtype == torch.int8 and not p.int8_safe):
+        raise ValueError(f"{name}: a_res {a_res.dtype} for {p.name}")
+    b2 = _check_b(name, p, b_res, D, a_res.device)
+    lead = tuple(a_res.shape[1:-1])
+    a2 = a_res.reshape(K, -1, D).contiguous()
+    M = a2.shape[1]
+    out = torch.empty(lead + (N,), dtype=torch.float32, device=a_res.device)
+    if M and N:
+        lib = build.load("rns_fused", SOURCE, _bind)
+        with torch.cuda.device(a_res.device):
+            err = lib.rns_fused_matmul_normalize(
+                a2.data_ptr(), int(a2.dtype == torch.int8), b2.data_ptr(),
+                int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
+                ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
+                torch.cuda.current_stream(a_res.device).cuda_stream)
+        build.check(err, name)
+        launches[name] += 1
+    return out

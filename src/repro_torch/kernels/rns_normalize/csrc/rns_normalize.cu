@@ -1,32 +1,13 @@
 // MRC normalization: [K, T] int32 residues -> [T] float32 signed values,
-// one thread per element, the K digits in registers (K is a template
-// parameter so the digit loops unroll).  Steps, as core/mrc.decode_float:
-// MRC digits; sign = digits >= those of M/2 (lexicographic, most
-// significant last); magnitude = (m - r) mod m for negatives; MRC of the
-// magnitude; sum_j d_j * float32(W_j) digit-ascending with __fmul_rn /
-// __fadd_rn, so nvcc cannot contract the sum into FMAs (an FMA changes the
-// last bit, ROADMAP C.1); negate.  Replaces the Pallas kernel
+// one thread per element, the K digits in registers; the per-element
+// steps live in csrc/rns_mrc.cuh (shared with the fused kernels).
+// Replaces the Pallas kernel
 // src/repro/kernels/rns_normalize/kernel.py:rns_normalize_tiles; see
 // kernels/rns_normalize/ops.py for its bound and design.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rns_tables.cuh"
-
-template <int K>
-__device__ __forceinline__ void mrc_digits(const int (&r_in)[K], int (&d)[K],
-                                           const RnsTables& t) {
-  int r[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) r[j] = r_in[j];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    d[i] = r[i];
-#pragma unroll
-    for (int j = i + 1; j < K; ++j)
-      r[j] = floor_mod((r[j] - d[i]) * t.inv[i * RNS_MAX_K + j], t.moduli[j]);
-  }
-}
+#include "rns_mrc.cuh"
 
 template <int K>
 __global__ void rns_normalize_kernel(const int32_t* __restrict__ res,
@@ -35,27 +16,10 @@ __global__ void rns_normalize_kernel(const int32_t* __restrict__ res,
                                      float* __restrict__ out) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= T) return;
-  int r[K], d[K];
+  int r[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) r[j] = res[(long long)j * T + i];
-  mrc_digits<K>(r, d, t);
-  bool ge = false, eq = true;
-#pragma unroll
-  for (int j = K - 1; j >= 0; --j) {
-    ge = ge || (eq && d[j] > t.half[j]);
-    eq = eq && d[j] == t.half[j];
-  }
-  const bool neg = ge || eq;
-  if (neg) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) r[j] = floor_mod(t.moduli[j] - r[j], t.moduli[j]);
-  }
-  mrc_digits<K>(r, d, t);
-  float acc = 0.0f;
-#pragma unroll
-  for (int j = 0; j < K; ++j)
-    acc = __fadd_rn(acc, __fmul_rn((float)d[j], t.w[j]));
-  out[i] = neg ? -acc : acc;
+  out[i] = mrc_decode_float<K>(r, t);
 }
 
 template <int K>

@@ -8,7 +8,9 @@ smollm-135m, on the card:
 
 Without ``--full`` it serves the reduced smoke twin, as the JAX CLI
 does.  ``--device cpu`` runs the plain PyTorch path instead of the
-kernels.  The bucketed engine is a later slice of the port.
+kernels.  ``--rns-backend cuda_fused --resident-weights`` serves through
+the fused kernels on MLP weights encoded once at build.  The bucketed
+engine is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -39,9 +41,12 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
           rns: str | None = None, requests: int = 12,
           prompt_lens=(7, 33, 120), new: int = 16, page_size: int = 16,
           max_seqs: int = 8, n_pages: int | None = None,
-          rns_backend: str | None = None, device="cuda"):
+          rns_backend: str | None = None, rns_defer: bool | None = None,
+          resident_weights: bool = False, device="cuda"):
     """Build the model (random weights from seed 0) and serve
-    :func:`request_prompts` (seed 0).  Returns (engine, results, stats)."""
+    :func:`request_prompts` (seed 0).  Returns (engine, results, stats).
+    ``rns_defer`` (no CLI flag, as in the JAX CLI) selects the deferred
+    MLP through ``ServeConfig``."""
     cfg = get_config(arch, smoke=not full)
     if rns:
         cfg = dataclasses.replace(cfg, rns=RnsDotConfig(profile=rns, qx=8,
@@ -52,7 +57,8 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
     engine = ContinuousEngine(model, ServeConfig(
         max_cache=max(lens) + new + 8, max_new_tokens=new,
         page_size=page_size, max_seqs=max_seqs, n_pages=n_pages,
-        rns_backend=rns_backend), device=device)
+        rns_backend=rns_backend, rns_defer=rns_defer,
+        resident_weights=resident_weights), device=device)
     results, stats = engine.run(request_prompts(cfg.vocab, requests, lens))
     return engine, results, stats
 
@@ -76,7 +82,10 @@ def main(argv=None):
                     help="run the MLP datapath in residues on PROFILE "
                          "(e.g. rns9)")
     ap.add_argument("--rns-backend", default=None,
-                    help="auto (kernels on the card) | reference | cuda")
+                    help="auto (kernels on the card) | reference | cuda | "
+                         "cuda_fused (the fused kernels)")
+    ap.add_argument("--resident-weights", action="store_true",
+                    help="encode the RNS MLP weights once at engine build")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.continuous:
@@ -87,7 +96,7 @@ def main(argv=None):
         prompt_lens=args.prompt_lens.split(","), new=args.new,
         page_size=args.page_size, max_seqs=args.max_seqs,
         n_pages=args.n_pages, rns_backend=args.rns_backend,
-        device=args.device)
+        resident_weights=args.resident_weights, device=args.device)
     print(f"served {stats['n_requests']} requests in {stats['n_steps']} "
           f"steps / {stats['wall_s']:.2f}s -> "
           f"{stats['tokens_per_s']:.1f} tok/s")

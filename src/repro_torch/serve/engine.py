@@ -13,9 +13,13 @@ call and layer: for smollm-135m, ``n_layers`` times what the JAX engine
 reports, whose trace-time tally sees its layer ``scan`` body once
 (ROADMAP C.3).
 
+``ServeConfig(rns_backend="cuda_fused", rns_defer=True,
+resident_weights=True)`` serves the fused path: MLP weights encoded once
+at engine build, the deferred MLP chain, the fused kernels.
+
 Chunked prefill, speculative decoding, prefix caching, sliding windows,
-resident weights, digit sharding and the deferred MLP are later slices
-of the port: :class:`ServeConfig` refuses them.
+per-layer profiles and digit sharding are later slices of the port:
+:class:`ServeConfig` refuses them.
 """
 
 from __future__ import annotations
@@ -41,14 +45,15 @@ class ServeConfig:
     max_cache: int = 512
     max_new_tokens: int = 32
     eos_id: int = -1
-    # RNS backend override (None: keep the model config's)
-    rns_backend: str | None = None      # "auto" | "reference" | "cuda"
+    # RNS execution overrides (None: keep the model config's)
+    rns_backend: str | None = None  # "auto"|"reference"|"cuda"|"cuda_fused"
+    rns_defer: bool | None = None   # residue-domain MLP chaining
+    # encode every RNS-target MLP weight once at engine build
+    resident_weights: bool = False
     page_size: int = 16
     max_seqs: int = 8
     n_pages: int | None = None
     # later slices of the port: setting any of these raises
-    rns_defer: bool | None = None
-    resident_weights: bool = False
     per_layer_profiles: bool = False
     mesh: object | None = None
     prefix_cache: bool = False
@@ -56,9 +61,8 @@ class ServeConfig:
     chunked_prefill: bool = False
     window_tokens: int | None = None
 
-    _LATER = ("rns_defer", "resident_weights", "per_layer_profiles", "mesh",
-              "prefix_cache", "spec_decode", "chunked_prefill",
-              "window_tokens")
+    _LATER = ("per_layer_profiles", "mesh", "prefix_cache", "spec_decode",
+              "chunked_prefill", "window_tokens")
 
     def __post_init__(self):
         if self.eos_id < -1:
@@ -73,20 +77,37 @@ class ServeConfig:
 
 
 def _apply_rns_policy(model_cfg, scfg: ServeConfig):
-    if model_cfg.rns is None or scfg.rns_backend is None:
+    """Fold the serve-side RNS backend and defer overrides into the
+    model config."""
+    if model_cfg.rns is None or (scfg.rns_backend is None
+                                 and scfg.rns_defer is None):
         return model_cfg
-    rns = dataclasses.replace(model_cfg.rns, backend=scfg.rns_backend)
+    rns = model_cfg.rns
+    if scfg.rns_backend is not None:
+        rns = dataclasses.replace(rns, backend=scfg.rns_backend)
+    if scfg.rns_defer is not None:
+        rns = dataclasses.replace(rns, defer=scfg.rns_defer)
     return dataclasses.replace(model_cfg, rns=rns)
+
+
+def _maybe_resident(model, cfg, scfg: ServeConfig):
+    """Encode resident weights once, at engine build, when asked to."""
+    if scfg.resident_weights and cfg.rns is not None:
+        from repro_torch.models.resident import encode_resident
+
+        encode_resident(model, cfg)
 
 
 class ContinuousEngine:
     """In-flight batching over a paged KV cache, on ``device`` (``model``
-    is moved there in place, as ``nn.Module.to`` does)."""
+    is moved there in place, as ``nn.Module.to`` does, and with
+    ``resident_weights`` its MLP weights are encoded onto it in place)."""
 
     def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = _apply_rns_policy(model.cfg, scfg)
+        _maybe_resident(self.model, self.cfg, scfg)
         self.scfg = scfg
         bs = scfg.page_size
         max_blocks = -(-scfg.max_cache // bs)

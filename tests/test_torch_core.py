@@ -229,6 +229,8 @@ def test_rns_dot_and_multi_dot_exact(backend):
 
 
 def test_fused_backend_raises():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The TPU's fused backend name is not the port's: asking for it
+    raises and names the port's counterpart, ``cuda_fused``."""
+    with pytest.raises(ValueError, match="cuda_fused"):
         dispatch.convert("rns9", torch.ones(2, 8), torch.tensor(1.0),
-                         backend="cuda_fused")
+                         backend="pallas_fused")

@@ -251,8 +251,7 @@ def test_scheduler_plans_equal_jax(seed):
 
 def test_later_slices_raise():
     for flag in ({"prefix_cache": True}, {"spec_decode": True},
-                 {"chunked_prefill": True}, {"window_tokens": 8},
-                 {"resident_weights": True}, {"rns_defer": True}):
+                 {"chunked_prefill": True}, {"window_tokens": 8}):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServeConfig(**flag)
 
