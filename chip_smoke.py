@@ -6,8 +6,11 @@
 from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  Phases (any failure makes the exit code non-zero):
 
-  [build]       compile the four CUDA sources from the checkout (one nvcc
-                each, in parallel) and print ``ptxas -v``;
+  [build]       compile every CUDA source of the checkout (one nvcc
+                each, all in parallel; every compiled tile is a template
+                instantiation), print each build's time and
+                ``ptxas -v``, and hold each instantiation's registers to
+                the tile checker's register model;
   [serve]       full-width smollm-135m with the rns9 MLP datapath through
                 ContinuousEngine.run on mixed-length requests (after one
                 short warm-up request): the per-op path, weights
@@ -22,11 +25,29 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 launches of every decode step held to 30 each of the
                 three fused kernels and rns_convert, and none of
                 rns_matmul or rns_normalize;
-  [kernels]     hold all six kernels bit for bit against their plain
-                PyTorch versions on the card, on the inputs both serves
-                gave them (every distinct shape) and on boundary cases of
-                every profile, and time kernel, plain version and
-                (rns_matmul) torch._int_mm;
+  [tune]        with the block table pointed at a fresh file under
+                build/, tune every kernel kind at every shape bucket the
+                two serves gave the wrappers (on the recorded inputs),
+                and flash_attention at smollm-135m's attention geometry
+                (Tq = Tk = 120 and 2048, causal): every legal candidate
+                is held against the plain version and timed, and every
+                candidate the checker drops is printed with its reason;
+  [serve_tuned] the [serve] and [serve_fused] traffic again, once each,
+                with the tuned table in force (and re-served under
+                torch.profiler, as the untuned serves are): greedy
+                tokens bit-equal to the untuned serves, the same
+                launches per decode step, every launch on its bucket's
+                row, and its numbers beside the untuned run's;
+  [kernels]     hold all seven kernels against their plain PyTorch
+                versions on the card -- the six RNS kernels bit for bit
+                on the inputs both serves gave them (every distinct
+                shape), at every candidate tiling on one main-path input
+                each, and on boundary cases of every profile;
+                flash_attention within 2e-5 (float32; plus one step of
+                the type in bfloat16) on ragged and full-width shapes --
+                and time kernel, plain
+                version and the library yardstick (torch._int_mm,
+                scaled_dot_product_attention);
   [identity]    the same seeded weights and prompts at a reduced depth:
                 per-op path on the card (kernels) vs the CPU (plain path)
                 -- one RNS projection bit-equal, first-step logits within
@@ -47,6 +68,8 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -75,16 +98,31 @@ FUSED_SERVE = dict(rns_backend="cuda_fused", rns_defer=True,
 DECODE_LAUNCHES = {
     "serve": {"rns_convert": 150, "rns_matmul": 90, "rns_normalize": 90,
               "rns_fused_encode_matmul": 0, "rns_fused_matmul_normalize": 0,
-              "rns_fused_dot": 0},
+              "rns_fused_dot": 0, "flash_attention": 0},
     "serve_fused": {"rns_convert": 30, "rns_matmul": 0, "rns_normalize": 0,
                     "rns_fused_encode_matmul": 30,
-                    "rns_fused_matmul_normalize": 30, "rns_fused_dot": 30},
+                    "rns_fused_matmul_normalize": 30, "rns_fused_dot": 30,
+                    "flash_attention": 0},
 }
+RNS_KERNELS = ("rns_convert", "rns_matmul", "rns_normalize",
+               "rns_fused_encode_matmul", "rns_fused_matmul_normalize",
+               "rns_fused_dot")
+# the block table [tune] writes and [serve_tuned] serves with
+TUNE_CACHE = ROOT / "build" / "chip_smoke_autotune.json"
+# flash_attention at smollm-135m's attention geometry (9 query heads, 3
+# KV heads of 64), at a prompt of the serve traffic and at the model's
+# published 2048-token context: (B, Tq, Tk, H, Hk, D)
+FLASH_FULL = [(1, 120, 120, 9, 3, 64), (1, 2048, 2048, 9, 3, 64)]
+# the ragged shapes of tests/test_flash_kernel.py
+FLASH_RAGGED = [(1, 128, 128, 2, 1, 16), (2, 96, 200, 4, 2, 32),
+                (1, 17, 33, 2, 2, 64), (1, 130, 257, 2, 1, 32),
+                (2, 7, 5, 2, 2, 16), (1, 65, 64, 2, 1, 16)]
 
 # NVIDIA H100 SXM data-sheet peaks (700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 SERVE = dict(requests=6, prompt_lens=(7, 33, 120), new=16, max_seqs=8)
 IDENTITY_LAYERS = 4
@@ -158,14 +196,48 @@ def _max_abs_err(torch, got, want) -> float:
     return float((got.long() - want.long()).abs().max())
 
 
+def _register_model(entry: str):
+    """The tile checker's registers per thread for one compiled entry
+    (its mangled name), or None for an entry the model does not cover."""
+    from repro_torch.analysis import kernel_audit as ka
+
+    if (m := re.search(r"rns_convert_kernelI(.)E", entry)):
+        return ka.registers_per_thread("rns_convert",
+                                       res_bytes=1 if m[1] == "a" else 4)
+    if (m := re.search(r"rns_normalize_kernelILi(\d+)E", entry)):
+        return ka.registers_per_thread("rns_normalize", int(m[1]))
+    if (m := re.search(r"rns_fused_kernelI..Li(\d+)E", entry)):
+        K = int(m[1])
+        return ka.registers_per_thread(
+            "rns_fused_dot" if K else "rns_fused_encode_matmul", K)
+    if "rns_matmul_kernel" in entry:
+        return ka.registers_per_thread("rns_matmul")
+    if "flash_attention_kernel" in entry:
+        return ka.registers_per_thread("flash_attention")
+    return None
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
 
+    sources = {m.SOURCE.stem: m.SOURCE for m in set(_kernel_mods().values())}
+
+    def one(name):              # one nvcc each, all started together
+        t = time.perf_counter()
+        log = build.build_all({name: sources[name]})[name]
+        return log, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    logs = build.build_all({name: mod.SOURCE
-                            for name, mod in _sources().items()})
-    print(f"[build] ok in {time.perf_counter() - t0:.1f}s")
-    for name, log in logs.items():        # one line per compiled kernel
+    with ThreadPoolExecutor(len(sources)) as pool:
+        done = dict(zip(sources, pool.map(one, sources)))
+    logs = {name: log for name, (log, _) in done.items()}
+    print(f"[build] ok in {time.perf_counter() - t0:.1f}s: "
+          f"{len(logs)} libraries (" + ", ".join(
+              f"{n} {t:.1f}s" for n, (_, t) in sorted(done.items())) + ")")
+    over = []
+    for name, log in sorted(logs.items()):   # one line per compiled kernel
         entry = spill = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -173,31 +245,30 @@ def phase_build():
             elif "spill stores" in line:
                 spill = line.split(",")[1].strip()
             elif "registers" in line and entry:
-                regs = line.split("Used")[1].split(",")[0].strip()
-                print(f"  {name}: {entry} {regs}, {spill}")
+                regs = int(line.split("Used")[1].split("registers")[0])
+                model = _register_model(entry)
+                print(f"  {name}: {entry} {regs} registers (model "
+                      f"{model}), {spill}")
+                if model is None or regs > model:
+                    over.append(f"{name} {entry}: {regs} > {model}")
+    if over:
+        raise AssertionError("instantiations over the tile checker's "
+                             "register model:\n" + "\n".join(over))
 
 
-def _sources():
-    """{library name: ops module} of every CUDA source."""
+def _kernel_mods():
+    """{kernel (wrapper) name: ops module}; the module's ``launches`` is
+    an int, or a dict by wrapper name for the fused kernels."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rns_convert import ops as c_ops
     from repro_torch.kernels.rns_fused import ops as f_ops
     from repro_torch.kernels.rns_matmul import ops as m_ops
     from repro_torch.kernels.rns_normalize import ops as n_ops
 
     return {"rns_convert": c_ops, "rns_matmul": m_ops,
-            "rns_normalize": n_ops, "rns_fused": f_ops}
-
-
-def _kernel_mods():
-    """{kernel (wrapper) name: ops module}; the module's ``launches`` is
-    an int, or a dict by wrapper name for the fused kernels."""
-    src = _sources()
-    return {"rns_convert": src["rns_convert"],
-            "rns_matmul": src["rns_matmul"],
-            "rns_normalize": src["rns_normalize"],
-            "rns_fused_encode_matmul": src["rns_fused"],
-            "rns_fused_matmul_normalize": src["rns_fused"],
-            "rns_fused_dot": src["rns_fused"]}
+            "rns_normalize": n_ops, "rns_fused_encode_matmul": f_ops,
+            "rns_fused_matmul_normalize": f_ops, "rns_fused_dot": f_ops,
+            "flash_attention": fa_ops}
 
 
 def _launches() -> dict:
@@ -254,24 +325,154 @@ def _cost(torch, kernel, K, args, kw):
             2 * K * M * N * D, INT8_OPS_PER_S)
 
 
-def phase_kernels(torch, dev, record, calls):
-    """Bit-exactness and times of the six kernels on the inputs the two
-    serves gave them, plus boundary cases; fills ``record``."""
+def _flash_inputs(torch, dev, shape, dtype, seed):
+    """q [B,Tq,H,D], k and v [B,Tk,Hk,D], standard normal from ``seed``."""
+    B, Tq, Tk, H, Hk, D = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in ((B, Tq, H, D), (B, Tk, Hk, D), (B, Tk, Hk, D)))
+
+
+def _blk(blocks) -> str:
+    return "/".join(f"{k}{v}" for k, v in blocks.items())
+
+
+def phase_tune(torch, dev, calls, launches, tuned):
+    """Tune every kind at every bucket of the recorded main-path calls
+    (on the call of each bucket called most) and flash_attention at
+    FLASH_FULL, into the fresh table TUNE_CACHE; fills ``tuned``
+    (bucket -> default and tuned blocks, each candidate's time)."""
+    from repro_torch.kernels import autotune, wrappers
+
+    if not calls:
+        raise AssertionError("no main-path calls recorded: nothing to tune")
+    fns = wrappers()
+    by_bucket = {}          # bucket key -> (kind, profile, (args, kw))
+    for entry in sorted(calls.values(), key=lambda e: -e["calls"]):
+        kind = entry["kernel"]
+        fns[kind][0](entry["profile"], *entry["args"], **entry["kw"])
+        by_bucket.setdefault(autotune.last_launch[kind][0], (
+            kind, entry["profile"], (entry["args"], entry["kw"])))
+    for i, shape in enumerate(FLASH_FULL):
+        qkv = _flash_inputs(torch, dev, shape, torch.float32, 10 + i)
+        fns["flash_attention"][0]("float32", *qkv, causal=True)
+        by_bucket.setdefault(autotune.last_launch["flash_attention"][0], (
+            "flash_attention", "float32", (qkv, {"causal": True})))
+    torch.cuda.synchronize()
+    _reset_launches()
+    for bucket, (kind, prof, call) in by_bucket.items():
+        shape = tuple(int(d) for d in bucket.split("|")[2].split("x"))
+        bench = autotune.default_bench(kind, prof, shape, "cuda", call=call)
+        times: dict = {}
+
+        def timed(blocks, bench=bench, times=times):
+            t = bench(blocks)
+            times[_blk(blocks)] = min(t, times.get(_blk(blocks), t))
+            return t
+
+        best = autotune.tune(kind, prof, shape, "cuda", bench_fn=timed)
+        _, dropped = autotune.legal_candidates(kind, prof, shape)
+        default = autotune.DEFAULTS[kind]
+        tuned[bucket] = {
+            "kind": kind, "default": dict(default), "tuned": best,
+            "default_us": (times[_blk(default)] * 1e6
+                           if _blk(default) in times else None),
+            "tuned_us": times[_blk(best)] * 1e6,
+            "us": {k: v * 1e6 for k, v in times.items()},
+            "dropped": [[c, why] for c, why in dropped]}
+        print(f"  {bucket}: " + " ".join(
+            f"{k}={v * 1e6:.2f}us" for k, v in times.items())
+            + f" -> {_blk(best)} (default {_blk(default)})")
+        for cand, why in dropped:
+            print(f"    dropped {cand}: {why}")
+    torch.cuda.synchronize()
+    launches["tune"] = run = _launches()
+    rows = json.loads(TUNE_CACHE.read_text())["entries"]
+    missing = sorted(set(by_bucket) - set(rows))
+    if missing:
+        raise AssertionError(f"no table row for {missing}")
+    kinds = {v[0] for v in by_bucket.values()}
+    if kinds != set(autotune.DEFAULTS) or not all(run.values()):
+        raise AssertionError(f"tuned kinds {sorted(kinds)}, launches {run}")
+    print(f"[tune] ok: {len(by_bucket)} rows in {TUNE_CACHE.name} for "
+          f"{len(kinds)} kinds; launches {run}")
+
+
+@contextlib.contextmanager
+def _table(path: Path):
+    """Resolve tiles through the block table at ``path`` (a missing file
+    is an empty table: the defaults)."""
+    from repro_torch.kernels import autotune
+
+    saved = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(path)
+    autotune.clear_cache()
+    try:
+        yield
+    finally:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = saved
+        autotune.clear_cache()
+
+
+METRICS = ("tokens_per_s", "ttft_p50_s", "decode_step_ms_median",
+           "device_busy_ms")
+
+
+def phase_serve_tuned(torch, launches, calls, untuned):
+    """[serve] and [serve_fused] once more each, with the table [tune]
+    wrote: tokens bit-equal to the untuned serves, every launch on its
+    bucket's row, the numbers beside the untuned run's."""
+    for path, kw, ops in (("serve", {}, JAX_DECODE_RNS_OPS),
+                          ("serve_fused", FUSED_SERVE,
+                           JAX_FUSED_DECODE_RNS_OPS)):
+        if path not in untuned:
+            raise AssertionError(f"[{path}] did not run: nothing to "
+                                 "compare with")
+        base, base_tokens = untuned[path]
+        with _table(TUNE_CACHE):
+            run, tokens = phase_serve(torch, path, launches, calls, kw, ops,
+                                      rerun="tuned")
+        if tokens != base_tokens:
+            raise AssertionError(f"{path} tuned: greedy tokens differ from "
+                                 "the untuned serve's")
+        for name in METRICS:
+            print(f"  {path} {name}: untuned {base.get(name, 'not measured')}"
+                  f", tuned {run.get(name, 'not measured')}")
+        print(f"  {path}: launches per decode step "
+              f"{sum(run['decode_step_launches'].values())}; greedy tokens "
+              "bit-equal to the untuned serve")
+
+
+def phase_kernels(torch, dev, record, calls, launches):
+    """The six RNS kernels bit for bit on the inputs the two serves gave
+    them, at every candidate tiling and on boundary cases; flash_attention
+    within tolerance on ragged and full-width shapes; times of the
+    main-path inputs and of flash at full width.  Fills ``record``."""
+    import torch.nn.functional as F
+
     from repro_torch.core.moduli import PROFILES, get_profile
     from repro_torch.core.rns import encode_exact
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     if not calls:
         raise AssertionError("no main-path calls recorded: the serves did "
                              "not run, so there are no main-path inputs")
+    _reset_launches()
     g = torch.Generator(device=dev).manual_seed(0)
     mods = _kernel_mods()
     bad = []
 
     def case(kernel, label, fn, plain, nbytes=0, ops=0, rate=1, timed=True,
-             library=None, calls_in_serve=None):
+             library=None, calls_in_serve=None, check=None):
+        """``check(got, want) -> (ok, extra)``; by default bit-equal."""
         got, want = fn(), plain()
         err = _max_abs_err(torch, got, want)
         entry = {"case": label, "max_abs_err": err}
+        ok = err == 0
+        if check is not None:
+            ok, extra = check(got, want)
+            entry.update(extra)
         if calls_in_serve is not None:
             entry["calls_in_serve"] = calls_in_serve
         if timed:
@@ -283,8 +484,9 @@ def phase_kernels(torch, dev, record, calls):
             if library is not None:
                 entry["library_ms"], entry["library_note"] = library()
         record.setdefault(kernel, []).append(entry)
-        if err != 0:
-            bad.append(f"{kernel} {label}: max_abs_err={err}")
+        if not ok:
+            bad.append(f"{kernel} {label}: " + " ".join(
+                f"{k}={v}" for k, v in entry.items() if k != "case"))
         print(f"  {kernel:26s} {label:52s} " + " ".join(
             f"{k}={v}" for k, v in entry.items() if k != "case"))
 
@@ -322,6 +524,58 @@ def phase_kernels(torch, dev, record, calls):
              lambda f=plain: f(prof, *args, **kw),
              nbytes, ops, rate, library=library,
              calls_in_serve=entry["calls"])
+
+    # ---- every candidate tiling, on each kernel's most called input
+    heads = {}
+    for entry in sorted(calls.values(), key=lambda e: -e["calls"]):
+        heads.setdefault(entry["kernel"], entry)
+    for kernel, entry in sorted(heads.items()):
+        prof, args, kw = entry["profile"], entry["args"], entry["kw"]
+        label = _cost(torch, kernel, get_profile(prof).n_digits, args, kw)[0]
+        mod = mods[kernel]
+        wrapper, plain = getattr(mod, kernel), getattr(mod, kernel + "_plain")
+        want = plain(prof, *args, **kw)
+        for cand in autotune.CANDIDATES[kernel]:
+            case(kernel, f"{label} tile {_blk(cand)}",
+                 lambda w=wrapper, c=cand: w(prof, *args, **kw, **c),
+                 lambda: want, timed=False)
+
+    # ---- flash_attention: ragged shapes (untimed), full width (timed)
+    def flash_check(got, want):
+        ok, _ = fa_ops.within_tolerance(got, want)
+        return ok, {"bar": f"{fa_ops.ATOL}" + (
+            "" if got.dtype == torch.float32 else " + one step of bfloat16")}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for i, shape in enumerate(FLASH_RAGGED + FLASH_FULL):
+                B, Tq, Tk, H, Hk, D = shape
+                q, k, v = _flash_inputs(torch, dev, shape, dtype, 100 + i)
+                esize = q.element_size()
+                nbytes = esize * (2 * B * Tq * H * D + 2 * B * Tk * Hk * D)
+                flops = 4 * B * H * Tq * Tk * D / (2 if causal else 1)
+                rate = F32_OPS_PER_S if dtype == torch.float32 \
+                    else BF16_OPS_PER_S
+
+                def sdpa(q=q, k=k, v=v, causal=causal):
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=causal,
+                        enable_gqa=True).transpose(1, 2)
+
+                full = shape in FLASH_FULL
+                case("flash_attention",
+                     f"{str(dtype)[6:]} causal={causal} q[{B},{Tq},{H},{D}] "
+                     f"kv[{B},{Tk},{Hk},{D}]",
+                     lambda q=q, k=k, v=v, c=causal: fa_ops.flash_attention(
+                         q, k, v, causal=c),
+                     lambda q=q, k=k, v=v, c=causal:
+                     fa_ops.flash_attention_plain(q, k, v, causal=c),
+                     nbytes, flops, rate, timed=full, check=flash_check,
+                     library=(lambda f=sdpa: (
+                         _time_ms(torch, f, 5),
+                         "torch scaled_dot_product_attention, enable_gqa"))
+                     if full else None)
 
     # ---- boundary cases: every profile, odd shapes, ROADMAP C.1
     c_ops, m_ops, n_ops, f_ops = (mods[k] for k in (
@@ -383,20 +637,28 @@ def phase_kernels(torch, dev, record, calls):
                  lambda: f_ops.rns_fused_matmul_normalize_plain(p, a, b2),
                  timed=False)
     torch.cuda.synchronize()
+    launches["kernels"] = _launches()
     if bad:
         raise AssertionError("kernels disagree with their plain versions:\n"
                              + "\n".join(bad))
-    print("[kernels] ok: every kernel bit-equal to its plain version")
+    print("[kernels] ok: every RNS kernel bit-equal to its plain version, "
+          "flash_attention within its tolerance")
 
 
 @contextlib.contextmanager
-def _recording(torch, calls: dict):
-    """Keep, for each distinct call the six wrappers see (kernel,
+def _recording(torch, calls: dict, off_table: list | None = None):
+    """Keep, for each distinct call the six RNS wrappers see (kernel,
     profile, input shapes and dtypes, options), its number of calls and
     a copy of its first call's inputs: what [kernels] checks and times.
-    The wrappers themselves, and their launch counts, are untouched."""
+    With ``off_table``, also hold every launch's blocks to the block
+    table in force -- its row for the launch's bucket, or the defaults
+    when the table is empty -- appending each launch that is not.  The
+    wrappers themselves, and their launch counts, are untouched."""
+    from repro_torch.kernels import autotune
+
     mods = _kernel_mods()
-    saved = {name: getattr(mod, name) for name, mod in mods.items()}
+    saved = {name: getattr(mods[name], name) for name in RNS_KERNELS}
+    table = autotune._load() if off_table is not None else None
 
     def recorder(name, fn):
         def call(profile, *tensors, **kw):
@@ -412,16 +674,25 @@ def _recording(torch, calls: dict):
                                   else t for t in tensors),
                     "kw": dict(kw)}
             entry["calls"] += 1
-            return fn(profile, *tensors, **kw)
+            before = _launches()[name]
+            out = fn(profile, *tensors, **kw)
+            if table is not None and _launches()[name] > before:
+                bucket, blocks = autotune.last_launch[name]
+                row = table.get(bucket)
+                want = dict(autotune.DEFAULTS[name],
+                            **(row["blocks"] if row else {}))
+                if blocks != want or (table and row is None):
+                    off_table.append((bucket, blocks))
+            return out
         return call
 
-    for name, mod in mods.items():
-        setattr(mod, name, recorder(name, saved[name]))
+    for name in RNS_KERNELS:
+        setattr(mods[name], name, recorder(name, saved[name]))
     try:
         yield calls
     finally:
-        for name, mod in mods.items():
-            setattr(mod, name, saved[name])
+        for name in RNS_KERNELS:
+            setattr(mods[name], name, saved[name])
 
 
 @contextlib.contextmanager
@@ -447,12 +718,18 @@ def _step_launches(log: list):
 
 
 def phase_serve(torch, path: str, launches: dict, calls: dict,
-                serve_kw: dict, per_layer_ops: dict):
+                serve_kw: dict, per_layer_ops: dict, *, rerun: str = ""):
     """Serve the SERVE traffic at full width on one path (``serve_kw``
     for :func:`serve`), with counts from 0 and every distinct wrapper call
-    recorded and merged into ``calls``; ``launches[path]`` gets the run's
-    launches."""
+    recorded and merged into ``calls``; ``launches[run label]`` gets the
+    run's launches; then re-serve it under torch.profiler.  ``rerun``: a
+    run of [serve_tuned], labelled ``<path>_<rerun>``, with every launch
+    held to the block table in force and no merge into ``calls``.
+    Returns (numbers, greedy tokens)."""
     from repro_torch.launch.serve import serve
+
+    label = f"{path}_{rerun}" if rerun else path
+    off_table: list | None = [] if rerun else None
 
     # one short request first, so that first-use costs (kernel libraries
     # loaded, cuBLAS handles, the caching allocator) stay out of the
@@ -464,12 +741,13 @@ def phase_serve(torch, path: str, launches: dict, calls: dict,
     steps_log: list = []
     path_calls: dict = {}
     t0 = time.perf_counter()
-    with _recording(torch, path_calls), _step_launches(steps_log):
+    with _recording(torch, path_calls, off_table), \
+            _step_launches(steps_log):
         engine, results, stats = serve("smollm-135m", full=True, rns="rns9",
                                        device="cuda", **SERVE, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches[path] = run = _launches()
+    launches[label] = run = _launches()
     cfg = engine.cfg
     assert cfg.n_layers == FULL_LAYERS and cfg.d_model == 576
     steps = stats["steps"]
@@ -491,11 +769,16 @@ def phase_serve(torch, path: str, launches: dict, calls: dict,
     calls_by_kernel = {k: sum(e["calls"] for e in path_calls.values()
                               if e["kernel"] == k) for k in run}
     assert calls_by_kernel == run, (calls_by_kernel, run)
-    for key, entry in path_calls.items():
-        if key in calls:
-            calls[key]["calls"] += entry["calls"]
-        else:
-            calls[key] = entry
+    if rerun:
+        n_launched = sum(run.values())
+        assert not off_table, (f"{len(off_table)} of {n_launched} launches "
+                               f"off the block table, e.g. {off_table[:3]}")
+    else:
+        for key, entry in path_calls.items():
+            if key in calls:
+                calls[key]["calls"] += entry["calls"]
+            else:
+                calls[key] = entry
     assert len(results) == SERVE["requests"]
     for toks in results.values():
         assert len(toks) == SERVE["new"]
@@ -515,9 +798,12 @@ def phase_serve(torch, path: str, launches: dict, calls: dict,
         "launches": dict(run),
         "distinct_calls": len(path_calls),
     }
+    if rerun:
+        out["launches_on_the_block_table"] = sum(run.values())
     out.update(_profile_serve(torch, engine, results, stats["wall_s"]))
-    print(json.dumps({path: out}))
-    print(f"[{path}] ok")
+    print(json.dumps({label: out}))
+    print(f"[{label}] ok")
+    return out, _tokens(results)
 
 
 def _profile_serve(torch, engine, results, unprofiled_wall_s) -> dict:
@@ -703,7 +989,7 @@ def phase_identity(torch):
     print("[identity] ok")
 
 
-def _kernel_line(record: dict, launches: dict) -> dict:
+def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
     fused_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused.cu"
     meta = {
         "rns_convert": ("src/repro_torch/kernels/rns_convert/csrc/"
@@ -720,18 +1006,31 @@ def _kernel_line(record: dict, launches: dict) -> dict:
             fused_src, "src/repro/kernels/rns_fused/kernel.py:141"),
         "rns_fused_dot": (fused_src,
                           "src/repro/kernels/rns_fused/kernel.py:194"),
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:72"),
     }
     out = []
     for name, (src, replaces) in meta.items():
         cases = record.get(name, [])
         timed = [c for c in cases if "ms" in c]
-        # the head of the line: the main-path input called most
-        head = max(timed, key=lambda c: c.get("calls_in_serve", 0),
-                   default={})
-        by_path = {path: run.get(name, 0) for path, run in launches.items()}
+        if name == "flash_attention":
+            # its path is the tuner; [kernels]' launches are comparisons
+            head = next((c for c in timed if c["case"].startswith(
+                "float32 causal=True q[1,2048,")), {})
+            by_path = {path: launches.get(path, {}).get(name, 0)
+                       for path in ("tune", "kernels")}
+            n = by_path["tune"]
+        else:
+            # the head of the line: the main-path input called most
+            head = max(timed, key=lambda c: c.get("calls_in_serve", 0),
+                       default={})
+            by_path = {path: run.get(name, 0) for path, run in
+                       launches.items() if path != "kernels"}
+            n = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(by_path.values()),
+            "replaces": replaces, "launches": n,
             "launches_by_path": by_path,
             "max_abs_err": max((c["max_abs_err"] for c in cases),
                                default=None),
@@ -739,7 +1038,12 @@ def _kernel_line(record: dict, launches: dict) -> dict:
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),
             "library_ms": head.get("library_ms"),
-            "case": head.get("case"), "cases": timed})
+            "case": head.get("case"),
+            "blocks_by_bucket": {
+                b: {k: t[k] for k in ("default", "tuned", "default_us",
+                                      "tuned_us")}
+                for b, t in tuned.items() if t["kind"] == name},
+            "cases": timed})
     return {"kernels": out}
 
 
@@ -756,18 +1060,28 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a fresh block table: [serve] and [serve_fused] run on the defaults,
+    # [tune] fills it, [serve_tuned] and [kernels] resolve through it
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(TUNE_CACHE)
+    TUNE_CACHE.unlink(missing_ok=True)
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} on {torch.cuda.get_device_name(0)}")
     record, launches, calls, failed = {}, {}, {}, []
+    untuned, tuned = {}, {}
     for name, fn in [
             ("build", phase_build),
-            ("serve", lambda: phase_serve(torch, "serve", launches, calls,
-                                          {}, JAX_DECODE_RNS_OPS)),
-            ("serve_fused", lambda: phase_serve(
-                torch, "serve_fused", launches, calls, FUSED_SERVE,
-                JAX_FUSED_DECODE_RNS_OPS)),
-            ("kernels", lambda: phase_kernels(torch, dev, record, calls)),
+            ("serve", lambda: untuned.__setitem__("serve", phase_serve(
+                torch, "serve", launches, calls, {}, JAX_DECODE_RNS_OPS))),
+            ("serve_fused", lambda: untuned.__setitem__(
+                "serve_fused", phase_serve(
+                    torch, "serve_fused", launches, calls, FUSED_SERVE,
+                    JAX_FUSED_DECODE_RNS_OPS))),
+            ("tune", lambda: phase_tune(torch, dev, calls, launches, tuned)),
+            ("serve_tuned", lambda: phase_serve_tuned(torch, launches, calls,
+                                                      untuned)),
+            ("kernels", lambda: phase_kernels(torch, dev, record, calls,
+                                              launches)),
             ("identity", lambda: phase_identity(torch))]:
         print(f"[{name}]", flush=True)
         t0 = time.perf_counter()
@@ -783,7 +1097,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi)
-    print(json.dumps(_kernel_line(record, launches)))
+    print(json.dumps(_kernel_line(record, launches, tuned)))
     if failed:
         print(f"failed phases: {failed}", file=sys.stderr)
         return 1

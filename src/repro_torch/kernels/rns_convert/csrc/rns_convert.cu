@@ -24,11 +24,12 @@ __global__ void rns_convert_kernel(const float* __restrict__ x,
 }
 
 // x [T] float32, s [T / group] float32 (one scale per run of `group`
-// consecutive elements), out [K, T] int8 (out_int8) or int32.
+// consecutive elements), out [K, T] int8 (out_int8) or int32; `threads`
+// per block (the tile bt, a multiple of 32 up to 1024).
 extern "C" int rns_convert(const void* x, const void* s, long long group,
                            long long T, float qmax, const RnsTables* t,
-                           void* out, int out_int8, void* stream) {
-  const int threads = 256;
+                           void* out, int out_int8, int threads,
+                           void* stream) {
   const unsigned blocks = (unsigned)((T + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   if (out_int8) {

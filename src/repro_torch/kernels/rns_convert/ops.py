@@ -12,6 +12,8 @@ scale read per run of ``group`` elements (a scalar, a row or a token
 grid is never materialised to x's shape), the K stores of one thread
 going to K digit planes so that a warp's stores to each plane coalesce.
 Tables travel by value as a kernel argument (``build.RnsTablesC``).
+Threads per block (the tile ``bt``) are a launch parameter, chosen per
+shape bucket through ``kernels/autotune.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from repro_torch.core.moduli import get_profile
 from repro_torch.core.quantize import quantize_with_scale
 from repro_torch.core.rns import encode_int32
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 __all__ = ["rns_convert", "rns_convert_plain", "SOURCE", "launches"]
 
@@ -39,7 +41,7 @@ def _bind(lib):
     lib.rns_convert.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_float, ctypes.POINTER(build.RnsTablesC), ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rns_convert.restype = ctypes.c_int
 
 
@@ -66,16 +68,20 @@ def _scale_runs(x_shape: tuple, scale: torch.Tensor):
 
 
 def rns_convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
-                out_dtype=torch.int8) -> torch.Tensor:
+                out_dtype=torch.int8, bt: int | None = None) -> torch.Tensor:
     """x [...] float, scale scalar or broadcastable -> [K, ...] residues.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    ``bt`` (threads per block) resolves through ``autotune.resolve``,
+    which gates it with ``check_wrapper_blocks``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (or raises).
     """
     global launches
     p = get_profile(profile)
-    if not torch.is_tensor(scale):
-        scale = torch.tensor(scale, dtype=torch.float32, device=x.device)
+    key, blk = autotune.resolve("rns_convert", p, (x.numel(),), x.device,
+                                bt=bt)
+    if not torch.is_tensor(scale):      # a fill, no host copy: graph-safe
+        scale = torch.full((), scale, dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return rns_convert_plain(p, x, scale, bits=bits, out_dtype=out_dtype)
     if not x.is_cuda or not scale.is_cuda:
@@ -96,8 +102,9 @@ def rns_convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
             err = lib.rns_convert(
                 xf.data_ptr(), s.data_ptr(), group, T,
                 float(2 ** (bits - 1) - 1), ctypes.byref(build.rns_tables_c(p)),
-                out.data_ptr(), int(out_dtype == torch.int8),
+                out.data_ptr(), int(out_dtype == torch.int8), blk["bt"],
                 torch.cuda.current_stream(x.device).cuda_stream)
         build.check(err, "rns_convert")
         launches += 1
+        autotune.last_launch["rns_convert"] = (key, blk)
     return out.reshape((p.n_digits,) + shape)

@@ -15,8 +15,8 @@
 // design.  One templated kernel serves all three:
 //
 // * a block computes a BM x BN output tile for ALL K digits, one warp per
-//   digit (block = 32 K threads), each lane one column and BM / 2 rows,
-//   the int32 accumulators of its digit in registers -- not the TPU
+//   digit (block = 32 K threads), each lane one column and BM * BN / 32
+//   rows, the int32 accumulators of its digit in registers -- not the TPU
 //   kernel's [K, bm, bn] int32 scratch, which at its 128 x 128 tiles would
 //   be 576 KiB for rns9;
 // * D is walked in BK-deep tiles staged in shared memory: the quantized
@@ -39,22 +39,29 @@
 #include "rns_mrc.cuh"
 #include "rns_quantize.cuh"
 
-constexpr int BM = 8, BN = 16, BK = 32;
-constexpr int RPL = BM * BN / 32;   // output rows per lane (4)
-constexpr int NB = BK * BN / 32;    // b residues per lane per tile (16)
-constexpr int NA = BM * BK / 32;    // a residues per lane per tile (8)
+// BK is fixed; the BM x BN output tile is a template parameter, one
+// instantiation per compiled tile (analysis/kernel_audit.py FUSED_TILES),
+// chosen at launch by the entries' bm, bn.
+constexpr int BK = 32;
 constexpr int NX = 2;               // x elements per thread per tile
 constexpr size_t kMaxStaticShmem = 48 * 1024;
 
 // AT: float (x, quantized in the prologue) or int8/int32 residues [K,M,D];
 // BT: int8/int32 residues [K,D,N]; KT: 0 -> residues out, else the MRC
-// epilogue over KT digits (KT == t.K).  Lane = (row half h, column c).
-template <typename AT, typename BT, int KT>
+// epilogue over KT digits (KT == t.K).  Lane = (row group h, column c).
+template <typename AT, typename BT, int KT, int BM, int BN>
 __global__ void __launch_bounds__((KT ? KT : RNS_MAX_K) * 32)
 rns_fused_kernel(const AT* __restrict__ a, const float* __restrict__ s,
                  long long group, float qmax, const BT* __restrict__ b,
                  int M, int N, int D, int lim,
                  const __grid_constant__ RnsTables t, void* __restrict__ out) {
+  // a lane is (row group h, column c): BN columns, 32 / BN row groups of
+  // RPL rows; the MRC epilogue's [K][BM][BN] residues alias As (BN <= BK)
+  static_assert(32 % BN == 0 && BM % (32 / BN) == 0 && BN <= BK,
+                "tile must split over a warp's lanes");
+  constexpr int RPL = BM * BN / 32;   // output rows per lane (4 at 8 x 16)
+  constexpr int NB = BK * BN / 32;    // b residues per lane per tile
+  constexpr int NA = BM * BK / 32;    // a residues per lane per tile
   constexpr bool kQuant = std::is_same<AT, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = t.K;
@@ -172,7 +179,7 @@ rns_fused_kernel(const AT* __restrict__ a, const float* __restrict__ s,
   }
 }
 
-template <typename AT, typename BT, int KT>
+template <typename AT, typename BT, int KT, int BM, int BN>
 static int launch(const void* a, const void* s, long long group, float qmax,
                   const void* b, int M, int N, int D, int lim,
                   const RnsTables& t, void* out, cudaStream_t st) {
@@ -186,7 +193,7 @@ static int launch(const void* a, const void* s, long long group, float qmax,
                        (size_t)K * BK * BN * sizeof(BT);
   if (shmem > kMaxStaticShmem) return cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  rns_fused_kernel<AT, BT, KT><<<grid, 32 * K, shmem, st>>>(
+  rns_fused_kernel<AT, BT, KT, BM, BN><<<grid, 32 * K, shmem, st>>>(
       (const AT*)a, (const float*)s, group, qmax, (const BT*)b, M, N, D, lim,
       t, out);
   return (int)cudaGetLastError();
@@ -194,20 +201,20 @@ static int launch(const void* a, const void* s, long long group, float qmax,
 
 // the MRC kernels' digit counts: every profile of core/moduli.PROFILES.
 // int32 b residues belong to profiles that are not int8-safe (rns8_u8).
-template <typename AT>
+template <typename AT, int BM, int BN>
 static int launch_mrc(const void* a, const void* s, long long group,
                       float qmax, const void* b, int b_int8, int M, int N,
                       int D, int lim, const RnsTables& t, void* out,
                       cudaStream_t st) {
   if (!b_int8) {
     if (t.K != 8) return cudaErrorInvalidValue;
-    return launch<AT, int32_t, 8>(a, s, group, qmax, b, M, N, D, lim, t, out,
-                                  st);
+    return launch<AT, int32_t, 8, BM, BN>(a, s, group, qmax, b, M, N, D, lim,
+                                          t, out, st);
   }
 #define RNS_FUSED_CASE(k)                                                   \
   case k:                                                                   \
-    return launch<AT, int8_t, k>(a, s, group, qmax, b, M, N, D, lim, t, out, \
-                                 st);
+    return launch<AT, int8_t, k, BM, BN>(a, s, group, qmax, b, M, N, D, \
+                                         lim, t, out, st);
   switch (t.K) {
     RNS_FUSED_CASE(5) RNS_FUSED_CASE(6) RNS_FUSED_CASE(7) RNS_FUSED_CASE(8)
     RNS_FUSED_CASE(9) RNS_FUSED_CASE(12) RNS_FUSED_CASE(16)
@@ -217,29 +224,48 @@ static int launch_mrc(const void* a, const void* s, long long group,
 #undef RNS_FUSED_CASE
 }
 
+// Calls f(bm, bn) with the compiled tile as std::integral_constants.
+template <typename F>
+static int with_tile(int bm, int bn, F&& f) {
+#define RNS_FUSED_TILE(m, n)                                    \
+  if (bm == m && bn == n)                                       \
+    return f(std::integral_constant<int, m>{},                  \
+             std::integral_constant<int, n>{});
+  RNS_FUSED_TILE(8, 16) RNS_FUSED_TILE(8, 32) RNS_FUSED_TILE(16, 16)
+#undef RNS_FUSED_TILE
+  return cudaErrorInvalidValue;
+}
+
 // x [M, D] float32; s [M / group] float32, one scale per run of `group`
-// rows; b [K, D, N] int8 (b_int8) or int32; out [K, M, N] int32.
+// rows; b [K, D, N] int8 (b_int8) or int32; out [K, M, N] int32; (bm, bn)
+// one of the compiled tiles.
 extern "C" int rns_fused_encode_matmul(const void* x, const void* s,
                                        long long group, float qmax,
                                        const void* b, int b_int8, int M,
                                        int N, int D, int lim,
-                                       const RnsTables* t, void* out,
-                                       void* stream) {
+                                       const RnsTables* t, void* out, int bm,
+                                       int bn, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (b_int8)
-    return launch<float, int8_t, 0>(x, s, group, qmax, b, M, N, D, lim, *t,
-                                    out, st);
-  return launch<float, int32_t, 0>(x, s, group, qmax, b, M, N, D, lim, *t,
-                                   out, st);
+  return with_tile(bm, bn, [&](auto tm, auto tn) {
+    constexpr int TBM = decltype(tm)::value, TBN = decltype(tn)::value;
+    if (b_int8)
+      return launch<float, int8_t, 0, TBM, TBN>(x, s, group, qmax, b, M, N,
+                                                D, lim, *t, out, st);
+    return launch<float, int32_t, 0, TBM, TBN>(x, s, group, qmax, b, M, N, D,
+                                               lim, *t, out, st);
+  });
 }
 
 // x, s, b as above; out [M, N] float32, unscaled.
 extern "C" int rns_fused_dot(const void* x, const void* s, long long group,
                              float qmax, const void* b, int b_int8, int M,
                              int N, int D, int lim, const RnsTables* t,
-                             void* out, void* stream) {
-  return launch_mrc<float>(x, s, group, qmax, b, b_int8, M, N, D, lim, *t,
-                           out, (cudaStream_t)stream);
+                             void* out, int bm, int bn, void* stream) {
+  return with_tile(bm, bn, [&](auto tm, auto tn) {
+    return launch_mrc<float, decltype(tm)::value, decltype(tn)::value>(
+        x, s, group, qmax, b, b_int8, M, N, D, lim, *t, out,
+        (cudaStream_t)stream);
+  });
 }
 
 // a [K, M, D] int8 (a_int8) or int32 residues; b as above; out [M, N]
@@ -248,11 +274,14 @@ extern "C" int rns_fused_matmul_normalize(const void* a, int a_int8,
                                           const void* b, int b_int8, int M,
                                           int N, int D, int lim,
                                           const RnsTables* t, void* out,
-                                          void* stream) {
+                                          int bm, int bn, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (a_int8)
-    return launch_mrc<int8_t>(a, nullptr, 1, 0.f, b, b_int8, M, N, D, lim,
-                              *t, out, st);
-  return launch_mrc<int32_t>(a, nullptr, 1, 0.f, b, b_int8, M, N, D, lim, *t,
-                             out, st);
+  return with_tile(bm, bn, [&](auto tm, auto tn) {
+    constexpr int TBM = decltype(tm)::value, TBN = decltype(tn)::value;
+    if (a_int8)
+      return launch_mrc<int8_t, TBM, TBN>(a, nullptr, 1, 0.f, b, b_int8, M,
+                                          N, D, lim, *t, out, st);
+    return launch_mrc<int32_t, TBM, TBN>(a, nullptr, 1, 0.f, b, b_int8, M, N,
+                                         D, lim, *t, out, st);
+  });
 }

@@ -28,7 +28,9 @@ shared with the unfused kernels, so the fused kernels give their bits.
 CUDA cores, not int8 tensor cores; no split over D, so a decode
 projection with N = 576 runs 36 blocks.  The scale travels as one
 float per run of ``group`` activation rows (a scalar, per-row or
-per-token grid, never expanded to x's shape).
+per-token grid, never expanded to x's shape).  The output tile is
+chosen per shape bucket through ``kernels/autotune.py`` among the
+compiled tiles (template instantiations, ``FUSED_TILES``).
 
 On a CPU tensor each wrapper takes its plain version: the composition of
 the port's plain stages, as ``repro/kernels/rns_fused/ref.py`` composes
@@ -44,7 +46,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.moduli import get_profile
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.rns_convert.ops import _scale_runs, rns_convert_plain
 from repro_torch.kernels.rns_matmul.ops import rns_matmul_plain
 from repro_torch.kernels.rns_normalize.ops import (SUPPORTED_K,
@@ -56,7 +58,6 @@ __all__ = ["rns_fused_encode_matmul", "rns_fused_matmul_normalize",
            "SOURCE", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_fused.cu"
-_BK = 32                    # the kernel's K tile (csrc/rns_fused.cu)
 
 #: kernel launches made by each wrapper (CUDA tensors only)
 launches = {"rns_fused_encode_matmul": 0, "rns_fused_matmul_normalize": 0,
@@ -69,10 +70,10 @@ def _bind(lib):
     tab = ctypes.POINTER(build.RnsTablesC)
     for name in ("rns_fused_encode_matmul", "rns_fused_dot"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, ll, f, p, i, i, i, i, i, tab, p, p]
+        fn.argtypes = [p, p, ll, f, p, i, i, i, i, i, tab, p, i, i, p]
         fn.restype = ctypes.c_int
     lib.rns_fused_matmul_normalize.argtypes = [p, i, p, i, i, i, i, i, tab,
-                                               p, p]
+                                               p, i, i, p]
     lib.rns_fused_matmul_normalize.restype = ctypes.c_int
 
 
@@ -112,8 +113,6 @@ def _check_b(name, p, b_res, D, device):
     if b_res.dtype != want:
         raise ValueError(f"{name}: b_res {b_res.dtype}; {p.name} residues "
                          f"are {want}")
-    if p.lazy_chunk - 1 < _BK:
-        raise ValueError(f"{name}: lazy_chunk {p.lazy_chunk} < tile")
     return b_res.contiguous()
 
 
@@ -122,8 +121,8 @@ def _row_scales(name, x, scale):
     flattened rows of x [..., D]; ``scale`` is a scalar or anything that
     broadcasts to ``x.shape[:-1] + (1,)``."""
     lead = tuple(x.shape[:-1])
-    if not torch.is_tensor(scale):
-        scale = torch.tensor(scale, dtype=torch.float32, device=x.device)
+    if not torch.is_tensor(scale):      # a fill, no host copy: graph-safe
+        scale = torch.full((), scale, dtype=torch.float32, device=x.device)
     if scale.device != x.device:
         raise ValueError(f"{name}: scale on {scale.device}, x on {x.device}")
     if scale.ndim:
@@ -136,7 +135,7 @@ def _row_scales(name, x, scale):
     return _scale_runs(lead, scale.to(torch.float32))
 
 
-def _quantized_call(name, p, x, scale, b_res, bits, out):
+def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
     """Launch rns_fused_encode_matmul / rns_fused_dot into ``out``."""
     D, N = x.shape[-1], b_res.shape[-1]
     b2 = _check_b(name, p, b_res, D, x.device)
@@ -153,22 +152,30 @@ def _quantized_call(name, p, x, scale, b_res, bits, out):
                 float(2 ** (bits - 1) - 1), b2.data_ptr(),
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
+                blk["bm"], blk["bn"],
                 torch.cuda.current_stream(x.device).cuda_stream)
         build.check(err, name)
         launches[name] += 1
+        autotune.last_launch[name] = (key, blk)
     return out
 
 
 def rns_fused_encode_matmul(profile, x: torch.Tensor, scale,
-                            b_res: torch.Tensor, *,
-                            bits: int = 16) -> torch.Tensor:
+                            b_res: torch.Tensor, *, bits: int = 16,
+                            bm: int | None = None,
+                            bn: int | None = None) -> torch.Tensor:
     """x [..., D] float + row scales, b_res [K, D, N] -> [K, ..., N] int32
     residues of ``convert(x, scale) @ b_res``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    The (bm, bn) output tile resolves through ``autotune.resolve``, which
+    gates it with ``check_wrapper_blocks``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (or raises).
     """
+    name = "rns_fused_encode_matmul"
     p = get_profile(profile)
+    key, blk = autotune.resolve(name, p, (math.prod(x.shape[:-1]),
+                                          x.shape[-1], b_res.shape[-1]),
+                                x.device, bm=bm, bn=bn)
     if x.device.type == "cpu" and b_res.device.type == "cpu":
         return rns_fused_encode_matmul_plain(p, x, scale, b_res, bits=bits)
     if not x.is_cuda:
@@ -176,38 +183,49 @@ def rns_fused_encode_matmul(profile, x: torch.Tensor, scale,
     lead, N = tuple(x.shape[:-1]), b_res.shape[-1]
     out = torch.empty((p.n_digits,) + lead + (N,), dtype=torch.int32,
                       device=x.device)
-    return _quantized_call("rns_fused_encode_matmul", p, x, scale, b_res,
-                           bits, out)
+    return _quantized_call(name, p, x, scale, b_res, bits, out, key, blk)
 
 
 def rns_fused_dot(profile, x: torch.Tensor, scale, b_res: torch.Tensor, *,
-                  bits: int = 16) -> torch.Tensor:
+                  bits: int = 16, bm: int | None = None,
+                  bn: int | None = None) -> torch.Tensor:
     """x [..., D] float + row scales, b_res [K, D, N] -> [..., N] float32
     signed values (unscaled) of ``convert(x, scale) @ b_res``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    The (bm, bn) output tile resolves through ``autotune.resolve``, which
+    gates it with ``check_wrapper_blocks``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (or raises).
     """
+    name = "rns_fused_dot"
     p = get_profile(profile)
+    key, blk = autotune.resolve(name, p, (math.prod(x.shape[:-1]),
+                                          x.shape[-1], b_res.shape[-1]),
+                                x.device, bm=bm, bn=bn)
     if x.device.type == "cpu" and b_res.device.type == "cpu":
         return rns_fused_dot_plain(p, x, scale, b_res, bits=bits)
     if not x.is_cuda:
         raise ValueError(f"rns_fused_dot: x on {x.device}")
     lead, N = tuple(x.shape[:-1]), b_res.shape[-1]
     out = torch.empty(lead + (N,), dtype=torch.float32, device=x.device)
-    return _quantized_call("rns_fused_dot", p, x, scale, b_res, bits, out)
+    return _quantized_call(name, p, x, scale, b_res, bits, out, key, blk)
 
 
 def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
-                               b_res: torch.Tensor) -> torch.Tensor:
+                               b_res: torch.Tensor, *,
+                               bm: int | None = None,
+                               bn: int | None = None) -> torch.Tensor:
     """a_res [K, ..., D] (int8 or int32), b_res [K, D, N] -> [..., N]
     float32 signed values (unscaled) of ``a_res @ b_res``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    The (bm, bn) output tile resolves through ``autotune.resolve``, which
+    gates it with ``check_wrapper_blocks``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (or raises).
     """
     name = "rns_fused_matmul_normalize"
     p = get_profile(profile)
+    key, blk = autotune.resolve(name, p, (math.prod(a_res.shape[1:-1]),
+                                          a_res.shape[-1], b_res.shape[-1]),
+                                a_res.device, bm=bm, bn=bn)
     if a_res.device.type == "cpu" and b_res.device.type == "cpu":
         return rns_fused_matmul_normalize_plain(p, a_res, b_res)
     if not a_res.is_cuda:
@@ -231,7 +249,9 @@ def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
                 a2.data_ptr(), int(a2.dtype == torch.int8), b2.data_ptr(),
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
+                blk["bm"], blk["bn"],
                 torch.cuda.current_stream(a_res.device).cuda_stream)
         build.check(err, name)
         launches[name] += 1
+        autotune.last_launch[name] = (key, blk)
     return out

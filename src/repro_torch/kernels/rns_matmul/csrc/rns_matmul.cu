@@ -11,15 +11,19 @@
 
 #include "rns_tables.cuh"
 
-constexpr int BM = 32, BN = 64, BK = 32, THREADS = 256;
-constexpr int TM = BM / 16, TN = BN / 16;   // outputs per thread: TM x TN
+// BK and the block size are fixed; the (BM, BN) output tile is a template
+// parameter, one instantiation per compiled tile (analysis/kernel_audit.py
+// MATMUL_TILES), chosen at launch by rns_matmul's bm, bn.
+constexpr int BK = 32, THREADS = 256;
 
-template <typename InT>
+template <typename InT, int BM, int BN>
 __global__ void __launch_bounds__(THREADS)
 rns_matmul_kernel(const InT* __restrict__ a, const InT* __restrict__ b,
                   int M, int N, int D, int lim,
                   const __grid_constant__ RnsTables t,
                   int32_t* __restrict__ out) {
+  static_assert(BM % 16 == 0 && BN % 16 == 0, "a 16 x 16 thread grid");
+  constexpr int TM = BM / 16, TN = BN / 16;   // outputs per thread: TM x TN
   const int s = blockIdx.z;
   const int m = t.moduli[s];
   const InT* A = a + (long long)s * M * D;
@@ -84,20 +88,34 @@ rns_matmul_kernel(const InT* __restrict__ a, const InT* __restrict__ b,
   }
 }
 
-// a [S, M, D], b [S, D, N] residues (int8 if in_int8, else int32; all
-// >= 0), out [S, M, N] int32.  lim = lazy_chunk - 1 >= BK.
-extern "C" int rns_matmul(const void* a, const void* b, int S, int M, int N,
-                          int D, int lim, const RnsTables* t, void* out,
-                          int in_int8, void* stream) {
+template <int BM, int BN>
+static int launch(const void* a, const void* b, int S, int M, int N, int D,
+                  int lim, const RnsTables& t, void* out, int in_int8,
+                  cudaStream_t st) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, S);
-  cudaStream_t st = (cudaStream_t)stream;
   if (in_int8) {
-    rns_matmul_kernel<int8_t><<<grid, THREADS, 0, st>>>(
-        (const int8_t*)a, (const int8_t*)b, M, N, D, lim, *t, (int32_t*)out);
+    rns_matmul_kernel<int8_t, BM, BN><<<grid, THREADS, 0, st>>>(
+        (const int8_t*)a, (const int8_t*)b, M, N, D, lim, t, (int32_t*)out);
   } else {
-    rns_matmul_kernel<int32_t><<<grid, THREADS, 0, st>>>(
-        (const int32_t*)a, (const int32_t*)b, M, N, D, lim, *t,
+    rns_matmul_kernel<int32_t, BM, BN><<<grid, THREADS, 0, st>>>(
+        (const int32_t*)a, (const int32_t*)b, M, N, D, lim, t,
         (int32_t*)out);
   }
   return (int)cudaGetLastError();
+}
+
+// a [S, M, D], b [S, D, N] residues (int8 if in_int8, else int32; all
+// >= 0), out [S, M, N] int32.  lim = lazy_chunk - 1 >= BK; (bm, bn) one
+// of the compiled tiles.
+extern "C" int rns_matmul(const void* a, const void* b, int S, int M, int N,
+                          int D, int lim, const RnsTables* t, void* out,
+                          int in_int8, int bm, int bn, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lim < BK) return cudaErrorInvalidValue;
+#define RNS_MATMUL_TILE(m, n)                                             \
+  if (bm == m && bn == n)                                                 \
+    return launch<m, n>(a, b, S, M, N, D, lim, *t, out, in_int8, st);
+  RNS_MATMUL_TILE(32, 64) RNS_MATMUL_TILE(64, 64) RNS_MATMUL_TILE(32, 128)
+#undef RNS_MATMUL_TILE
+  return cudaErrorInvalidValue;
 }

@@ -14,24 +14,26 @@ the digit on ``blockIdx.z``, 32-deep tiles of a and b staged in shared
 memory, 8 int32 accumulators per thread in registers, and a modular
 reduction every ``lazy_chunk - 1`` terms as ``modular_matmul`` keeps
 it.  It uses CUDA cores, not the int8 tensor cores (``wgmma`` and TMA
-are later work), and reads b once per 32-row tile of a.
+are later work), and reads b once per 32-row tile of a.  The row and
+column tile is chosen per shape bucket through ``kernels/autotune.py``
+among the compiled tiles (template instantiations, ``MATMUL_TILES``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.core.moduli import get_profile
 from repro_torch.core.rns_matmul import rns_matmul_res
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 __all__ = ["rns_matmul", "rns_matmul_plain", "SOURCE", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_matmul.cu"
-_BK = 32                    # the kernel's K tile (csrc/rns_matmul.cu)
 
 #: kernel launches made by :func:`rns_matmul` (CUDA tensors only)
 launches = 0
@@ -42,7 +44,7 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(build.RnsTablesC), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rns_matmul.restype = ctypes.c_int
 
 
@@ -56,42 +58,45 @@ def rns_matmul_plain(profile, a_res: torch.Tensor,
     return rns_matmul_res(profile, a_res, b_res)
 
 
-def rns_matmul(profile, a_res: torch.Tensor,
-               b_res: torch.Tensor) -> torch.Tensor:
+def rns_matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
+               bm: int | None = None,
+               bn: int | None = None) -> torch.Tensor:
     """a_res [K, ..., M, D], b_res [K, D, N] residues -> [K, ..., M, N] int32.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    The (bm, bn) output tile resolves through ``autotune.resolve``, which
+    gates it with ``check_wrapper_blocks`` (an illegal tile raises
+    ``ValueError``).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (or raises).
     """
     global launches
     p = get_profile(profile)
+    K, D, N = b_res.shape
+    M = math.prod(a_res.shape[1:-1])
+    key, blk = autotune.resolve("rns_matmul", p, (M, D, N), a_res.device,
+                                bm=bm, bn=bn)
     if a_res.device.type == "cpu" and b_res.device.type == "cpu":
         return rns_matmul_plain(p, a_res, b_res)
     if not (a_res.is_cuda and b_res.device == a_res.device):
         raise ValueError(f"rns_matmul: operands on {a_res.device} and "
                          f"{b_res.device}; need one CUDA device")
-    K, D, N = b_res.shape
     if a_res.shape[0] != K or a_res.shape[-1] != D or K != p.n_digits:
         raise ValueError(f"rns_matmul: shapes {tuple(a_res.shape)} @ "
                          f"{tuple(b_res.shape)} for {p.name}")
     if a_res.dtype != b_res.dtype or a_res.dtype not in (torch.int8,
                                                          torch.int32):
         raise ValueError(f"rns_matmul: dtypes {a_res.dtype}, {b_res.dtype}")
-    lim = p.lazy_chunk - 1
-    if lim < _BK:
-        raise ValueError(f"rns_matmul: lazy_chunk {p.lazy_chunk} < tile")
     a2 = a_res.reshape(K, -1, D).contiguous()
     b2 = b_res.contiguous()
-    M = a2.shape[1]
     out = torch.empty((K, M, N), dtype=torch.int32, device=a_res.device)
     if M and N:
         lib = build.load("rns_matmul", SOURCE, _bind)
         with torch.cuda.device(a_res.device):
             err = lib.rns_matmul(
-                a2.data_ptr(), b2.data_ptr(), K, M, N, D, lim,
+                a2.data_ptr(), b2.data_ptr(), K, M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
-                int(a_res.dtype == torch.int8),
+                int(a_res.dtype == torch.int8), blk["bm"], blk["bn"],
                 torch.cuda.current_stream(a_res.device).cuda_stream)
         build.check(err, "rns_matmul")
         launches += 1
+        autotune.last_launch["rns_matmul"] = (key, blk)
     return out.reshape(tuple(a_res.shape[:-1]) + (N,))

@@ -24,28 +24,29 @@ __global__ void rns_normalize_kernel(const int32_t* __restrict__ res,
 
 template <int K>
 static void launch(const int32_t* res, long long T, const RnsTables& t,
-                   float* out, cudaStream_t st) {
-  const int threads = 256;
+                   float* out, int threads, cudaStream_t st) {
   const unsigned blocks = (unsigned)((T + threads - 1) / threads);
   rns_normalize_kernel<K><<<blocks, threads, 0, st>>>(res, T, t, out);
 }
 
-// res [K, T] int32, out [T] float32.  K must be a profile's digit count.
+// res [K, T] int32, out [T] float32.  K must be a profile's digit count;
+// `threads` per block is the tile bt (registers cap it for wide K:
+// analysis/kernel_audit.py).
 extern "C" int rns_normalize(const void* res, long long T, const RnsTables* t,
-                             void* out, void* stream) {
+                             void* out, int threads, void* stream) {
   const int32_t* r = (const int32_t*)res;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (t->K) {
-    case 5: launch<5>(r, T, *t, o, st); break;
-    case 6: launch<6>(r, T, *t, o, st); break;
-    case 7: launch<7>(r, T, *t, o, st); break;
-    case 8: launch<8>(r, T, *t, o, st); break;
-    case 9: launch<9>(r, T, *t, o, st); break;
-    case 12: launch<12>(r, T, *t, o, st); break;
-    case 16: launch<16>(r, T, *t, o, st); break;
-    case 18: launch<18>(r, T, *t, o, st); break;
-    case 21: launch<21>(r, T, *t, o, st); break;
+    case 5: launch<5>(r, T, *t, o, threads, st); break;
+    case 6: launch<6>(r, T, *t, o, threads, st); break;
+    case 7: launch<7>(r, T, *t, o, threads, st); break;
+    case 8: launch<8>(r, T, *t, o, threads, st); break;
+    case 9: launch<9>(r, T, *t, o, threads, st); break;
+    case 12: launch<12>(r, T, *t, o, threads, st); break;
+    case 16: launch<16>(r, T, *t, o, threads, st); break;
+    case 18: launch<18>(r, T, *t, o, threads, st); break;
+    case 21: launch<21>(r, T, *t, o, threads, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

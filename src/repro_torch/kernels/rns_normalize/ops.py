@@ -13,7 +13,10 @@ holds the kernel bit for bit to ``core/mrc.decode_float`` (ROADMAP
 C.1).  Wide profiles whose W_j overflow float32 (rns21) get the same
 inf/NaN the float32 reference gives.  Tables travel by value as a
 kernel argument (``build.RnsTablesC``), so any number of profiles can
-be in use at once.
+be in use at once.  Threads per block (the tile ``bt``) are a launch
+parameter, chosen per shape bucket through ``kernels/autotune.py``;
+registers cap them for the wide profiles (rns21's 255 registers a
+thread allow 256 threads a block).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.core import mrc
 from repro_torch.core.moduli import get_profile
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 __all__ = ["rns_normalize", "rns_normalize_plain", "SOURCE", "launches"]
 
@@ -39,7 +42,7 @@ launches = 0
 def _bind(lib):
     lib.rns_normalize.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(build.RnsTablesC),
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.rns_normalize.restype = ctypes.c_int
 
 
@@ -50,14 +53,22 @@ def rns_normalize_plain(profile, res: torch.Tensor) -> torch.Tensor:
     return mrc.decode_float(profile, res)
 
 
-def rns_normalize(profile, res: torch.Tensor) -> torch.Tensor:
+def rns_normalize(profile, res: torch.Tensor, *,
+                  bt: int | None = None) -> torch.Tensor:
     """res [K, ...] int residues -> [...] float32 signed values (unscaled).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    ``bt`` (threads per block) resolves through ``autotune.resolve``,
+    which gates it with ``check_wrapper_blocks`` (for the digit counts
+    the kernel has).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (or raises).
     """
     global launches
     p = get_profile(profile)
+    key, blk = autotune.resolve("rns_normalize", p,
+                                (res[0].numel() if res.ndim else 0,),
+                                res.device, gate=p.n_digits in SUPPORTED_K,
+                                bt=bt)
     if res.device.type == "cpu":
         return rns_normalize_plain(p, res)
     if not res.is_cuda:
@@ -75,8 +86,9 @@ def rns_normalize(profile, res: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(res.device):
             err = lib.rns_normalize(
                 flat.data_ptr(), T, ctypes.byref(build.rns_tables_c(p)),
-                out.data_ptr(),
+                out.data_ptr(), blk["bt"],
                 torch.cuda.current_stream(res.device).cuda_stream)
         build.check(err, "rns_normalize")
         launches += 1
+        autotune.last_launch["rns_normalize"] = (key, blk)
     return out.reshape(shape)
