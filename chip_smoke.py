@@ -10,7 +10,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 each, all in parallel; every compiled tile is a template
                 instantiation), print each build's time and
                 ``ptxas -v``, and hold each instantiation's registers to
-                the tile checker's register model;
+                the tile checker's register model; count the tensor-core
+                instructions in the SASS (``cuobjdump -sass``): IMMA in
+                rns_matmul and HMMA in flash_attention, neither may be 0;
   [serve]       full-width smollm-135m with the rns9 MLP datapath through
                 ContinuousEngine.run on mixed-length requests (after one
                 short warm-up request): the per-op path, weights
@@ -42,9 +44,12 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 versions on the card -- the six RNS kernels bit for bit
                 on the inputs both serves gave them (every distinct
                 shape), at every candidate tiling on one main-path input
-                each, and on boundary cases of every profile;
+                each, and on boundary cases of every profile (rns8_u8's
+                int32 residues included; rns_matmul at every candidate
+                tile, its K steps split among blocks);
                 flash_attention within 2e-5 (float32; plus one step of
-                the type in bfloat16) on ragged and full-width shapes --
+                the type in bfloat16) on ragged and full-width shapes,
+                at every candidate tile --
                 and time kernel, plain
                 version and the library yardstick (torch._int_mm,
                 scaled_dot_product_attention);
@@ -70,6 +75,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,7 +128,10 @@ FLASH_RAGGED = [(1, 128, 128, 2, 1, 16), (2, 96, 200, 4, 2, 32),
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
+# the tensor-core instruction each kernel's SASS must hold
+SASS_MMA = {"rns_matmul": "IMMA", "flash_attention": "HMMA"}
 
 SERVE = dict(requests=6, prompt_lens=(7, 33, 120), new=16, max_seqs=8)
 IDENTITY_LAYERS = 4
@@ -254,6 +263,18 @@ def phase_build():
     if over:
         raise AssertionError("instantiations over the tile checker's "
                              "register model:\n" + "\n".join(over))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name, op in SASS_MMA.items():
+        lib = build.library_path(name, sources[name])
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300)
+        n = sum(op in line for line in sass.stdout.splitlines())
+        print(f"  {name}: {n} {op} instructions in the SASS "
+              f"(cuobjdump -sass {lib.name})")
+        if not n:
+            raise AssertionError(f"{name}: no {op} instruction in its SASS "
+                                 f"(cuobjdump rc {sass.returncode}: "
+                                 f"{sass.stderr.strip()[:200]})")
 
 
 def _kernel_mods():
@@ -464,8 +485,9 @@ def phase_kernels(torch, dev, record, calls, launches):
     bad = []
 
     def case(kernel, label, fn, plain, nbytes=0, ops=0, rate=1, timed=True,
-             library=None, calls_in_serve=None, check=None):
-        """``check(got, want) -> (ok, extra)``; by default bit-equal."""
+             library=None, calls_in_serve=None, check=None, note=None):
+        """``check(got, want) -> (ok, extra)``; by default bit-equal.
+        ``note`` says which rate ``rate`` is, for the bound."""
         got, want = fn(), plain()
         err = _max_abs_err(torch, got, want)
         entry = {"case": label, "max_abs_err": err}
@@ -481,6 +503,8 @@ def phase_kernels(torch, dev, record, calls, launches):
                          plain_ms=_time_ms(torch, plain, 5),
                          bound_ms=b, bound_by=by, library_ms=None,
                          eager_ms=_eager_ms(torch, fn, 50))
+            if note is not None:
+                entry["bound_note"] = note
             if library is not None:
                 entry["library_ms"], entry["library_note"] = library()
         record.setdefault(kernel, []).append(entry)
@@ -491,7 +515,17 @@ def phase_kernels(torch, dev, record, calls, launches):
             f"{k}={v}" for k, v in entry.items() if k != "case"))
 
     def int_mm(a, b):
-        """Per-digit torch._int_mm over [K, M, D] @ [K, D, N] (no mod)."""
+        """Per-digit torch._int_mm over [K, M, D] @ [K, D, N] (no mod);
+        ``a`` zero-padded to 32 rows where it has 16 or fewer, which
+        _int_mm refuses."""
+        note = "per-digit torch._int_mm (no mod), one call per digit"
+        if a.shape[1] <= 16:
+            pad = torch.zeros((a.shape[0], 32, a.shape[2]), dtype=a.dtype,
+                              device=a.device)
+            pad[:, :a.shape[1]] = a
+            a = pad
+            note += ", a zero-padded to 32 rows (_int_mm needs > 16)"
+
         def run():
             return [torch._int_mm(a[s], b[s]) for s in range(a.shape[0])]
 
@@ -500,10 +534,7 @@ def phase_kernels(torch, dev, record, calls, launches):
                 run()
             except RuntimeError as e:
                 return None, f"torch._int_mm refuses this shape: {e}"[:160]
-            return (_time_ms(torch, run, 5),
-                    "per-digit torch._int_mm (no mod), one call per digit")
-        if a.shape[1] <= 16:
-            return lambda: (None, "torch._int_mm needs more than 16 rows")
+            return _time_ms(torch, run, 5), note
         return timed
 
     # ---- the main paths' own inputs: every distinct call of both serves
@@ -554,8 +585,15 @@ def phase_kernels(torch, dev, record, calls, launches):
                 esize = q.element_size()
                 nbytes = esize * (2 * B * Tq * H * D + 2 * B * Tk * Hk * D)
                 flops = 4 * B * H * Tq * Tk * D / (2 if causal else 1)
-                rate = F32_OPS_PER_S if dtype == torch.float32 \
-                    else BF16_OPS_PER_S
+                if dtype == torch.float32:
+                    # the faster of the CUDA cores and 3xTF32 (three TF32
+                    # products per product) on the tensor cores
+                    rate = max(F32_OPS_PER_S, TF32_OPS_PER_S / 3)
+                    note = ("3 x ops / 495 TFLOP/s (3xTF32)"
+                            if rate > F32_OPS_PER_S
+                            else "ops / 67 TFLOP/s (float32)")
+                else:
+                    rate, note = BF16_OPS_PER_S, "ops / 989 TFLOP/s (bf16)"
 
                 def sdpa(q=q, k=k, v=v, causal=causal):
                     return F.scaled_dot_product_attention(
@@ -572,10 +610,22 @@ def phase_kernels(torch, dev, record, calls, launches):
                      lambda q=q, k=k, v=v, c=causal:
                      fa_ops.flash_attention_plain(q, k, v, causal=c),
                      nbytes, flops, rate, timed=full, check=flash_check,
+                     note=note,
                      library=(lambda f=sdpa: (
                          _time_ms(torch, f, 5),
                          "torch scaled_dot_product_attention, enable_gqa"))
                      if full else None)
+                # every candidate tile the checker allows at this shape
+                want = fa_ops.flash_attention_plain(q, k, v, causal=causal)
+                legal, _ = autotune.legal_candidates(
+                    "flash_attention", str(dtype)[6:], (Tq, Tk, D))
+                for cand in legal:
+                    case("flash_attention",
+                         f"{str(dtype)[6:]} causal={causal} q[{B},{Tq},{H},"
+                         f"{D}] tile {_blk(cand)}",
+                         lambda q=q, k=k, v=v, c=causal, b=cand:
+                         fa_ops.flash_attention(q, k, v, causal=c, **b),
+                         lambda w=want: w, timed=False, check=flash_check)
 
     # ---- boundary cases: every profile, odd shapes, ROADMAP C.1
     c_ops, m_ops, n_ops, f_ops = (mods[k] for k in (
@@ -590,13 +640,19 @@ def phase_kernels(torch, dev, record, calls, launches):
              lambda: c_ops.rns_convert(p, x, s, bits=8, out_dtype=od),
              lambda: c_ops.rns_convert_plain(p, x, s, bits=8, out_dtype=od),
              timed=False)
-    for name in sorted(n for n, p in PROFILES.items() if p.int8_safe):
+    for name in sorted(PROFILES):       # rns8_u8: int32 residues to 255
         p = get_profile(name)
-        a = _residues(torch, p, (37, 300), g, dev).to(torch.int8)
-        b = _residues(torch, p, (300, 70), g, dev).to(torch.int8)
-        case("rns_matmul", f"{name} [K,37,300]@[K,300,70]",
-             lambda: m_ops.rns_matmul(p, a, b),
-             lambda: m_ops.rns_matmul_plain(p, a, b), timed=False)
+        rd = torch.int8 if p.int8_safe else torch.int32
+        # ragged rows and columns; D = 1100 is 9 K steps, shared among
+        # blocks (splits_for) since K x 2 column tiles leave SMs idle
+        a = _residues(torch, p, (37, 1100), g, dev).to(rd)
+        b = _residues(torch, p, (1100, 70), g, dev).to(rd)
+        want = m_ops.rns_matmul_plain(p, a, b)
+        for cand in autotune.CANDIDATES["rns_matmul"]:
+            case("rns_matmul", f"{name} [K,37,1100]{rd}@[K,1100,70] tile "
+                 f"{_blk(cand)}",
+                 lambda c=cand: m_ops.rns_matmul(p, a, b, **c),
+                 lambda: want, timed=False)
     c1 = torch.as_tensor(encode_exact("rns5", [4_503_599_542_737_792,
                                                -4_503_599_542_737_792]),
                          device=dev)

@@ -6,7 +6,7 @@ Hopper's rules in place of Mosaic's (8, 128) tiling and 16 MiB VMEM:
 
 * shared memory per block: what the ``.cu`` launch code allocates
   (:func:`smem_bytes`), at most 48 KiB, or 227 KiB for a kernel that
-  opts in with ``cudaFuncSetAttribute`` (flash_attention);
+  opts in with ``cudaFuncSetAttribute`` (rns_matmul, flash_attention);
 * threads per block at most 1024;
 * registers: the block's threads times each thread's registers, both in
   the units the card allocates (warps of 32, registers in eights), at
@@ -15,10 +15,10 @@ Hopper's rules in place of Mosaic's (8, 128) tiling and 16 MiB VMEM:
   (rns_convert, rns_normalize), from :data:`REGISTERS`, which
   ``chip_smoke.py [build]`` holds against ``ptxas -v``;
 * each kernel's own constraints: the matmul kernels reduce at least
-  every ``lazy_chunk - 1`` terms, so their fixed 32-deep K tile must not
-  exceed that; a fused block of 32 K threads quantizes its ``bm x 32``
-  activation tile in ``_FUSED_NX`` passes; and every tile must be one
-  that is compiled.
+  every ``lazy_chunk - 1`` terms, so their fixed K step (128 deep in
+  rns_matmul, 32 in rns_fused) must not exceed that; a fused block of
+  32 K threads quantizes its ``bm x 32`` activation tile in
+  ``_FUSED_NX`` passes; and every tile must be one that is compiled.
 
 ``kernels/autotune.py`` gates the tiles of every wrapper call through
 :func:`check_wrapper_blocks` (once per call shape, and whenever a caller
@@ -42,14 +42,18 @@ SMEM_OPT_IN = 232_448           # 227 KiB, after cudaFuncSetAttribute
 MAX_THREADS = 1024
 REGS_PER_SM = 65_536
 
-_MATMUL_BK = 32                 # csrc/rns_matmul.cu and csrc/rns_fused.cu
+_MATMUL_BK = 32                 # csrc/rns_fused.cu: K step
+_RNS_MATMUL_BK = 128            # csrc/rns_matmul.cu: K step (4 k32 MMAs)
+_RNS_MATMUL_STAGES = 3          # csrc/rns_matmul.cu: cp.async ring
+_RNS_MATMUL_PAD = 16            # csrc/rns_matmul.cu: bytes after a row
 _FUSED_NX = 2                   # x elements per thread per tile (rns_fused.cu)
 
 #: compiled (bm, bn) tiles: template instantiations, dispatched at launch
 #: (rns_matmul.cu, rns_fused.cu), the first being the kernel's default
-MATMUL_TILES = ((32, 64), (64, 64), (32, 128))
+MATMUL_TILES = ((32, 64), (64, 64), (32, 128), (64, 128))
 FUSED_TILES = ((8, 16), (8, 32), (16, 16))
-#: flash_attention: bq is a template parameter, bk a launch parameter
+#: flash_attention: bq (16 rows a warp) a launch parameter, bk a template
+#: parameter (with the head width padded to 16, 32, 64 or 128)
 FLASH_TILES = ((32, 64, 128), (32, 64, 128))
 FLASH_DMAX = 128                # csrc/flash_attention.cu DMAX
 
@@ -81,9 +85,10 @@ class BlockConfigError(ValueError):
 
 def _profile_meta(kind, profile):
     """(n_digits, residue element bytes, lazy_chunk) of a (kind, profile)
-    pair; flash_attention has no RNS profile (its key holds a dtype)."""
+    pair; flash_attention has no RNS profile (its key holds a dtype tag,
+    and the element bytes are that type's)."""
     if kind == "flash_attention":
-        return 1, 4, None
+        return 1, (4 if str(profile) == "float32" else 2), None
     p = get_profile(profile)
     return p.n_digits, (1 if p.int8_safe else 4), p.lazy_chunk
 
@@ -102,7 +107,9 @@ def registers_per_thread(kind, n_digits=1, res_bytes=1):
         return REGISTERS[kind]["int8" if res_bytes == 1 else "int32"]
     if kind == "rns_normalize":
         return REGISTERS[kind].get(int(n_digits))
-    if kind in ("rns_matmul", "flash_attention"):
+    if kind == "rns_matmul":          # __launch_bounds__(bn), bn >= 64
+        return register_cap(64)
+    if kind == "flash_attention":       # __launch_bounds__(256)
         return register_cap(256)
     if kind == "rns_fused_encode_matmul":     # KT = 0: bounds for rns21
         return register_cap(32 * 21)
@@ -115,28 +122,36 @@ def threads(kind, blocks, n_digits=1) -> int:
         return blocks["bt"]
     if kind in _FUSED_KINDS:
         return 32 * int(n_digits)           # one warp per digit
-    return 256                              # rns_matmul, flash_attention
+    if kind == "rns_matmul":
+        return blocks["bn"]                 # one warp per 32 columns
+    return 2 * blocks["bq"]                 # flash: one warp per 16 rows
 
 
 def smem_bytes(kind, blocks, n_digits=1, res_bytes=4, dims=None) -> int:
     """Shared memory bytes one block of the launch allocates, as the
     ``.cu`` launch code computes them.  ``dims`` gives flash's ``D`` and
-    ``Dv`` (128 each when unknown: the widest the kernel takes)."""
+    ``Dv`` (128 each when unknown: the widest the kernel takes);
+    ``res_bytes`` is flash's element size (4 float32, 2 bf16 / fp16)."""
     K = int(n_digits)
     if kind in ("rns_convert", "rns_normalize"):
         return 0
-    if kind == "rns_matmul":                # int As[BK][BM + 1], Bs[BK][BN]
-        return 4 * _MATMUL_BK * (blocks["bm"] + 1 + blocks["bn"])
+    if kind == "rns_matmul":    # STAGES x (A [bm][BK + 16], B [BK][bn + 16])
+        bk, pad = _RNS_MATMUL_BK, _RNS_MATMUL_PAD
+        return _RNS_MATMUL_STAGES * (blocks["bm"] * (bk + pad)
+                                     + bk * (blocks["bn"] + pad))
     if kind in _FUSED_KINDS:                # [Vs] + As + Bs (rns_fused.cu)
         bm, bn, bk = blocks["bm"], blocks["bn"], _MATMUL_BK
         quant = kind != "rns_fused_matmul_normalize"
         return ((4 * bk * bm if quant else 0) + 4 * K * bk * bm
                 + res_bytes * K * bk * bn)
-    if kind == "flash_attention":           # Q, K (+1 pad), V, S (+1 pad)
+    if kind == "flash_attention":           # 2 stages x (K, V) [bk][DP + pad]
         d = dict(dims or {})
         D, Dv = d.get("D", 128), d.get("Dv", d.get("D", 128))
-        bq, bk = blocks["bq"], blocks["bk"]
-        return 4 * (bq * (D + 1) + bk * (D + 1) + bk * Dv + bq * (bk + 1))
+        dp = 16
+        while dp < max(D, Dv):
+            dp *= 2
+        pad = 4 if res_bytes == 4 else 8
+        return res_bytes * 2 * 2 * blocks["bk"] * (dp + pad)
     raise KeyError(f"unknown kernel kind {kind!r}")
 
 
@@ -192,7 +207,8 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
         if used > REGS_PER_SM:
             out.append(f"{kind}: {nt} threads x {regs} registers = {used} "
                        f"> {REGS_PER_SM} per SM")
-    limit = SMEM_OPT_IN if kind == "flash_attention" else SMEM_STATIC
+    limit = SMEM_OPT_IN if kind in ("rns_matmul", "flash_attention") \
+        else SMEM_STATIC
     sm = smem_bytes(kind, blocks, K, res_bytes, dims)
     if sm > limit:
         out.append(f"{kind}: {sm} bytes of shared memory per block > "
@@ -203,9 +219,10 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
             if d.get(name, 0) > FLASH_DMAX:
                 out.append(f"{kind}: {name}={d[name]} > {FLASH_DMAX}, the "
                            "widest head the kernel's accumulators hold")
+    step = _RNS_MATMUL_BK if kind == "rns_matmul" else _MATMUL_BK
     if kind in _MATMUL_KINDS and lazy_chunk is not None and \
-            _MATMUL_BK > lazy_chunk - 1:
-        out.append(f"{kind}: K tile {_MATMUL_BK} > lazy_chunk - 1 = "
+            step > lazy_chunk - 1:
+        out.append(f"{kind}: K tile {step} > lazy_chunk - 1 = "
                    f"{lazy_chunk - 1} (int32 accumulators could overflow)")
     if kind in _FUSED_KINDS and 32 * K * _FUSED_NX < blocks["bm"] * \
             _MATMUL_BK:

@@ -20,8 +20,9 @@ resolves tiles it was not given through :func:`get_blocks`:
   keeps the fastest.
 
 An empty table gives :data:`DEFAULTS`, the tiles the kernels had before
-they took any: ``rns_matmul.cu``'s 32 x 64, ``rns_fused.cu``'s 8 x 16,
-256 threads for rns_convert and rns_normalize.
+they took any: ``rns_matmul.cu``'s 32 x 64 (kept by its tensor-core
+redesign), ``rns_fused.cu``'s 8 x 16, 256 threads for rns_convert and
+rns_normalize, flash_attention's 64 x 64.
 
 Cache file format (versioned)::
 
@@ -64,7 +65,8 @@ DEFAULTS: dict[str, dict[str, int]] = {
 #: what :func:`tune` sweeps: every compiled tile (analysis/kernel_audit.py)
 CANDIDATES: dict[str, list[dict[str, int]]] = {
     "rns_matmul": [{"bm": bm, "bn": bn}
-                   for bm, bn in ((32, 64), (64, 64), (32, 128))],
+                   for bm, bn in ((32, 64), (64, 64), (32, 128),
+                                  (64, 128))],
     "rns_convert": [{"bt": t} for t in (128, 256, 512, 1024)],
     "rns_normalize": [{"bt": t} for t in (128, 256, 512)],
     "flash_attention": [{"bq": q, "bk": k} for q in (32, 64, 128)

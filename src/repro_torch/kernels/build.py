@@ -23,7 +23,7 @@ import numpy as np
 from repro_torch.core.rns import tables
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "RNS_MAX_K", "RnsTablesC",
-           "rns_tables_c", "load", "build_all", "check"]
+           "rns_tables_c", "library_path", "load", "build_all", "check"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build"
@@ -78,7 +78,9 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str, source: Path) -> Path:
+def library_path(name: str, source: Path) -> Path:
+    """Where the library built from ``source`` lives (named by a hash of
+    its sources and flags)."""
     h = hashlib.sha1()
     for f in [source, *sorted(INCLUDE_DIR.glob("*.cuh"))]:
         h.update(f.read_bytes())
@@ -89,7 +91,7 @@ def _target(name: str, source: Path) -> Path:
 def _start(name: str, source: Path):
     """Start nvcc for one source unless its library is built; returns
     (target, tmp, process) or (target, None, None)."""
-    target = _target(name, source)
+    target = library_path(name, source)
     if target.exists():
         return target, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,21 +6,32 @@ wrapper ``ops.py:flash_attention``.  The models do not call it (their
 attention is a plain PyTorch flash, as ``repro.models.attention`` is a
 jnp one); the block tuner (``kernels/autotune.py``) and its tests do.
 
-Bound on an H100 SXM at 700 W (3.35 TB/s, 67 TFLOP/s float32 outside the
-tensor cores): operations at the long shapes.  SmolLM-135M's attention
-at its 2048-token context, q [1, 2048, 9, 64] causal, is
-4 * 9 * 2048**2 * 64 / 2 = 4.8 GFLOP against 19 MB of q, k, v and o:
-72 us of float32 arithmetic against 6 us of memory traffic; at 120
-tokens the launch costs more than either.  Design (a simple, correct
-kernel, ``csrc/flash_attention.cu``): one block of 256 threads per
-(batch x head, ``bq`` query rows); the q tile staged once, K and V
-tiles of ``bk`` rows staged in turn in dynamic shared memory, the KV
-head ``h / (H / Hk)`` read in place (no repeated copy), the tails of
-both axes masked in the kernel (no padded copy); ``256 / bq`` threads
-per query row keep its running max, sum and accumulator columns in
-registers.  Scores and ``p @ v`` are float32 FMAs on CUDA cores, in the
-Pallas kernel's update order with ``expf``: TF32 or bf16 tensor-core
-products would miss the 2e-5 bar, and are later work.
+Bound on an H100 SXM at 700 W (3.35 TB/s; 989 TFLOP/s bf16 and fp16
+and 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s float32 outside
+them): operations at the long shapes.  SmolLM-135M's attention at its
+2048-token context, q [1, 2048, 9, 64] causal, is
+4 * 9 * 2048**2 * 64 / 2 = 4.8 GFLOP against 13 MB of q, k, v and o
+(float32): 4 us of memory traffic against 4.9 us of bf16 tensor-core
+time; in float32 the bound is the smaller of 72 us on the CUDA cores and
+29 us for the three TF32 products per product that 3xTF32 needs.  At
+120 tokens the launch costs more than either.
+
+Design (``csrc/flash_attention.cu``, FlashAttention-2 style): one block
+of ``bq / 16`` warps per (batch x head, ``bq`` query rows), each warp
+owning 16 rows with its q fragments in registers; K and V tiles of
+``bk`` keys double-buffered through ``cp.async``, the KV head
+``h / (H / Hk)`` read in place (no repeated copy), D padded with zeros
+to the MMA depth, the tails of both axes masked in the kernel (no
+padded copy).  Scores stay in the tensor-core accumulators, where the
+online softmax runs (row max and sum over the 4 lanes of a quad), in
+the Pallas kernel's update order with ``expf``.  TF32 or bf16
+tensor-core products would miss the 2e-5 bar, so the products are
+split: bf16 and fp16 inputs run ``mma.sync.m16n8k16`` with float32
+accumulation (exact products for q.k), P.V as two MMAs of
+``p = p_hi + p_lo`` (both in the input type) with V through
+``ldmatrix.trans``; float32 inputs run 3xTF32 on
+``mma.sync.m16n8k8.tf32`` (each operand split into hi = tf32(x) and
+lo = tf32(x - hi), the products lo.hi + hi.lo + hi.hi).
 
 A CPU tensor takes the plain version (``flash_attention_plain``).
 """
