@@ -12,7 +12,8 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 ``ptxas -v``, and hold each instantiation's registers to
                 the tile checker's register model; count the tensor-core
                 instructions in the SASS (``cuobjdump -sass``): IMMA in
-                rns_matmul and HMMA in flash_attention, neither may be 0;
+                rns_matmul and rns_fused_mma (the fused dot and matmul +
+                normalize), HMMA in flash_attention, none may be 0;
   [serve]       full-width smollm-135m with the rns9 MLP datapath through
                 ContinuousEngine.run on mixed-length requests (after one
                 short warm-up request): the per-op path, weights
@@ -45,14 +46,18 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 on the inputs both serves gave them (every distinct
                 shape), at every candidate tiling on one main-path input
                 each, and on boundary cases of every profile (rns8_u8's
-                int32 residues included; rns_matmul at every candidate
-                tile, its K steps split among blocks);
+                int32 residues included; rns_matmul, the fused dot and
+                the fused matmul + normalize (int8 and int32 a) at every
+                candidate tile with their K steps split among blocks);
                 flash_attention within 2e-5 (float32; plus one step of
                 the type in bfloat16) on ragged and full-width shapes,
                 at every candidate tile --
                 and time kernel, plain
                 version and the library yardstick (torch._int_mm,
-                scaled_dot_product_attention);
+                scaled_dot_product_attention), and, beside each fused
+                kernel's main-path input, the port's unfused chain on
+                the same inputs (rns_convert -> rns_matmul ->
+                rns_normalize, or its first or last two) in one graph;
   [identity]    the same seeded weights and prompts at a reduced depth:
                 per-op path on the card (kernels) vs the CPU (plain path)
                 -- one RNS projection bit-equal, first-step logits within
@@ -131,7 +136,8 @@ F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 # the tensor-core instruction each kernel's SASS must hold
-SASS_MMA = {"rns_matmul": "IMMA", "flash_attention": "HMMA"}
+SASS_MMA = {"rns_matmul": "IMMA", "rns_fused_mma": "IMMA",
+            "flash_attention": "HMMA"}
 
 SERVE = dict(requests=6, prompt_lens=(7, 33, 120), new=16, max_seqs=8)
 IDENTITY_LAYERS = 4
@@ -215,10 +221,14 @@ def _register_model(entry: str):
                                        res_bytes=1 if m[1] == "a" else 4)
     if (m := re.search(r"rns_normalize_kernelILi(\d+)E", entry)):
         return ka.registers_per_thread("rns_normalize", int(m[1]))
-    if (m := re.search(r"rns_fused_kernelI..Li(\d+)E", entry)):
-        K = int(m[1])
-        return ka.registers_per_thread(
-            "rns_fused_dot" if K else "rns_fused_encode_matmul", K)
+    if (m := re.search(r"rns_fused_mma_kernelI(.).Li(\d+)ELi\d+ELi(\d+)E",
+                       entry)):
+        kind = "rns_fused_dot" if m[1] == "f" else \
+            "rns_fused_matmul_normalize"
+        return ka.registers_per_thread(kind, int(m[2]),
+                                       blocks={"bn": int(m[3])})
+    if "rns_fused_kernel" in entry:
+        return ka.registers_per_thread("rns_fused_encode_matmul")
     if "rns_matmul_kernel" in entry:
         return ka.registers_per_thread("rns_matmul")
     if "flash_attention_kernel" in entry:
@@ -231,7 +241,9 @@ def phase_build():
 
     from repro_torch.kernels import build
 
-    sources = {m.SOURCE.stem: m.SOURCE for m in set(_kernel_mods().values())}
+    sources = {}
+    for m in set(_kernel_mods().values()):
+        sources.update(getattr(m, "SOURCES", {m.SOURCE.stem: m.SOURCE}))
 
     def one(name):              # one nvcc each, all started together
         t = time.perf_counter()
@@ -471,6 +483,7 @@ def phase_kernels(torch, dev, record, calls, launches):
     main-path inputs and of flash at full width.  Fills ``record``."""
     import torch.nn.functional as F
 
+    from repro_torch.analysis.kernel_audit import fused_ring
     from repro_torch.core.moduli import PROFILES, get_profile
     from repro_torch.core.rns import encode_exact
     from repro_torch.kernels import autotune
@@ -482,12 +495,16 @@ def phase_kernels(torch, dev, record, calls, launches):
     _reset_launches()
     g = torch.Generator(device=dev).manual_seed(0)
     mods = _kernel_mods()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bad = []
 
     def case(kernel, label, fn, plain, nbytes=0, ops=0, rate=1, timed=True,
-             library=None, calls_in_serve=None, check=None, note=None):
+             library=None, calls_in_serve=None, check=None, note=None,
+             unfused=None):
         """``check(got, want) -> (ok, extra)``; by default bit-equal.
-        ``note`` says which rate ``rate`` is, for the bound."""
+        ``note`` says which rate ``rate`` is, for the bound; ``unfused =
+        (fn, note)`` is the port's unfused chain on the same inputs, held
+        to the plain version too and timed as ``unfused_ms``."""
         got, want = fn(), plain()
         err = _max_abs_err(torch, got, want)
         entry = {"case": label, "max_abs_err": err}
@@ -507,6 +524,12 @@ def phase_kernels(torch, dev, record, calls, launches):
                 entry["bound_note"] = note
             if library is not None:
                 entry["library_ms"], entry["library_note"] = library()
+            if unfused is not None:
+                chain, entry["unfused_note"] = unfused
+                chain_err = _max_abs_err(torch, chain(), want)
+                entry["unfused_max_abs_err"] = chain_err
+                ok = ok and chain_err == 0
+                entry["unfused_ms"] = _time_ms(torch, chain, 20)
         record.setdefault(kernel, []).append(entry)
         if not ok:
             bad.append(f"{kernel} {label}: " + " ".join(
@@ -537,6 +560,32 @@ def phase_kernels(torch, dev, record, calls, launches):
             return _time_ms(torch, run, 5), note
         return timed
 
+    def unfused_chain(kernel, prof, args, kw):
+        """The port's unfused kernels on a fused kernel's inputs, in the
+        order the per-op path runs them."""
+        p = get_profile(prof)
+        c_ops, m_ops, n_ops = (mods[k] for k in (
+            "rns_convert", "rns_matmul", "rns_normalize"))
+        rd = torch.int8 if p.int8_safe else torch.int32
+        if kernel == "rns_fused_matmul_normalize":
+            a, b = args
+            a8 = a.to(rd)           # the per-op path's residues are int8
+
+            def chain():
+                return n_ops.rns_normalize(p, m_ops.rns_matmul(p, a8, b))
+            return chain, ("rns_matmul -> rns_normalize in one graph, "
+                           f"a_res cast to {rd} outside it")
+        x, sc, b = args
+
+        def chain():
+            res = m_ops.rns_matmul(p, c_ops.rns_convert(
+                p, x, sc, bits=kw.get("bits", 16), out_dtype=rd), b)
+            return res if kernel == "rns_fused_encode_matmul" else \
+                n_ops.rns_normalize(p, res)
+        return chain, "rns_convert -> rns_matmul" + (
+            "" if kernel == "rns_fused_encode_matmul"
+            else " -> rns_normalize") + " in one graph"
+
     # ---- the main paths' own inputs: every distinct call of both serves
     for entry in sorted(calls.values(),
                         key=lambda e: (e["kernel"], -e["calls"])):
@@ -554,7 +603,9 @@ def phase_kernels(torch, dev, record, calls, launches):
              lambda w=wrapper: w(prof, *args, **kw),
              lambda f=plain: f(prof, *args, **kw),
              nbytes, ops, rate, library=library,
-             calls_in_serve=entry["calls"])
+             calls_in_serve=entry["calls"],
+             unfused=(unfused_chain(kernel, prof, args, kw)
+                      if kernel.startswith("rns_fused") else None))
 
     # ---- every candidate tiling, on each kernel's most called input
     heads = {}
@@ -683,8 +734,9 @@ def phase_kernels(torch, dev, record, calls, launches):
                  lambda k=kernel: getattr(f_ops, k + "_plain")(p, x, s, b,
                                                                bits=8),
                  timed=False)
-        for ad in ((torch.int8, torch.int32) if p.int8_safe
-                   else (torch.int32,)):
+        a_dtypes = (torch.int8, torch.int32) if p.int8_safe \
+            else (torch.int32,)
+        for ad in a_dtypes:
             a = _residues(torch, p, (13, 37), g, dev).to(ad)
             b2 = _residues(torch, p, (37, 21), g, dev).to(bd)
             case("rns_fused_matmul_normalize",
@@ -692,6 +744,31 @@ def phase_kernels(torch, dev, record, calls, launches):
                  lambda: f_ops.rns_fused_matmul_normalize(p, a, b2),
                  lambda: f_ops.rns_fused_matmul_normalize_plain(p, a, b2),
                  timed=False)
+        # D = 1100 over one row tile and 2-3 column tiles: the tensor-core
+        # fused kernels share each tile's K steps among blocks, at every
+        # candidate tile the checker allows
+        x = torch.randn((13, 1100), generator=g, device=dev)
+        s = 127.0 / x.abs().amax(dim=1, keepdim=True)
+        b = _residues(torch, p, (1100, 70), g, dev).to(bd)
+        split_in = [("rns_fused_dot", "x[13,1100] rows @[K,1100,70]",
+                     (x, s, b), {"bits": 8})]
+        split_in += [("rns_fused_matmul_normalize",
+                      f"[K,13,1100]{ad}@[K,1100,70]",
+                      (_residues(torch, p, (13, 1100), g, dev).to(ad), b),
+                      {}) for ad in a_dtypes]
+        for kernel, label, args, kw in split_in:
+            want = getattr(f_ops, kernel + "_plain")(p, *args, **kw)
+            legal, _ = autotune.legal_candidates(kernel, name, (13, 1100, 70))
+            for cand in legal:
+                bk = fused_ring(kernel, p.n_digits, cand["bm"], cand["bn"])[0]
+                sp = f_ops.splits_for(13, 1100, 70, cand["bm"], cand["bn"],
+                                      bk, sms)
+                if sp < 2:
+                    bad.append(f"{kernel} {name} {label} {cand}: no split")
+                case(kernel, f"{name} {label} tile {_blk(cand)} split {sp}",
+                     lambda k=kernel, c=cand, a=args, w=kw: getattr(
+                         f_ops, k)(p, *a, **w, **c),
+                     lambda w=want: w, timed=False)
     torch.cuda.synchronize()
     launches["kernels"] = _launches()
     if bad:
@@ -891,9 +968,10 @@ def _profile_serve(torch, engine, results, unprofiled_wall_s) -> dict:
                 str(ev.device_type).endswith("CUDA") and dt:
             busy_us += dt
             for k in ("rns_convert", "rns_matmul", "rns_normalize",
-                      "rns_fused"):
-                if k in ev.key:
+                      "rns_fused_mma", "rns_fused"):
+                if k in ev.key:     # B.4 + B.6, or B.5
                     by_name[k] = by_name.get(k, 0.0) + dt / 1e3
+                    break
     out = {"profiled_run": "the serve traffic re-served under "
                            "torch.profiler on the warm engine",
            "profiled_wall_s": wall, "profiled_tokens_equal": same}
@@ -1047,6 +1125,7 @@ def phase_identity(torch):
 
 def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
     fused_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused.cu"
+    mma_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused_mma.cu"
     meta = {
         "rns_convert": ("src/repro_torch/kernels/rns_convert/csrc/"
                         "rns_convert.cu",
@@ -1059,8 +1138,8 @@ def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
         "rns_fused_encode_matmul": (
             fused_src, "src/repro/kernels/rns_fused/kernel.py:82"),
         "rns_fused_matmul_normalize": (
-            fused_src, "src/repro/kernels/rns_fused/kernel.py:141"),
-        "rns_fused_dot": (fused_src,
+            mma_src, "src/repro/kernels/rns_fused/kernel.py:141"),
+        "rns_fused_dot": (mma_src,
                           "src/repro/kernels/rns_fused/kernel.py:194"),
         "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
                             "flash_attention.cu",
@@ -1094,6 +1173,7 @@ def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),
             "library_ms": head.get("library_ms"),
+            "unfused_ms": head.get("unfused_ms"),
             "case": head.get("case"),
             "blocks_by_bucket": {
                 b: {k: t[k] for k in ("default", "tuned", "default_us",

@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
-"""Design sweeps of the two tensor-core kernels, on one card.
+"""Design sweeps of the tensor-core kernels, on one card.
 
     python3 scripts/kernel_variants.py [--out FILE] STUDY...
 
 Each STUDY (see ``STUDIES``) names variants of one kernel source: copies
-of ``rns_matmul.cu`` or ``flash_attention.cu`` edited by regular-
-expression substitutions, built with the port's nvcc flags into
-``build/variants/`` (all in parallel).  Each variant's library is bound
-in place of the kernel's own, and the real wrapper is timed through it
-(device time per call from CUDA-graph replays, ``autotune.
-device_seconds``) on the main path's shapes: smollm-135m rns9's four
-RNS matmuls (decode 8 rows, prefill 144 rows; d_model 576, d_ff 1536)
-and its attention at 2048 tokens (9 query heads, 3 KV heads of 64),
-inputs made from seed 0, every output checked against the plain
-version.  Variants that drop work are timing probes only: their
-outputs are marked wrong.  One JSON object per study and variant is
-printed (and appended to FILE), each with the card's name and power
-limit.
+of ``rns_matmul.cu``, ``rns_fused_mma.cu`` or ``flash_attention.cu``
+edited by regular-expression substitutions, built with the port's nvcc
+flags into ``build/variants/`` (all in parallel).  Each variant's
+library is bound in place of the kernel's own, and the real wrapper is
+timed through it (device time per call from CUDA-graph replays,
+``autotune.device_seconds``) on the main path's shapes: smollm-135m
+rns9's four RNS matmuls (decode 8 rows, prefill 144 rows; d_model 576,
+d_ff 1536), its fused dot (wg: x [rows, 576] with row scales) and fused
+matmul + normalize (wo: int32 residues [9, rows, 1536]), and its
+attention at 2048 tokens (9 query heads, 3 KV heads of 64), inputs made
+from seed 0, every output checked against the plain version.  Variants
+that drop work are timing probes only: their outputs are marked wrong.
+One JSON object per study and variant is printed (and appended to
+FILE), each with the card's name and power limit.
 
 Studies:
 
@@ -27,7 +28,31 @@ Studies:
   128 x 4, 64 x 4) at every tile, splits as ``splits_for`` chooses;
 * ``flash_parts``: flash_attention as built, and with the exponentials,
   the P.V products, the Q.K products or all of a tile's arithmetic, or
-  the K/V loads, left out: where the time of a tile goes.
+  the K/V loads, left out: where the time of a tile goes;
+* ``fused_splits``: the fused dot and matmul + normalize as built (all K
+  digits of a tile in one block), with the split over D forced to 1, 2,
+  4, 6 and 8 blocks a tile at every compiled tile (what
+  ``rns_fused.splits_for`` chooses from);
+* ``fused_ring``: their ring's K step and depth forced to 128 x 3, 128 x
+  2, 64 x 3, 64 x 4, 64 x 2, 32 x 4, 32 x 3 and 32 x 2 at every tile
+  (shallower rings fit two blocks an SM; the built rule takes the
+  deepest that fits; a ring that does not fit is refused at launch),
+  splits as ``splits_for`` chooses;
+* ``fused_parts``: where a fused tile's time goes -- as built, without
+  the MRC epilogue, without the MMAs, without the dot's quantize step;
+* ``fused_loads``: the same with b's or a's copies left out (timing
+  probes), and with int32 a's rows past M (decode: 8 of 16) not copied
+  instead of zero-filled;
+* ``fused_layout``: the two layouts of the digits -- all K digits of a
+  tile in one block (the fused kernel as built, every tile), against one
+  digit a block: rns_matmul's blocks (its default tile and splits) with
+  the MRC in a second kernel (rns_normalize), preceded by rns_convert
+  for the dot, in one CUDA graph on the same inputs (int32 a_res cast to
+  int8 outside the graph).  The last-block-MRC form of the digit-a-block
+  layout is not built.
+
+The fused studies build rns9's digit count only (K = 9), which keeps
+their builds short.
 """
 
 from __future__ import annotations
@@ -79,6 +104,66 @@ STUDIES = {
             (r"if \(it \+ 1 < ntiles\) \{", "if (it + 1 < ntiles && Tq < 0) {")],
     }, [None]),
 }
+_K9 = [(r"RNS_FUSED_MMA_CASE\((?:5|6|7|8|12|16|18|21)\)", "")]
+# probes: a copy left out (the ring keeps what was there before)
+_NOLOAD_B = (r"(      if \(b_vec\)\n)        stage_async<BT, BK, BN, NT, K>"
+             r"\(st, BK \* BST, BST, b, bmat, N, D, N,\n\s*k0, col0\);",
+             r"\1        {}")
+_NOLOAD_A = [(r"(      if \(a_vec\)\n)        stage_async<(?:AT|float), BM, BK, "
+              r"NT[^;]*;", r"\1        {}")]
+# int32 a: the rows past M (decode: 8 of 16) not copied at all
+_SKIP_A_ROWS = (
+    r"stage_async<AT, BM, BK, NT, K>\(sa, ADIG, IST \* 4, a, amat, D, M, D,"
+    r"\n\s*row0, k0\);",
+    "for (int c = threadIdx.x; c < K * BM * (BK / 4); c += NT) {\n"
+    "  const int j = c / (BM * (BK / 4)), r = c % (BM * (BK / 4)) / (BK / 4);\n"
+    "  const int gk = k0 + 4 * (c % (BK / 4));\n"
+    "  if (row0 + r >= M) continue;\n"
+    "  cp_async16(sa + j * ADIG + r * IST * 4 + 4 * (gk - k0) * 1,\n"
+    "             gk < D ? (const void*)(a + ((long long)j * M + row0 + r) * D"
+    " + gk) : (const void*)a, gk < D ? 16 : 0);\n}")
+
+
+def _ring(bk, stages):
+    return _K9 + [
+        (r"static constexpr int BK = R == 0 \? 128 : R <= 2 \? 64 : 32;",
+         f"static constexpr int BK = {bk};"),
+        (r"static constexpr int STAGES = R == 2 \|\| R == 4 \? 2 : 3;",
+         f"static constexpr int STAGES = {stages};")]
+
+
+STUDIES.update({
+    "fused_splits": ("rns_fused_mma", {"as built": _K9}, [1, 2, 4, 6, 8]),
+    "fused_ring": ("rns_fused_mma", {
+        f"BK {bk}, {st} stages": _ring(bk, st)
+        for bk, st in ((128, 3), (128, 2), (64, 3), (64, 4), (64, 2),
+                       (32, 4), (32, 3), (32, 2))},
+        [None]),
+    "fused_layout": ("rns_fused_mma", {"as built": _K9}, [None]),
+    "fused_loads": ("rns_fused_mma", {
+        "as built": _K9,
+        "no b loads": _K9 + [_NOLOAD_B],
+        "no a loads": _K9 + _NOLOAD_A,
+        "no loads": _K9 + [_NOLOAD_B] + _NOLOAD_A,
+        "a rows past M not copied": _K9 + [_SKIP_A_ROWS]}, [None]),
+    "fused_parts": ("rns_fused_mma", {
+        "as built": _K9,
+        "no MRC epilogue": _K9 + [
+            (r"out\[\(long long\)gm \* N \+ gc\] = mrc_decode_float<K, "
+             r"true>\(res, t\);",
+             "out[(long long)gm * N + gc] = (float)res[0] + res[K - 1];")],
+        "no MMAs": _K9 + [
+            (r"mma_(?:s8)?u8\(acc\[mi\]\[j\], a0, a1, a2, a3, b0\[j\], "
+             r"b1\[j\]\);",
+             "acc[mi][j][0] += (int)(a0 ^ a1 ^ a2 ^ a3 ^ b0[j] ^ b1[j]);")],
+        "no quantize (dot)": _K9 + [(r"quantize\(st\);", "")],
+    }, [None]),
+})
+#: (rows, D, N) of the fused wrappers' main-path calls: wg (the dot) and
+#: wo (matmul + normalize), decode and prefill
+FUSED_SHAPES = {"rns_fused_dot": [(8, 576, 1536), (144, 576, 1536)],
+                "rns_fused_matmul_normalize": [(8, 1536, 576),
+                                               (144, 1536, 576)]}
 MATMUL_SHAPES = [(8, 576, 1536), (8, 1536, 576), (144, 576, 1536),
                  (144, 1536, 576)]
 FLASH_CASES = [("bfloat16", True), ("bfloat16", False), ("float32", True),
@@ -108,6 +193,30 @@ def _build(name, source, subs, nvcc, flags, include):
         re.findall(r"(\d+) bytes spill stores", log)})}
 
 
+def _digit_a_block(kind, p, call, kw, want, us):
+    """[us, correct] of the digit-a-block layout of one fused call: the
+    port's rns_matmul (one digit's tile a block), then rns_normalize (and
+    rns_convert first for the dot), in one graph."""
+    import torch
+
+    from repro_torch.kernels.rns_convert.ops import rns_convert
+    from repro_torch.kernels.rns_matmul.ops import rns_matmul
+    from repro_torch.kernels.rns_normalize.ops import rns_normalize
+
+    if kind == "rns_fused_dot":
+        x, s, b = call
+
+        def run():
+            return rns_normalize(p, rns_matmul(p, rns_convert(
+                p, x, s, bits=kw["bits"], out_dtype=torch.int8), b))
+    else:
+        a8, b = call[0].to(torch.int8), call[1]
+
+        def run():
+            return rns_normalize(p, rns_matmul(p, a8, b))
+    return [us(run), torch.equal(run(), want)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("studies", nargs="+", choices=sorted(STUDIES))
@@ -126,19 +235,24 @@ def main() -> int:
     from repro_torch.core.moduli import get_profile
     from repro_torch.kernels import autotune, build
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rns_fused import ops as fo
     from repro_torch.kernels.rns_matmul import ops as mm
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    mods = {"rns_matmul": mm, "flash_attention": fa}
+    # source -> (module, its source file, library name, binder)
+    mods = {"rns_matmul": (mm, mm.SOURCE, "rns_matmul", mm._bind),
+            "rns_fused_mma": (fo, fo.MMA_SOURCE, "rns_fused_mma",
+                              fo._bind_mma),
+            "flash_attention": (fa, fa.SOURCE, "flash_attention", fa._bind)}
     jobs = [(study, name, mods[STUDIES[study][0]], subs)
             for study in args.studies
             for name, subs in STUDIES[study][1].items()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda j: _build(
-            f"{j[0]} {j[1]}", j[2].SOURCE, j[3], build._nvcc(),
+            f"{j[0]} {j[1]}", j[2][1], j[3], build._nvcc(),
             build.NVCC_FLAGS, build.INCLUDE_DIR), jobs))
     print(f"built {len(jobs)} variants in {time.perf_counter() - t0:.1f}s")
 
@@ -159,13 +273,52 @@ def main() -> int:
         getattr(torch, dt)) for s in ((1, 2048, 9, 64), (1, 2048, 3, 64),
                                       (1, 2048, 3, 64)))
         for dt in ("bfloat16", "float32")}
-    splits_rule = mm.splits_for
-    for (study, name, mod, _), (so, regs) in zip(jobs, built):
+    splits_rule, fused_splits, fused_ring = (mm.splits_for, fo.splits_for,
+                                             fo.fused_ring)
+    fu_in = {}
+    for kind, shapes in FUSED_SHAPES.items():
+        for M, D, N in shapes:
+            b = res((D, N))
+            if kind == "rns_fused_dot":
+                x = torch.randn((M, D), generator=g, device=dev)
+                call = (x, 127.0 / x.abs().amax(dim=1, keepdim=True), b)
+                kw = {"bits": 8}
+            else:
+                call, kw = (res((M, D)).to(torch.int32), b), {}
+            fu_in[(kind, M, D, N)] = (call, kw)
+    for (study, name, (mod, _, libname, bind), subs), (so, regs) in zip(
+            jobs, built):
         lib = ctypes.CDLL(str(so))
-        mod._bind(lib)
-        build._LIBS[mod.SOURCE.stem] = lib
+        bind(lib)
+        build._LIBS[libname] = lib
         rows = {}
-        if mod is mm:
+        ring = re.search(r"BK (\d+), (\d+) stages", name)
+        if ring:                    # the wrapper sizes its splits on it
+            fo.fused_ring = lambda *_, r=ring: (int(r[1]), int(r[2]))
+        if mod is fo:
+            for (kind, M, D, N), (call, kw) in fu_in.items():
+                wrapper = getattr(fo, kind)
+                want = getattr(fo, kind + "_plain")(p, *call, **kw)
+                for tile in autotune.CANDIDATES[kind]:
+                    for n in STUDIES[study][2]:
+                        fo.splits_for = fused_splits if n is None else (
+                            lambda *_, n=n: n)
+                        run = (lambda w=wrapper, c=call, k=kw, t=tile:
+                               w(p, *c, **k, **t))
+                        try:
+                            ok = torch.equal(run(), want)
+                            t_us = us(run)
+                        except RuntimeError as e:   # a ring that won't fit
+                            ok, t_us = f"refused: {e}"[:120], None
+                        label = (f"{kind} {(M, D, N)} {tile['bm']}x"
+                                 f"{tile['bn']}" + ("" if n is None
+                                                   else f" splits {n}"))
+                        rows[label] = [t_us, ok]
+                if study == "fused_layout":
+                    rows[f"{kind} {(M, D, N)} digit a block"] = \
+                        _digit_a_block(kind, p, call, kw, want, us)
+            fo.splits_for, fo.fused_ring = fused_splits, fused_ring
+        elif mod is mm:
             for shape, (a, b) in mm_in.items():
                 want = mm.rns_matmul_plain(p, a, b)
                 for tile in autotune.CANDIDATES["rns_matmul"]:
@@ -194,7 +347,7 @@ def main() -> int:
         if args.out:
             with open(args.out, "a") as f:
                 f.write(json.dumps(line) + "\n")
-        del build._LIBS[mod.SOURCE.stem]
+        del build._LIBS[libname]
     return 0
 
 

@@ -6,7 +6,8 @@ Hopper's rules in place of Mosaic's (8, 128) tiling and 16 MiB VMEM:
 
 * shared memory per block: what the ``.cu`` launch code allocates
   (:func:`smem_bytes`), at most 48 KiB, or 227 KiB for a kernel that
-  opts in with ``cudaFuncSetAttribute`` (rns_matmul, flash_attention);
+  opts in with ``cudaFuncSetAttribute`` (rns_matmul, flash_attention,
+  the tensor-core fused kernels);
 * threads per block at most 1024;
 * registers: the block's threads times each thread's registers, both in
   the units the card allocates (warps of 32, registers in eights), at
@@ -15,10 +16,17 @@ Hopper's rules in place of Mosaic's (8, 128) tiling and 16 MiB VMEM:
   (rns_convert, rns_normalize), from :data:`REGISTERS`, which
   ``chip_smoke.py [build]`` holds against ``ptxas -v``;
 * each kernel's own constraints: the matmul kernels reduce at least
-  every ``lazy_chunk - 1`` terms, so their fixed K step (128 deep in
-  rns_matmul, 32 in rns_fused) must not exceed that; a fused block of
-  32 K threads quantizes its ``bm x 32`` activation tile in
-  ``_FUSED_NX`` passes; and every tile must be one that is compiled.
+  every ``lazy_chunk - 1`` terms, so their K step (128 deep in
+  rns_matmul, 32 in rns_fused, the ring's in rns_fused_mma) must not
+  exceed that; a block of rns_fused's 32 K threads quantizes its
+  ``bm x 32`` activation tile in ``_FUSED_NX`` passes; and every tile
+  must be one that is compiled.
+
+The fused dot (B.4) and matmul + normalize (B.6) run on
+``rns_fused_mma.cu``: K x bn threads (bn / 32 warps a digit), and a ring
+whose K step and depth are the deepest of :data:`FUSED_MMA_RINGS` that
+fits in 227 KiB (:func:`fused_ring`, the kernel's ``Ring``); the fused
+encode + matmul (B.5) stays on ``rns_fused.cu``'s template.
 
 ``kernels/autotune.py`` gates the tiles of every wrapper call through
 :func:`check_wrapper_blocks` (once per call shape, and whenever a caller
@@ -32,9 +40,10 @@ import functools
 
 from repro_torch.core.moduli import get_profile
 
-__all__ = ["BlockConfigError", "MATMUL_TILES", "FUSED_TILES", "FLASH_TILES",
-           "REGISTERS", "SMEM_STATIC", "SMEM_OPT_IN", "register_cap",
-           "registers_per_thread", "threads", "smem_bytes",
+__all__ = ["BlockConfigError", "MATMUL_TILES", "FUSED_TILES",
+           "FUSED_MMA_TILES", "FUSED_MMA_RINGS", "FLASH_TILES", "REGISTERS",
+           "SMEM_STATIC", "SMEM_OPT_IN", "register_cap",
+           "registers_per_thread", "threads", "smem_bytes", "fused_ring",
            "validate_blocks", "check_wrapper_blocks"]
 
 SMEM_STATIC = 48 * 1024         # a block's shared memory without opting in
@@ -42,7 +51,7 @@ SMEM_OPT_IN = 232_448           # 227 KiB, after cudaFuncSetAttribute
 MAX_THREADS = 1024
 REGS_PER_SM = 65_536
 
-_MATMUL_BK = 32                 # csrc/rns_fused.cu: K step
+_MATMUL_BK = 32                 # csrc/rns_fused.cu: K step (B.5)
 _RNS_MATMUL_BK = 128            # csrc/rns_matmul.cu: K step (4 k32 MMAs)
 _RNS_MATMUL_STAGES = 3          # csrc/rns_matmul.cu: cp.async ring
 _RNS_MATMUL_PAD = 16            # csrc/rns_matmul.cu: bytes after a row
@@ -51,7 +60,11 @@ _FUSED_NX = 2                   # x elements per thread per tile (rns_fused.cu)
 #: compiled (bm, bn) tiles: template instantiations, dispatched at launch
 #: (rns_matmul.cu, rns_fused.cu), the first being the kernel's default
 MATMUL_TILES = ((32, 64), (64, 64), (32, 128), (64, 128))
-FUSED_TILES = ((8, 16), (8, 32), (16, 16))
+FUSED_TILES = ((8, 16), (8, 32), (16, 16))                  # B.5
+FUSED_MMA_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))  # B.4, B.6
+#: rns_fused_mma.cu's rings (K step, stages), deepest first
+FUSED_MMA_RINGS = ((128, 3), (64, 3), (64, 2), (32, 3), (32, 2))
+_MMA_PAD, _MMA_XPAD, _MMA_IPAD, _MMA_FLAG = 16, 4, 16, 16
 #: flash_attention: bq (16 rows a warp) a launch parameter, bk a template
 #: parameter (with the head width padded to 16, 32, 64 or 128)
 FLASH_TILES = ((32, 64, 128), (32, 64, 128))
@@ -68,7 +81,8 @@ REGISTERS = {
 
 _MATMUL_KINDS = ("rns_matmul", "rns_fused_encode_matmul",
                  "rns_fused_matmul_normalize", "rns_fused_dot")
-_FUSED_KINDS = _MATMUL_KINDS[1:]
+_FUSED_KINDS = ("rns_fused_encode_matmul",)        # rns_fused.cu
+_MMA_KINDS = ("rns_fused_matmul_normalize", "rns_fused_dot")
 
 #: block names each kind requires (the autotune DEFAULTS schema)
 _REQUIRED: dict[str, tuple[str, ...]] = {
@@ -101,8 +115,9 @@ def register_cap(bound_threads: int) -> int:
     return min(255, 8 * (REGS_PER_SM // (8 * 32 * warps)))
 
 
-def registers_per_thread(kind, n_digits=1, res_bytes=1):
-    """The register model of one instantiation (None: not compiled)."""
+def registers_per_thread(kind, n_digits=1, res_bytes=1, blocks=None):
+    """The register model of one instantiation (None: not compiled);
+    ``blocks`` gives the tensor-core fused kernels' bn."""
     if kind == "rns_convert":
         return REGISTERS[kind]["int8" if res_bytes == 1 else "int32"]
     if kind == "rns_normalize":
@@ -111,9 +126,9 @@ def registers_per_thread(kind, n_digits=1, res_bytes=1):
         return register_cap(64)
     if kind == "flash_attention":       # __launch_bounds__(256)
         return register_cap(256)
-    if kind == "rns_fused_encode_matmul":     # KT = 0: bounds for rns21
+    if kind == "rns_fused_encode_matmul":     # bounds for rns21
         return register_cap(32 * 21)
-    return register_cap(32 * int(n_digits))
+    return register_cap(int(n_digits) * blocks["bn"])  # K x bn threads
 
 
 def threads(kind, blocks, n_digits=1) -> int:
@@ -122,9 +137,39 @@ def threads(kind, blocks, n_digits=1) -> int:
         return blocks["bt"]
     if kind in _FUSED_KINDS:
         return 32 * int(n_digits)           # one warp per digit
+    if kind in _MMA_KINDS:
+        return int(n_digits) * blocks["bn"]  # bn / 32 warps a digit
     if kind == "rns_matmul":
         return blocks["bn"]                 # one warp per 32 columns
     return 2 * blocks["bq"]                 # flash: one warp per 16 rows
+
+
+def _mma_smem(quant, K, bm, bn, bk, stages) -> int:
+    """rns_fused_mma.cu's ``smem_bytes``: ``stages`` of b's K u8 tiles
+    [bk][bn + 16] and a's K tiles sized for int32 residues [bm][bk + 16]
+    or (the dot) the float32 x tile [bm][bk + 4]; the dot adds the
+    digits' u8 tiles, the quantized int32 tile [bm][bk + 16] and the row
+    scales; the parked residues [K][bm][bn] int32 alias it all; 16 bytes
+    of flag."""
+    stage = K * bk * (bn + _MMA_PAD) + (
+        4 * bm * (bk + _MMA_XPAD) if quant
+        else 4 * K * bm * (bk + _MMA_IPAD))
+    body = stages * stage + (K * bm * (bk + _MMA_PAD)
+                             + 4 * bm * (bk + _MMA_IPAD) + 4 * bm
+                             if quant else 0)
+    return max(body, 4 * K * bm * bn) + _MMA_FLAG
+
+
+def fused_ring(kind, n_digits, bm, bn):
+    """The (K step, stages) of rns_fused_mma.cu's ring for a B.4 / B.6
+    tile: the first of :data:`FUSED_MMA_RINGS` that fits in 227 KiB, or
+    None when none does."""
+    quant = kind == "rns_fused_dot"
+    for bk, stages in FUSED_MMA_RINGS:
+        if _mma_smem(quant, int(n_digits), bm, bn, bk, stages) <= \
+                SMEM_OPT_IN:
+            return bk, stages
+    return None
 
 
 def smem_bytes(kind, blocks, n_digits=1, res_bytes=4, dims=None) -> int:
@@ -139,11 +184,13 @@ def smem_bytes(kind, blocks, n_digits=1, res_bytes=4, dims=None) -> int:
         bk, pad = _RNS_MATMUL_BK, _RNS_MATMUL_PAD
         return _RNS_MATMUL_STAGES * (blocks["bm"] * (bk + pad)
                                      + bk * (blocks["bn"] + pad))
-    if kind in _FUSED_KINDS:                # [Vs] + As + Bs (rns_fused.cu)
+    if kind in _FUSED_KINDS:                # Vs + As + Bs (rns_fused.cu)
         bm, bn, bk = blocks["bm"], blocks["bn"], _MATMUL_BK
-        quant = kind != "rns_fused_matmul_normalize"
-        return ((4 * bk * bm if quant else 0) + 4 * K * bk * bm
-                + res_bytes * K * bk * bn)
+        return 4 * bk * bm + 4 * K * bk * bm + res_bytes * K * bk * bn
+    if kind in _MMA_KINDS:                  # rns_fused_mma.cu
+        bm, bn = blocks["bm"], blocks["bn"]
+        bk, stages = fused_ring(kind, K, bm, bn) or FUSED_MMA_RINGS[-1]
+        return _mma_smem(kind == "rns_fused_dot", K, bm, bn, bk, stages)
     if kind == "flash_attention":           # 2 stages x (K, V) [bk][DP + pad]
         d = dict(dims or {})
         D, Dv = d.get("D", 128), d.get("Dv", d.get("D", 128))
@@ -168,7 +215,9 @@ def _compiled(kind, blocks) -> list[str]:
             return [f"{kind}: tile {blocks['bq']}x{blocks['bk']} is not "
                     f"compiled (bq in {bqs}, bk in {bks})"]
         return []
-    tiles = MATMUL_TILES if kind == "rns_matmul" else FUSED_TILES
+    tiles = {"rns_matmul": MATMUL_TILES,
+             "rns_fused_encode_matmul": FUSED_TILES}.get(kind,
+                                                         FUSED_MMA_TILES)
     if (blocks["bm"], blocks["bn"]) not in tiles:
         return [f"{kind}: tile {blocks['bm']}x{blocks['bn']} is not "
                 f"compiled (bm x bn in {tiles})"]
@@ -199,7 +248,7 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
     nt = threads(kind, blocks, K)
     if nt > MAX_THREADS:
         out.append(f"{kind}: {nt} threads per block > {MAX_THREADS}")
-    regs = registers_per_thread(kind, K, res_bytes)
+    regs = registers_per_thread(kind, K, res_bytes, blocks)
     if regs is None:
         out.append(f"{kind}: no instantiation for K={K}")
     else:
@@ -207,8 +256,7 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
         if used > REGS_PER_SM:
             out.append(f"{kind}: {nt} threads x {regs} registers = {used} "
                        f"> {REGS_PER_SM} per SM")
-    limit = SMEM_OPT_IN if kind in ("rns_matmul", "flash_attention") \
-        else SMEM_STATIC
+    limit = SMEM_STATIC if kind in _FUSED_KINDS else SMEM_OPT_IN
     sm = smem_bytes(kind, blocks, K, res_bytes, dims)
     if sm > limit:
         out.append(f"{kind}: {sm} bytes of shared memory per block > "
@@ -219,7 +267,14 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
             if d.get(name, 0) > FLASH_DMAX:
                 out.append(f"{kind}: {name}={d[name]} > {FLASH_DMAX}, the "
                            "widest head the kernel's accumulators hold")
-    step = _RNS_MATMUL_BK if kind == "rns_matmul" else _MATMUL_BK
+    step = {"rns_matmul": _RNS_MATMUL_BK,
+            "rns_fused_encode_matmul": _MATMUL_BK}.get(kind)
+    if kind in _MMA_KINDS:
+        ring = fused_ring(kind, K, blocks["bm"], blocks["bn"])
+        if ring is None:
+            out.append(f"{kind}: no ring of {FUSED_MMA_RINGS} fits in "
+                       f"{SMEM_OPT_IN} bytes of shared memory (K={K})")
+        step = (ring or FUSED_MMA_RINGS[-1])[0]
     if kind in _MATMUL_KINDS and lazy_chunk is not None and \
             step > lazy_chunk - 1:
         out.append(f"{kind}: K tile {step} > lazy_chunk - 1 = "

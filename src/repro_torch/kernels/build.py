@@ -23,7 +23,8 @@ import numpy as np
 from repro_torch.core.rns import tables
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "RNS_MAX_K", "RnsTablesC",
-           "rns_tables_c", "library_path", "load", "build_all", "check"]
+           "rns_tables_c", "mulhi_magic", "mulhi_offset", "mulhi_mod",
+           "library_path", "load", "build_all", "check"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build"
@@ -36,14 +37,37 @@ RNS_MAX_K = 21      # widest profile (rns21); matches csrc/rns_tables.cuh
 
 class RnsTablesC(ctypes.Structure):
     """Mirror of ``struct RnsTables`` (csrc/rns_tables.cuh), passed to the
-    kernels by value: moduli, MRC digits of M//2, float32 weights W_j and
-    the MRC inverses, row stride ``RNS_MAX_K``."""
+    kernels by value: moduli, MRC digits of M//2, float32 weights W_j, the
+    MRC inverses (row stride ``RNS_MAX_K``), and each modulus's
+    :func:`mulhi_magic` and :func:`mulhi_offset`."""
 
     _fields_ = [("K", ctypes.c_int),
                 ("moduli", ctypes.c_int * RNS_MAX_K),
                 ("half", ctypes.c_int * RNS_MAX_K),
                 ("w", ctypes.c_float * RNS_MAX_K),
-                ("inv", ctypes.c_int * (RNS_MAX_K * RNS_MAX_K))]
+                ("inv", ctypes.c_int * (RNS_MAX_K * RNS_MAX_K)),
+                ("magic", ctypes.c_uint * RNS_MAX_K),
+                ("moff", ctypes.c_int * RNS_MAX_K)]
+
+
+def mulhi_magic(m: int) -> int:
+    """``floor((2**32 - 1) / m)``: the multiply-high constant of
+    ``mulhi_mod`` (csrc/rns_tables.cuh)."""
+    return (2 ** 32 - 1) // m
+
+
+def mulhi_offset(m: int) -> int:
+    """``m * ceil(2**16 / m)``: a multiple of m that makes every MRC term
+    ``(r_j - d_i) * inv`` (within +-65536 for m <= 256) non-negative."""
+    return m * -(-2 ** 16 // m)
+
+
+def mulhi_mod(x, m: int):
+    """``x mod m`` for integers 0 <= x < 2**31 (an int or an int64 tensor)
+    as ``mulhi_mod`` computes it on the card: the high word of
+    ``x * mulhi_magic(m)``, then one correction."""
+    r = x - ((x * mulhi_magic(m)) >> 32) * m
+    return r - m * (r >= m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,7 +79,7 @@ def rns_tables_c(profile) -> RnsTablesC:
     K = t.profile.n_digits
     if K > RNS_MAX_K:
         raise ValueError(f"profile {t.profile.name}: K={K} > {RNS_MAX_K}")
-    buf = np.zeros(1 + 3 * RNS_MAX_K + RNS_MAX_K * RNS_MAX_K, np.int32)
+    buf = np.zeros(1 + 5 * RNS_MAX_K + RNS_MAX_K * RNS_MAX_K, np.int32)
     buf[0] = K
     buf[1:1 + K] = t.moduli
     buf[1 + RNS_MAX_K:1 + RNS_MAX_K + K] = t.half_digits
@@ -63,7 +87,12 @@ def rns_tables_c(profile) -> RnsTablesC:
     buf[o:o + K] = t.W_f32.view(np.int32)
     inv = np.zeros((RNS_MAX_K, RNS_MAX_K), np.int32)
     inv[:K, :K] = t.mrc_inv
-    buf[1 + 3 * RNS_MAX_K:] = inv.reshape(-1)
+    o = 1 + 3 * RNS_MAX_K + RNS_MAX_K * RNS_MAX_K
+    buf[1 + 3 * RNS_MAX_K:o] = inv.reshape(-1)
+    ms = [int(m) for m in t.moduli]
+    buf[o:o + K] = np.array([mulhi_magic(m) for m in ms],
+                            np.uint32).view(np.int32)
+    buf[o + RNS_MAX_K:o + RNS_MAX_K + K] = [mulhi_offset(m) for m in ms]
     return RnsTablesC.from_buffer_copy(buf.tobytes())
 
 

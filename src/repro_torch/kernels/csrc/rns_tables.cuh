@@ -12,10 +12,21 @@ struct RnsTables {
   int half[RNS_MAX_K];              // MRC digits of M/2 (sign threshold)
   float w[RNS_MAX_K];               // float32(W_j), W_j = prod_{i<j} m_i
   int inv[RNS_MAX_K * RNS_MAX_K];   // inv[i*RNS_MAX_K+j] = m_i^-1 mod m_j
+  unsigned magic[RNS_MAX_K];        // floor((2^32 - 1) / m_j), mulhi_mod
+  int moff[RNS_MAX_K];              // m_j * ceil(2^16 / m_j) >= 65536
 };
 
 // floor-mod for m > 0 (C's % truncates toward zero)
 __device__ __forceinline__ int floor_mod(int v, int m) {
   int r = v % m;
   return r < 0 ? r + m : r;
+}
+
+// x mod m for 0 <= x < 2^31 and 2 <= m <= 256, with magic =
+// floor((2^32 - 1) / m): a multiply-high gives floor(x / m) or one less,
+// and one correction fixes it -- the same integer as floor_mod
+__device__ __forceinline__ int mulhi_mod(int x, int m, unsigned magic) {
+  const unsigned q = __umulhi((unsigned)x, magic);
+  const int r = x - (int)q * m;
+  return r >= m ? r - m : r;
 }

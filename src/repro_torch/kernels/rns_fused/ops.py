@@ -17,20 +17,35 @@ adds the 442 KB of int32 ``a_res`` [9, 8, 1536], and
 of [8, 1536] floats.  Prefill (144 rows) stays below the ~590 op/byte
 int8 ridge.
 
-Design (a simple first kernel, csrc/rns_fused.cu): a block owns an
-8 x 16 output tile for all K digits, one warp per digit, each lane one
-column and 4 of the tile's rows, the digit's accumulators in registers;
-32-deep K tiles staged in shared memory, the next one loaded into
-registers while the current one is multiplied; the quantize prologue
-(``csrc/rns_quantize.cuh``, the rule of ``rns_convert``) and the MRC
-epilogue (``csrc/rns_mrc.cuh``, the sum of ``rns_normalize``) are
-shared with the unfused kernels, so the fused kernels give their bits.
-CUDA cores, not int8 tensor cores; no split over D, so a decode
-projection with N = 576 runs 36 blocks.  The scale travels as one
-float per run of ``group`` activation rows (a scalar, per-row or
-per-token grid, never expanded to x's shape).  The output tile is
-chosen per shape bucket through ``kernels/autotune.py`` among the
-compiled tiles (template instantiations, ``FUSED_TILES``).
+The dot (B.4) and the matmul + normalize (B.6), ``csrc/rns_fused_mma.cu``:
+products on the integer tensor cores (``mma.sync.m16n8k32`` with u8 b,
+the building blocks of ``csrc/rns_mma.cuh`` that rns_matmul uses), a
+block holding one (bm, bn) output tile for all K digits (bn / 32 warps a
+digit), K steps of b and a through a ``cp.async`` ring (int32 a narrowed
+to bytes as the MMA fragments are read), and the dot's x tile quantized
+once a step (``csrc/rns_quantize.cuh``, the rule of ``rns_convert``):
+at bits <= 8 the quantized values are every digit's a operand as signed
+bytes (s8 x u8 products, congruent to the residues' mod m), else the
+block reduces them to each digit's residues on chip.  When the
+tiles leave SMs idle (decode), :func:`splits_for` shares each tile's K
+steps among several blocks of the one launch, combining their residues
+through the per-stream workspace of ``kernels/workspace.py`` (the last
+block of a tile, elected by an atomic counter, adds the slices).  The
+epilogue parks the tile's residues in shared memory and every thread of
+the block runs the MRC of ``csrc/rns_mrc.cuh`` on its elements, with an
+exact multiply-high mod: the bits of ``rns_normalize``.
+
+The encode + matmul (B.5), ``csrc/rns_fused.cu``, is the first, simple
+design: a block owns an 8 x 16 output tile for all K digits, one warp a
+digit, each lane one column and 4 rows; 32-deep K tiles staged in
+shared memory, the next one loaded into registers while the current one
+is multiplied; CUDA cores, no split over D.
+
+The scale travels as one float per run of ``group`` activation rows (a
+scalar, per-row or per-token grid, never expanded to x's shape).  Output
+tiles are chosen per shape bucket through ``kernels/autotune.py`` among
+the compiled tiles (template instantiations, ``FUSED_TILES`` and
+``FUSED_MMA_TILES``).
 
 On a CPU tensor each wrapper takes its plain version: the composition of
 the port's plain stages, as ``repro/kernels/rns_fused/ref.py`` composes
@@ -40,13 +55,15 @@ the JAX ones.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.core.moduli import get_profile
-from repro_torch.kernels import autotune, build
+from repro_torch.analysis.kernel_audit import fused_ring
+from repro_torch.kernels import autotune, build, workspace
 from repro_torch.kernels.rns_convert.ops import _scale_runs, rns_convert_plain
 from repro_torch.kernels.rns_matmul.ops import rns_matmul_plain
 from repro_torch.kernels.rns_normalize.ops import (SUPPORTED_K,
@@ -55,9 +72,12 @@ from repro_torch.kernels.rns_normalize.ops import (SUPPORTED_K,
 __all__ = ["rns_fused_encode_matmul", "rns_fused_matmul_normalize",
            "rns_fused_dot", "rns_fused_encode_matmul_plain",
            "rns_fused_matmul_normalize_plain", "rns_fused_dot_plain",
-           "SOURCE", "launches"]
+           "splits_for", "SOURCE", "MMA_SOURCE", "SOURCES", "launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_fused.cu"
+MMA_SOURCE = SOURCE.with_name("rns_fused_mma.cu")
+#: library name -> source: B.5 on rns_fused.cu, B.4 and B.6 on the other
+SOURCES = {"rns_fused": SOURCE, "rns_fused_mma": MMA_SOURCE}
 
 #: kernel launches made by each wrapper (CUDA tensors only)
 launches = {"rns_fused_encode_matmul": 0, "rns_fused_matmul_normalize": 0,
@@ -68,13 +88,57 @@ def _bind(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     tab = ctypes.POINTER(build.RnsTablesC)
-    for name in ("rns_fused_encode_matmul", "rns_fused_dot"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, ll, f, p, i, i, i, i, i, tab, p, i, i, p]
-        fn.restype = ctypes.c_int
+    lib.rns_fused_encode_matmul.argtypes = [p, p, ll, f, p, i, i, i, i, i,
+                                            tab, p, i, i, p]
+    lib.rns_fused_encode_matmul.restype = ctypes.c_int
+
+
+def _bind_mma(lib):
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    tab = ctypes.POINTER(build.RnsTablesC)
+    lib.rns_fused_dot.argtypes = [p, p, ll, f, p, i, i, i, i, i, tab, p, i,
+                                  i, i, p, p, p]
     lib.rns_fused_matmul_normalize.argtypes = [p, i, p, i, i, i, i, i, tab,
-                                               p, i, i, p]
+                                               p, i, i, i, p, p, p]
+    lib.rns_fused_dot.restype = ctypes.c_int
     lib.rns_fused_matmul_normalize.restype = ctypes.c_int
+
+
+def splits_for(M: int, D: int, N: int, bm: int, bn: int, bk: int,
+               sms: int) -> int:
+    """Blocks of rns_fused_mma.cu that share each output tile's K steps
+    (``bk`` deep) in one launch: 1 when the row x column tiles alone fill
+    the card's ``sms`` SMs or D has fewer than 4 K steps, else about one
+    block an SM, at most 8 ways and each with at least two K steps.  A
+    block holds a tile's every digit and most of an SM's shared memory,
+    so the target is one block an SM, not rns_matmul's two
+    (``rns_matmul.splits_for``)."""
+    tiles = -(-M // bm) * -(-N // bn)
+    ksteps = -(-D // bk)
+    if tiles >= sms or ksteps < 4:
+        return 1
+    want = max(1, min(8, ksteps // 2, sms // tiles))
+    per = -(-ksteps // want)
+    return -(-ksteps // per)        # as the launch recounts it
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_args(name, p, M, D, N, blk, dev):
+    """(splits, workspace pointer, counters pointer) of one launch."""
+    bm, bn = blk["bm"], blk["bn"]
+    bk = fused_ring(name, p.n_digits, bm, bn)[0]
+    splits = splits_for(M, D, N, bm, bn, bk, _sms(dev.index))
+    if splits == 1:
+        return 1, 0, 0
+    tiles = -(-M // bm) * -(-N // bn)
+    ws, cnt = workspace.get(dev, tiles * splits * p.n_digits * bm * bn,
+                            tiles)
+    return splits, ws.data_ptr(), cnt.data_ptr()
 
 
 # ------------------------------------------------------ plain versions ----
@@ -136,7 +200,8 @@ def _row_scales(name, x, scale):
 
 
 def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
-    """Launch rns_fused_encode_matmul / rns_fused_dot into ``out``."""
+    """Launch rns_fused_encode_matmul (rns_fused.cu) or rns_fused_dot
+    (rns_fused_mma.cu) into ``out``."""
     D, N = x.shape[-1], b_res.shape[-1]
     b2 = _check_b(name, p, b_res, D, x.device)
     if p.n_digits not in SUPPORTED_K:
@@ -145,15 +210,20 @@ def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
     s, group = _row_scales(name, x2, scale)
     M = math.prod(x.shape[:-1])
     if M and N:
-        lib = build.load("rns_fused", SOURCE, _bind)
-        with torch.cuda.device(x.device):
-            err = getattr(lib, name)(
-                x2.data_ptr(), s.data_ptr(), group,
+        dev = x.device
+        args = [x2.data_ptr(), s.data_ptr(), group,
                 float(2 ** (bits - 1) - 1), b2.data_ptr(),
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
-                blk["bm"], blk["bn"],
-                torch.cuda.current_stream(x.device).cuda_stream)
+                blk["bm"], blk["bn"]]
+        if name == "rns_fused_dot":
+            lib = build.load("rns_fused_mma", MMA_SOURCE, _bind_mma)
+            args += _split_args(name, p, M, D, N, blk, dev)
+        else:
+            lib = build.load("rns_fused", SOURCE, _bind)
+        with torch.cuda.device(dev):
+            err = getattr(lib, name)(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, name)
         launches[name] += 1
         autotune.last_launch[name] = (key, blk)
@@ -243,14 +313,16 @@ def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
     M = a2.shape[1]
     out = torch.empty(lead + (N,), dtype=torch.float32, device=a_res.device)
     if M and N:
-        lib = build.load("rns_fused", SOURCE, _bind)
-        with torch.cuda.device(a_res.device):
+        lib = build.load("rns_fused_mma", MMA_SOURCE, _bind_mma)
+        dev = a_res.device
+        splits, ws, cnt = _split_args(name, p, M, D, N, blk, dev)
+        with torch.cuda.device(dev):
             err = lib.rns_fused_matmul_normalize(
                 a2.data_ptr(), int(a2.dtype == torch.int8), b2.data_ptr(),
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
-                blk["bm"], blk["bn"],
-                torch.cuda.current_stream(a_res.device).cuda_stream)
+                blk["bm"], blk["bn"], splits, ws, cnt,
+                torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, name)
         launches[name] += 1
         autotune.last_launch[name] = (key, blk)

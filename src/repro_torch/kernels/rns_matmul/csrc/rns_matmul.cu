@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rns_mma.cuh"
 #include "rns_tables.cuh"
 
 constexpr int BK = 128;             // K step: four k32 MMAs
@@ -57,42 +58,6 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_u8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// w[i] holds bytes (row i, columns 0..3) -> w[j] holds (rows 0..3, col j)
-__device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-  w[0] = __byte_perm(t0, t2, 0x5410);
-  w[1] = __byte_perm(t0, t2, 0x7632);
-  w[2] = __byte_perm(t1, t3, 0x5410);
-  w[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 // Stage K step `k0` of A rows [row0, row0 + BM) and B columns
 // [col0, col0 + BN) into one ring slot; out-of-range bytes are zero.
 template <typename InT, int BM, int BN>
@@ -102,37 +67,16 @@ __device__ __forceinline__ void stage(uint8_t* sA, uint8_t* sB,
                                       int N, int D, int row0, int col0,
                                       int k0, bool vec) {
   using L = Tile<BM, BN>;
-  const int tid = threadIdx.x;
   if (sizeof(InT) == 1 && vec) {    // 16-byte cp.async, zero-filled tails
-    for (int c = tid; c < BM * (BK / 16); c += L::THREADS) {
-      const int r = c / (BK / 16), ch = c % (BK / 16);
-      const int gm = row0 + r, gk = k0 + 16 * ch;
-      const bool ok = gm < M && gk < D;
-      cp_async16(sA + r * AST + 16 * ch,
-                 ok ? (const void*)(A + (long long)gm * D + gk) : A,
-                 ok ? 16 : 0);
-    }
-    for (int c = tid; c < BK * (BN / 16); c += L::THREADS) {
-      const int r = c / (BN / 16), ch = c % (BN / 16);
-      const int gk = k0 + r, gn = col0 + 16 * ch;
-      const bool ok = gk < D && gn < N;
-      cp_async16(sB + r * L::BST + 16 * ch,
-                 ok ? (const void*)(B + (long long)gk * N + gn) : B,
-                 ok ? 16 : 0);
-    }
+    stage_async<InT, BM, BK, L::THREADS>(sA, 0, AST, A, 0, D, M, D, row0,
+                                         k0);
+    stage_async<InT, BK, BN, L::THREADS>(sB, 0, L::BST, B, 0, N, D, N, k0,
+                                         col0);
   } else {                          // element by element, narrowed to u8
-    for (int e = tid; e < BM * BK; e += L::THREADS) {
-      const int r = e / BK, c = e % BK;
-      const int gm = row0 + r, gk = k0 + c;
-      sA[r * AST + c] =
-          (gm < M && gk < D) ? (uint8_t)A[(long long)gm * D + gk] : 0;
-    }
-    for (int e = tid; e < BK * BN; e += L::THREADS) {
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gn = col0 + c;
-      sB[r * L::BST + c] =
-          (gk < D && gn < N) ? (uint8_t)B[(long long)gk * N + gn] : 0;
-    }
+    stage_elems<InT, BM, BK, L::THREADS>(sA, 0, AST, A, 0, D, M, D, row0,
+                                         k0);
+    stage_elems<InT, BK, BN, L::THREADS>(sB, 0, L::BST, B, 0, N, D, N, k0,
+                                         col0);
   }
 }
 

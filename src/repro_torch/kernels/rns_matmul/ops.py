@@ -23,7 +23,9 @@ SMs (decode: 8 rows), :func:`splits_for` shares each tile's K steps
 among several blocks in the same launch; each stores its partial
 residues in its slice of an int32 workspace, and the last block of a
 tile (an atomic counter) adds the slices and applies the mod, so a call
-is one launch, deterministic, and safe to capture in a CUDA graph.  The
+is one launch, deterministic, and safe to capture in a CUDA graph: the
+workspace comes from ``kernels/workspace.py``, per device and stream,
+and no buffer a launch was handed is ever freed.  The
 (bm, bn) tile is chosen per shape bucket through ``kernels/autotune.py``
 among the compiled tiles (template instantiations, ``MATMUL_TILES``).
 """
@@ -39,7 +41,7 @@ import torch
 
 from repro_torch.core.moduli import get_profile
 from repro_torch.core.rns_matmul import rns_matmul_res
-from repro_torch.kernels import autotune, build
+from repro_torch.kernels import autotune, build, workspace
 
 __all__ = ["rns_matmul", "rns_matmul_plain", "splits_for", "SOURCE",
            "launches", "BK"]
@@ -49,8 +51,6 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_matmul.cu"
 #: kernel launches made by :func:`rns_matmul` (CUDA tensors only)
 launches = 0
 BK = 128                # csrc/rns_matmul.cu: the K step
-
-_workspace: dict = {}   # device -> (int32 partial residues, tile counters)
 
 
 def _bind(lib):
@@ -95,20 +95,6 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _scratch(device, n_sums: int, n_tiles: int):
-    """The device's workspace, grown to fit: ``n_sums`` int32 partial
-    residues (written before they are read) and ``n_tiles`` zeroed tile
-    counters (the kernel sets each back to zero)."""
-    ws = _workspace.get(device)
-    if ws is None or ws[0].numel() < n_sums or ws[1].numel() < n_tiles:
-        n_sums = max(n_sums, ws[0].numel() if ws else 0)
-        n_tiles = max(n_tiles, ws[1].numel() if ws else 0)
-        ws = (torch.zeros(n_sums, dtype=torch.int32, device=device),
-              torch.zeros(n_tiles, dtype=torch.int32, device=device))
-        _workspace[device] = ws
-    return ws
-
-
 def rns_matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
                bm: int | None = None,
                bn: int | None = None) -> torch.Tensor:
@@ -116,8 +102,8 @@ def rns_matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
 
     One launch per call; the blocks of a tile split its K steps when the
     tiles alone would leave SMs idle (:func:`splits_for`), combining
-    through a per-device workspace (calls on one device are meant for one
-    stream at a time).  The (bm, bn) output tile resolves through
+    through the workspace of the device and stream
+    (``kernels/workspace.py``).  The (bm, bn) output tile resolves through
     ``autotune.resolve``, which gates it with ``check_wrapper_blocks``
     (an illegal tile raises ``ValueError``).  A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (or raises).
@@ -149,7 +135,7 @@ def rns_matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
         splits = splits_for(K, M, D, N, bm_, bn_, _sms(dev.index))
         ws = cnt = 0
         if splits > 1:
-            ws, cnt = (t.data_ptr() for t in _scratch(
+            ws, cnt = (t.data_ptr() for t in workspace.get(
                 dev, splits * K * M * N, K * -(-M // bm_) * -(-N // bn_)))
         with torch.cuda.device(dev):
             err = lib.rns_matmul(

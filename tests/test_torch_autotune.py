@@ -73,7 +73,9 @@ def test_get_blocks_defaults_without_cache(tmp_cache):
     assert autotune.get_blocks("rns_matmul", "rns9", (64, 256, 64)) == {
         "bm": 32, "bn": 64}
     assert autotune.get_blocks("rns_fused_dot", "rns9", (8, 576, 1536)) == {
-        "bm": 8, "bn": 16}
+        "bm": 16, "bn": 32}
+    assert autotune.get_blocks("rns_fused_encode_matmul", "rns9",
+                               (8, 576, 1536)) == {"bm": 8, "bn": 16}
     assert autotune.get_blocks("rns_normalize", "rns9", (100,)) == {"bt": 256}
     assert autotune.get_blocks("rns_convert", "rns9", (100,)) == {"bt": 256}
     assert autotune.get_blocks("flash_attention", "float32",
@@ -236,7 +238,7 @@ def test_corrupt_cache_survives_partial_poisoning(tmp_cache):
 def test_tune_rewrites_corrupt_cache(tmp_cache):
     tmp_cache.write_text("{definitely not json")
     autotune.clear_cache()
-    want = {"bm": 16, "bn": 16}
+    want = {"bm": 32, "bn": 32}
     autotune.tune("rns_fused_dot", "rns9", (32, 64, 32), "cpu",
                   bench_fn=lambda b: 0.0 if b == want else 1.0, repeats=1)
     data = json.loads(tmp_cache.read_text())
@@ -252,7 +254,11 @@ def test_tune_rewrites_corrupt_cache(tmp_cache):
     ("flash_attention|float32|128x128x128|cpu", {"bq": 128, "bk": 128},
      "shared memory"),
     ("rns_normalize|rns21|4096|cpu", {"bt": 512}, "registers"),
-    ("rns_fused_dot|rns5|8x512x512|cpu", {"bm": 16, "bn": 16},
+    # a row of the fused dot's CUDA-core template: its tiles are not compiled
+    # on the tensor-core kernel, so the row resolves to the new default
+    ("rns_fused_dot|rns9|8x1024x2048|cpu", {"bm": 8, "bn": 16},
+     "not compiled"),
+    ("rns_fused_encode_matmul|rns5|8x512x512|cpu", {"bm": 16, "bn": 16},
      "activations per tile"),
     ("rns_matmul|rns9|8x512x512|cpu", {"bm": 128, "bn": 128},
      "not compiled"),
@@ -313,17 +319,23 @@ def test_every_default_and_candidate_is_legal_on_the_main_path(kind):
     ("rns_normalize", {"bt": 512}, dict(n_digits=21),
      "512 threads x 255 registers = 131072 > 65536"),
     ("rns_normalize", {"bt": 512}, dict(n_digits=16), "registers"),
-    ("rns_fused_dot", {"bm": 16, "bn": 16},
+    ("rns_fused_dot", {"bm": 32, "bn": 64},
+     dict(n_digits=21, res_bytes=1), "1344 threads per block > 1024"),
+    ("rns_fused_encode_matmul", {"bm": 16, "bn": 16},
      dict(n_digits=21, res_bytes=1), "55808 bytes of shared memory"),
-    ("rns_fused_matmul_normalize", {"bm": 16, "bn": 16},
+    ("rns_fused_matmul_normalize", {"bm": 16, "bn": 32},
+     dict(n_digits=9, lazy_chunk=50), "K tile 64 > lazy_chunk - 1 = 49"),
+    ("rns_fused_encode_matmul", {"bm": 16, "bn": 16},
      dict(n_digits=5, res_bytes=1), "32*K*NX = 320"),
     ("rns_matmul", {"bm": 32, "bn": 64},
      dict(n_digits=9, lazy_chunk=20), "lazy_chunk - 1 = 19"),
-    ("rns_fused_dot", {"bm": 8, "bn": 16, "bk": 32}, dict(n_digits=9),
+    ("rns_fused_dot", {"bm": 16, "bn": 32, "bk": 64}, dict(n_digits=9),
      "unknown block 'bk'"),
     ("rns_convert", {"bt": 2048}, dict(n_digits=9), "threads per block"),
     ("rns_convert", {"bt": 100}, dict(n_digits=9), "multiple of 32"),
-    ("rns_fused_dot", {"bm": 8, "bn": 64}, dict(n_digits=9),
+    ("rns_fused_dot", {"bm": 8, "bn": 16}, dict(n_digits=9),
+     "not compiled"),
+    ("rns_fused_encode_matmul", {"bm": 8, "bn": 64}, dict(n_digits=9),
      "not compiled"),
     ("rns_normalize", {"bt": 256}, dict(n_digits=10), "no instantiation"),
     ("rns_matmul", {"bm": "big", "bn": 64}, {},
@@ -337,23 +349,46 @@ def test_checker_names_known_illegal_cases(kind, blocks, meta, why):
 
 
 def test_checker_gate_raises_value_error_naming_kernel_and_bytes():
+    # rns21 at 32 x 64: 1344 threads; its ring (32 deep, 3 stages), the
+    # dot's residue, quantized and scale tiles and the flag need 213648
+    # bytes
     with pytest.raises(ValueError, match=r"rns_fused_dot: illegal block "
-                       r"config .* 55808 bytes of shared memory"):
-        ka.check_wrapper_blocks("rns_fused_dot", {"bm": 16, "bn": 16},
+                       r"config .*\(213648 bytes of shared memory "
+                       r".* 1344 threads"):
+        ka.check_wrapper_blocks("rns_fused_dot", {"bm": 32, "bn": 64},
                                 n_digits=21, res_bytes=1)
-    ka.check_wrapper_blocks("rns_fused_dot", {"bm": 8, "bn": 16},
+    ka.check_wrapper_blocks("rns_fused_dot", {"bm": 16, "bn": 32},
                             n_digits=21, res_bytes=1)
+    with pytest.raises(ValueError, match=r"rns_fused_encode_matmul: "
+                       r"illegal block config .* 55808 bytes"):
+        ka.check_wrapper_blocks("rns_fused_encode_matmul",
+                                {"bm": 16, "bn": 16}, n_digits=21,
+                                res_bytes=1)
 
 
 def test_checker_models_the_launch_code():
-    """Shared memory as rns_fused.cu / rns_matmul.cu /
+    """Shared memory as rns_fused.cu / rns_fused_mma.cu / rns_matmul.cu /
     flash_attention.cu allocate it, and the register caps ptxas applies
     under __launch_bounds__."""
-    assert ka.smem_bytes("rns_fused_dot", {"bm": 8, "bn": 16},
+    assert ka.smem_bytes("rns_fused_encode_matmul", {"bm": 8, "bn": 16},
                          9, 1) == 4 * 32 * 8 + 4 * 9 * 32 * 8 + 9 * 32 * 16
+    # rns9 at 16 x 32 takes the deepest ring, 128 deep in 3 stages: b's
+    # 9 tiles [128][32 + 16] and x [16][128 + 4] floats a stage, then the
+    # 9 u8 tiles [16][128 + 16], quantized x [16][128 + 16] ints, 16 row
+    # scales and the 16-byte flag
+    assert ka.fused_ring("rns_fused_dot", 9, 16, 32) == (128, 3)
+    assert ka.smem_bytes("rns_fused_dot", {"bm": 16, "bn": 32}, 9, 1) == \
+        3 * (9 * 128 * 48 + 4 * 16 * 132) + 9 * 16 * 144 + 4 * 16 * 144 \
+        + 4 * 16 + 16
+    # rns8_u8 (int32 b, narrowed while staged): a's 8 tiles are sized for
+    # int32 residues [16][64 + 16], so the ring is 64 deep in 3 stages
+    assert ka.fused_ring("rns_fused_matmul_normalize", 8, 16, 32) == (64, 3)
     assert ka.smem_bytes("rns_fused_matmul_normalize",
-                         {"bm": 8, "bn": 16}, 8, 4) == \
-        4 * 8 * 32 * 8 + 4 * 8 * 32 * 16
+                         {"bm": 16, "bn": 32}, 8, 4) == \
+        3 * (8 * 64 * 48 + 4 * 8 * 16 * 80) + 16
+    # rns21: only a 32-deep ring in 2 stages fits
+    assert ka.fused_ring("rns_fused_matmul_normalize", 21, 16, 32) == (32, 2)
+    assert ka.register_cap(9 * 32) == 224
     # 3 stages of A [bm][128 + 16] and B [128][bn + 16] bytes
     assert ka.smem_bytes("rns_matmul", {"bm": 32, "bn": 64}) == \
         3 * (32 * 144 + 128 * 80)
@@ -365,6 +400,26 @@ def test_checker_models_the_launch_code():
     assert ka.register_cap(256) == 255
     assert ka.register_cap(32 * 9) == 224
     assert ka.register_cap(32 * 21) == 96
+
+
+@pytest.mark.parametrize("kind", ["rns_fused_dot",
+                                  "rns_fused_matmul_normalize"])
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_every_profile_has_a_legal_tensor_core_fused_tile(kind, profile):
+    """The tensor-core fused kernels have a legal tile at every profile,
+    the default among them; every candidate is compiled, and those the
+    checker drops go for their thread count (K x bn > 1024) or because
+    no ring fits in shared memory (wide K, int32-sized a tiles)."""
+    K = get_profile(profile).n_digits
+    legal, dropped = autotune.legal_candidates(kind, profile, (8, 576, 1536))
+    assert autotune.DEFAULTS[kind] in legal
+    assert all((c["bm"], c["bn"]) in ka.FUSED_MMA_TILES
+               for c in autotune.CANDIDATES[kind])
+    for cand, why in dropped:
+        assert ("threads per block" in why and K * cand["bn"] > 1024) or \
+            "bytes of shared memory" in why, why
+    for c in legal:
+        assert ka.fused_ring(kind, K, c["bm"], c["bn"]) is not None
 
 
 def test_wrappers_refuse_an_illegal_tile_on_the_cpu():

@@ -549,30 +549,118 @@ def cuda():
 @pytest.mark.parametrize("profile", ["rns5", "rns6", "rns9", "rns21",
                                      "rns8_u8"])
 @pytest.mark.parametrize("shape", [(1, 70, 37), (8, 576, 1536),
-                                   (13, 130, 150)])
+                                   (13, 130, 150), (8, 1536, 576),
+                                   (13, 1100, 70)])
 def test_gpu_fused_kernels_match_plain(cuda, profile, shape):
+    """Every fused kernel bit-equal to its plain version; the dot and the
+    matmul + normalize at every candidate tile the checker allows.
+    (8, 1536, 576) and (13, 1100, 70) leave SMs idle, so their K steps
+    are split among blocks (``rns_fused.splits_for``)."""
+    from repro_torch.kernels import autotune
+
     M, D, N = shape
     for grid in ("scalar", "row"):
         x, s, w_res = _operands(profile, M, D, N, grid, seed=M)
         x, s, w_res = _t(x).to(cuda), _t(s).to(cuda), w_res.to(cuda)
-        for wrapper, plain in (
-                (fused_ops.rns_fused_dot, fused_ops.rns_fused_dot_plain),
+        legal, _ = autotune.legal_candidates("rns_fused_dot", profile, shape)
+        for wrapper, plain, tiles in (
+                (fused_ops.rns_fused_dot, fused_ops.rns_fused_dot_plain,
+                 legal),
                 (fused_ops.rns_fused_encode_matmul,
-                 fused_ops.rns_fused_encode_matmul_plain)):
-            got, want = (wrapper(profile, x, s, w_res, bits=8),
-                         plain(profile, x, s, w_res, bits=8))
-            assert torch.equal(got.isnan(), want.isnan())
-            assert torch.equal(got.nan_to_num(), want.nan_to_num())
+                 fused_ops.rns_fused_encode_matmul_plain, [{}])):
+            want = plain(profile, x, s, w_res, bits=8)
+            for blocks in tiles:
+                got = wrapper(profile, x, s, w_res, bits=8, **blocks)
+                assert torch.equal(got.isnan(), want.isnan()), blocks
+                assert torch.equal(got.nan_to_num(), want.nan_to_num()), \
+                    (grid, blocks)
     a32 = fused_ops.rns_fused_encode_matmul(profile, x, s, w_res, bits=8)
     w2 = w_res.transpose(1, 2).contiguous()
     a_dtypes = (torch.int32, torch.int8) if get_profile(profile).int8_safe \
         else (torch.int32,)
+    legal, _ = autotune.legal_candidates("rns_fused_matmul_normalize",
+                                         profile, (M, N, D))
     for dt in a_dtypes:
-        got = fused_ops.rns_fused_matmul_normalize(profile, a32.to(dt), w2)
         want = fused_ops.rns_fused_matmul_normalize_plain(profile,
                                                           a32.to(dt), w2)
-        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+        for blocks in legal:
+            got = fused_ops.rns_fused_matmul_normalize(profile, a32.to(dt),
+                                                       w2, **blocks)
+            assert torch.equal(got.nan_to_num(), want.nan_to_num()), \
+                (dt, blocks)
     torch.cuda.synchronize()
+
+
+def _capture_grow_replay(cuda, run, small, big, plain):
+    """ROADMAP C.7: capture ``run(*small)`` (a split call) in a CUDA graph
+    on its own stream, grow that stream's workspace with ``run(*big)``,
+    fill fresh memory, replay: the replay still equals the plain version,
+    the fill is untouched, and the buffer the graph holds stays among
+    the workspace's pairs."""
+    from repro_torch.kernels import workspace
+
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        run(*small)                                 # warm: build, memo
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = run(*small)
+    captured = workspace.held(cuda, stream.cuda_stream)
+    assert captured, "the captured call did not split"
+    with torch.cuda.stream(stream):
+        got_big = run(*big)
+    torch.cuda.synchronize()
+    pairs = workspace.held(cuda, stream.cuda_stream)
+    assert len(pairs) > len(captured), "the larger call did not grow it"
+    assert all(p[0].data_ptr() == q[0].data_ptr() and
+               p[1].data_ptr() == q[1].data_ptr()
+               for p, q in zip(captured, pairs))
+    fill = [torch.full((p[0].numel(),), 7, dtype=torch.int32, device=cuda)
+            for p in captured]
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(*small))
+    assert torch.equal(got_big, plain(*big))
+    assert all(bool((f == 7).all()) for f in fill)
+
+
+@pytest.mark.gpu
+def test_gpu_rns_matmul_capture_grow_replay(cuda):
+    from repro_torch.kernels.rns_matmul import ops as mm
+
+    p = get_profile("rns9")
+    rng = np.random.default_rng(5)
+
+    def res(shape):
+        return _t(np.stack([rng.integers(0, m, shape) for m in p.moduli])
+                  .astype(np.int8)).to(cuda)
+
+    # 9 x 1 x 9 and 9 x 1 x 10 tiles of 32 x 64 leave SMs idle: both split
+    small = (res((8, 1536)), res((1536, 576)))
+    big = (res((32, 1536)), res((1536, 640)))
+    _capture_grow_replay(cuda, lambda a, b: mm.rns_matmul(p, a, b), small,
+                         big, lambda a, b: mm.rns_matmul_plain(p, a, b))
+
+
+@pytest.mark.gpu
+def test_gpu_fused_matmul_normalize_capture_grow_replay(cuda):
+    p = get_profile("rns9")
+    rng = np.random.default_rng(6)
+
+    def res(shape, dt):
+        return _t(np.stack([rng.integers(0, m, shape) for m in p.moduli])
+                  .astype(dt)).to(cuda)
+
+    # decode's int32 a_res: 18 tiles of 16 x 32 split 6 ways; then 32
+    # tiles split 4 ways need more slices
+    small = (res((8, 1536), np.int32), res((1536, 576), np.int8))
+    big = (res((8, 3072), np.int32), res((3072, 1024), np.int8))
+    _capture_grow_replay(
+        cuda, lambda a, b: fused_ops.rns_fused_matmul_normalize(p, a, b),
+        small, big,
+        lambda a, b: fused_ops.rns_fused_matmul_normalize_plain(p, a, b))
 
 
 @pytest.mark.gpu

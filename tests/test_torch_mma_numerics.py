@@ -26,6 +26,16 @@ emulated in int64 (checking that no int32 accumulator could overflow)
 and held bit for bit against the Pallas kernel in interpret mode on
 every profile, rns8_u8's int32 residues included, at ragged M, D, N.
 
+``rns_fused_mma.cu`` (the fused dot, B.4, and matmul + normalize, B.6)
+runs the same products with its own ring's K step; the dot's a operand
+is the quantized x itself as signed bytes when it fits one (bits <= 8:
+s8 x u8 products, signed sums reduced by a floor-mod), else residues
+computed from it by a multiply-high mod; the MRC epilogue's mod is a
+multiply-high too.  Those steps are emulated
+and held bit for bit against the JAX package's fused references
+(``rns_fused/ref.py``); the multiply-high mod is checked against
+floor-mod over every operand the epilogue can meet, for every modulus.
+
 The tests marked ``gpu`` run the kernels themselves on the card.
 """
 
@@ -38,10 +48,15 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.flash_attention.ref import flash_attention_ref
+from repro.kernels.rns_fused import ref as jfused
 from repro.kernels.rns_matmul.ops import rns_matmul as j_matmul
+from repro_torch.analysis.kernel_audit import fused_ring
 from repro_torch.core.moduli import PROFILES, get_profile
-from repro_torch.kernels import autotune
+from repro_torch.core.quantize import quantize_with_scale
+from repro_torch.core.rns import tables
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.rns_fused import ops as fused
 from repro_torch.kernels.rns_matmul import ops as mm
 
 # tests/test_flash_kernel.py's shapes: (B, Tq, Tk, H, Hk, D)
@@ -238,19 +253,22 @@ def test_split_tf32_keeps_about_22_bits():
 
 
 # ---------------------------------------------------- rns_matmul path ----
-def emulate_rns_matmul(p, a, b, splits=1, lim=None):
-    """The kernel's schedule in int64: residues narrowed to a byte, K steps
-    of ``mm.BK`` split among ``splits`` blocks as the launch splits them,
+def emulate_rns_matmul(p, a, b, splits=1, lim=None, bk=mm.BK,
+                       signed=False):
+    """The kernel's schedule in int64: residues narrowed to a byte (or,
+    ``signed``, a's values as signed bytes), K steps
+    of ``bk`` split among ``splits`` blocks as the launch splits them,
     each block's int32 accumulator reduced mod m whenever the next step
     could pass ``lim`` (lazy_chunk - 1) terms, then its sum mod m; the
     blocks' residues summed and reduced once more."""
     lim = p.lazy_chunk - 1 if lim is None else lim
-    a8 = (a.long() & 0xFF)
+    a8 = (a.long() & 0xFF) if not signed else a.long()
     b8 = (b.long() & 0xFF)
     assert torch.equal(a8, a.long()) and torch.equal(b8, b.long())
+    assert int(a8.abs().max()) <= (127 if signed else 255)
     m = torch.tensor(p.moduli, dtype=torch.int64)[:, None, None]
     D = a.shape[-1]
-    ksteps = -(-D // mm.BK)
+    ksteps = -(-D // bk)
     per = -(-ksteps // splits)
     total = 0
     for kb in range(0, ksteps, per):
@@ -258,11 +276,11 @@ def emulate_rns_matmul(p, a, b, splits=1, lim=None):
                           dtype=torch.int64)
         since = 0
         for ks in range(kb, min(ksteps, kb + per)):
-            k0, k1 = ks * mm.BK, min(D, (ks + 1) * mm.BK)
+            k0, k1 = ks * bk, min(D, (ks + 1) * bk)
             acc = acc + a8[:, :, k0:k1] @ b8[:, k0:k1, :]
-            assert int(acc.max()) <= 2 ** 31 - 1      # int32 accumulators
-            since += mm.BK
-            if since + mm.BK > lim:
+            assert int(acc.abs().max()) <= 2 ** 31 - 1   # int32 accumulators
+            since += bk
+            if since + bk > lim:
                 acc, since = acc % m, 0
         total = total + acc % m
     return (total % m).to(torch.int32)
@@ -331,6 +349,162 @@ def test_rns_matmul_cpu_call_launches_nothing():
     b = _residues(p, (20, 4), 2, np.int32)
     assert torch.equal(mm.rns_matmul(p, a, b), emulate_rns_matmul(p, a, b))
     assert mm.launches == before
+
+
+# ------------------------------------------------ rns_fused_mma path ----
+def _mulhi_mod(x, m):
+    """rns_tables.cuh's mulhi_mod (x in [0, 2**31)), with its domain
+    checked."""
+    assert int(x.min()) >= 0 and int(x.max()) < 2 ** 31
+    return build.mulhi_mod(x, m)
+
+
+def emulate_dot_residues(p, v):
+    """rns_fused_mma.cu's residues of the quantized x: |v| by mulhi_mod,
+    reflected for v < 0 -> [K, ...] int64."""
+    out = []
+    for m in p.moduli:
+        q = _mulhi_mod(v.abs(), m)
+        out.append(torch.where((v < 0) & (q != 0), m - q, q))
+    return torch.stack(out)
+
+
+def emulate_mrc(p, r):
+    """rns_mrc.cuh's mrc_decode_float with MULHI on [K, ...] residues:
+    every MRC term (r_j - d_i) * inv reduced by mulhi_mod after the
+    offset mulhi_offset(m_j); the float sum digit-ascending, one rounding
+    per operation."""
+    t = tables(p)
+    ms = [int(m) for m in p.moduli]
+    K = len(ms)
+
+    def digits(r):
+        d = []
+        for i in range(K):
+            d.append(r[i])
+            for j in range(i + 1, K):
+                v = (r[j] - d[i]) * int(t.mrc_inv[i][j])
+                assert int(v.abs().max()) < 2 ** 16
+                r[j] = _mulhi_mod(v + build.mulhi_offset(ms[j]), ms[j])
+        return d
+
+    d = digits(list(r.long()))
+    ge = torch.zeros(d[0].shape, dtype=torch.bool)
+    eq = torch.ones(d[0].shape, dtype=torch.bool)
+    for j in range(K - 1, -1, -1):
+        h = int(t.half_digits[j])
+        ge = ge | (eq & (d[j] > h))
+        eq = eq & (d[j] == h)
+    neg = ge | eq
+    r = r.long()
+    d = digits([torch.where(neg, torch.where(r[j] != 0, ms[j] - r[j], 0),
+                            r[j]) for j in range(K)])
+    acc = torch.zeros(d[0].shape, dtype=torch.float32)
+    for j in range(K):
+        w = torch.tensor(t.W_f32[j], dtype=torch.float32)
+        acc = acc + d[j].to(torch.float32) * w
+    return torch.where(neg, -acc, acc)
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_mulhi_mod_equals_floor_mod_for_every_operand(name):
+    """Every modulus of the profile: the epilogue's MRC terms over
+    -65536..65536 (offset, then mulhi_mod), the dot's |v| up to 2**30 and
+    the accumulators up to 2**31 - 1 give floor-mod's integers."""
+    p = get_profile(name)
+    x = torch.arange(-2 ** 16, 2 ** 16 + 1, dtype=torch.int64)
+    big = torch.cat([torch.arange(0, 2 ** 17),
+                     torch.arange(2 ** 30 - 2 ** 17, 2 ** 30 + 1),
+                     torch.arange(2 ** 31 - 2 ** 17, 2 ** 31)])
+    for m in p.moduli:
+        assert build.mulhi_offset(m) % m == 0
+        assert build.mulhi_offset(m) >= 2 ** 16
+        got = _mulhi_mod(x + build.mulhi_offset(m), m)
+        assert torch.equal(got, torch.remainder(x, m)), m
+        assert torch.equal(_mulhi_mod(big, m), torch.remainder(big, m)), m
+        assert build.rns_tables_c(p).magic[p.moduli.index(m)] == \
+            build.mulhi_magic(m)
+
+
+def _fused_case(name, M, D, N, seed):
+    p = get_profile(name)
+    rng = np.random.default_rng(seed)
+    x = (3 * rng.standard_normal((M, D))).astype(np.float32)
+    x.reshape(-1)[:4] = [0.25, -0.25, 0.75, -63.75]     # half-way, clip
+    s = (127.0 / np.abs(x).max(axis=1, keepdims=True)).astype(np.float32)
+    dt = np.int8 if p.int8_safe else np.int32
+    b = _residues(p, (D, N), seed + 1, dt)
+    a = _residues(p, (M, D), seed + 2, np.int32)
+    return p, x, s, a, b
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+@pytest.mark.parametrize("M,D,N,bm,bn", [(8, 1536, 48, 16, 32),
+                                         (13, 1100, 70, 32, 64),
+                                         (37, 130, 37, 16, 64)])
+def test_fused_mma_arithmetic_matches_jax_ref(name, M, D, N, bm, bn):
+    """rns_fused_mma.cu's arithmetic -- x quantized, residues by the
+    multiply-high rule, u8 products in the ring's K steps split as the
+    launch splits them, the MULHI MRC -- equals ``rns_fused/ref.py`` bit
+    for bit, for the dot and the matmul + normalize."""
+    p, x, s, a, b = _fused_case(name, M, D, N, M + D)
+    for kind in ("rns_fused_dot", "rns_fused_matmul_normalize"):
+        ring = fused_ring(kind, p.n_digits, bm, bn)
+        if ring is None or p.n_digits * bn > 1024:
+            continue                      # the checker refuses the tile
+        bk = ring[0]
+        splits = fused.splits_for(M, D, N, bm, bn, bk, 132)
+        runs = []                   # (a operand, signed, reference)
+        if kind == "rns_fused_dot":
+            for bits in (8, 12):    # s8 operand; residues of wider values
+                sb = (s * (2 ** (bits - 1) - 1) / 127).astype(np.float32)
+                v = quantize_with_scale(torch.from_numpy(x),
+                                        torch.from_numpy(sb), bits).long()
+                runs.append((
+                    v.expand((p.n_digits,) + v.shape) if bits <= 8
+                    else emulate_dot_residues(p, v), bits <= 8,
+                    jfused.rns_fused_dot_ref(name, jnp.asarray(x),
+                                             jnp.asarray(sb),
+                                             jnp.asarray(b.numpy()),
+                                             bits=bits)))
+        else:
+            runs.append((a, False, jfused.rns_fused_matmul_normalize_ref(
+                name, jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))))
+        for a_op, signed, want in runs:
+            for sp in sorted({1, splits}):
+                res = emulate_rns_matmul(p, a_op, b, sp, bk=bk,
+                                         signed=signed)
+                got = emulate_mrc(p, res)
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fused_mma_mrc_c1():
+    """ROADMAP C.1's rns5 value through the MULHI MRC: one rounding per
+    operation, 13505986560.0 (the FMA-contracted sum is 13505985536.0)."""
+    from repro_torch.core.rns import encode_exact
+
+    r = torch.as_tensor(encode_exact("rns5", [4_503_599_542_737_792,
+                                              -4_503_599_542_737_792]))
+    assert emulate_mrc(get_profile("rns5"), r).tolist() == [
+        13505986560.0, -13505986560.0]
+
+
+@pytest.mark.parametrize("M,D,N,bm,bn,bk,want", [
+    (8, 1536, 576, 16, 32, 128, 6),      # B.6 decode: 18 tiles
+    (8, 576, 1536, 16, 32, 128, 2),      # B.4 decode: 48 tiles, 5 steps
+    (8, 576, 1536, 16, 64, 64, 3),       # 24 tiles, 9 steps
+    (144, 1536, 576, 16, 32, 128, 1),    # prefill: 162 tiles fill the SMs
+    (144, 576, 1536, 32, 64, 64, 1),     # 120 tiles: one block an SM
+    (13, 1100, 70, 16, 32, 128, 3),      # 3 tiles, 9 steps
+    (8, 300, 64, 16, 32, 128, 1),        # 3 K steps: too few to share
+])
+def test_fused_splits_for_the_main_path(M, D, N, bm, bn, bk, want):
+    got = fused.splits_for(M, D, N, bm, bn, bk, 132)
+    assert got == want
+    ksteps = -(-D // bk)
+    per = -(-ksteps // got)
+    assert (got - 1) * per < ksteps <= got * per    # no empty split
+    assert got == 1 or per >= 2
 
 
 # ---------------------------------------------------------- on the card --
