@@ -12,8 +12,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 ``ptxas -v``, and hold each instantiation's registers to
                 the tile checker's register model; count the tensor-core
                 instructions in the SASS (``cuobjdump -sass``): IMMA in
-                rns_matmul and rns_fused_mma (the fused dot and matmul +
-                normalize), HMMA in flash_attention, none may be 0;
+                rns_matmul and rns_fused_mma (the fused dot, matmul +
+                normalize and, counted on its own too, encode + matmul),
+                HMMA in flash_attention, none may be 0;
   [serve]       full-width smollm-135m with the rns9 MLP datapath through
                 ContinuousEngine.run on mixed-length requests (after one
                 short warm-up request): the per-op path, weights
@@ -48,7 +49,10 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 each, and on boundary cases of every profile (rns8_u8's
                 int32 residues included; rns_matmul, the fused dot and
                 the fused matmul + normalize (int8 and int32 a) at every
-                candidate tile with their K steps split among blocks);
+                candidate tile with their K steps split among blocks;
+                the fused encode + matmul also on both main-path inputs
+                at every compiled tile with its split forced 1, 2 and 4
+                ways);
                 flash_attention within 2e-5 (float32; plus one step of
                 the type in bfloat16) on ragged and full-width shapes,
                 at every candidate tile --
@@ -216,9 +220,9 @@ def _register_model(entry: str):
     (its mangled name), or None for an entry the model does not cover."""
     from repro_torch.analysis import kernel_audit as ka
 
-    if (m := re.search(r"rns_convert_kernelI(.)E", entry)):
-        return ka.registers_per_thread("rns_convert",
-                                       res_bytes=1 if m[1] == "a" else 4)
+    if (m := re.search(r"rns_convert_kernelILi(\d+)E(.)E", entry)):
+        return ka.registers_per_thread("rns_convert", int(m[1]),
+                                       res_bytes=1 if m[2] == "a" else 4)
     if (m := re.search(r"rns_normalize_kernelILi(\d+)E", entry)):
         return ka.registers_per_thread("rns_normalize", int(m[1]))
     if (m := re.search(r"rns_fused_mma_kernelI(.).Li(\d+)ELi\d+ELi(\d+)E",
@@ -227,8 +231,10 @@ def _register_model(entry: str):
             "rns_fused_matmul_normalize"
         return ka.registers_per_thread(kind, int(m[2]),
                                        blocks={"bn": int(m[3])})
-    if "rns_fused_kernel" in entry:
-        return ka.registers_per_thread("rns_fused_encode_matmul")
+    if (m := re.search(r"rns_encode_residues_kernelI.Li(\d+)ELi\d+ELi(\d+)E",
+                       entry)):
+        return ka.registers_per_thread("rns_fused_encode_matmul", int(m[1]),
+                                       blocks={"bn": int(m[2])})
     if "rns_matmul_kernel" in entry:
         return ka.registers_per_thread("rns_matmul")
     if "flash_attention_kernel" in entry:
@@ -241,9 +247,7 @@ def phase_build():
 
     from repro_torch.kernels import build
 
-    sources = {}
-    for m in set(_kernel_mods().values()):
-        sources.update(getattr(m, "SOURCES", {m.SOURCE.stem: m.SOURCE}))
+    sources = {m.SOURCE.stem: m.SOURCE for m in _kernel_mods().values()}
 
     def one(name):              # one nvcc each, all started together
         t = time.perf_counter()
@@ -280,13 +284,24 @@ def phase_build():
         lib = build.library_path(name, sources[name])
         sass = subprocess.run([cuobjdump, "-sass", str(lib)],
                               capture_output=True, text=True, timeout=300)
-        n = sum(op in line for line in sass.stdout.splitlines())
-        print(f"  {name}: {n} {op} instructions in the SASS "
-              f"(cuobjdump -sass {lib.name})")
-        if not n:
-            raise AssertionError(f"{name}: no {op} instruction in its SASS "
-                                 f"(cuobjdump rc {sass.returncode}: "
-                                 f"{sass.stderr.strip()[:200]})")
+        by_fn, fn = {}, ""      # instruction count per compiled function
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif op in line:
+                by_fn[fn] = by_fn.get(fn, 0) + 1
+        counts = {name: sum(by_fn.values())}
+        if name == "rns_fused_mma":     # B.5's instantiations on their own
+            counts["rns_encode_residues_kernel"] = sum(
+                n for f, n in by_fn.items()
+                if "rns_encode_residues_kernel" in f)
+        for what, n in counts.items():
+            print(f"  {what}: {n} {op} instructions in the SASS "
+                  f"(cuobjdump -sass {lib.name})")
+            if not n:
+                raise AssertionError(
+                    f"{what}: no {op} instruction in its SASS (cuobjdump rc "
+                    f"{sass.returncode}: {sass.stderr.strip()[:200]})")
 
 
 def _kernel_mods():
@@ -622,6 +637,29 @@ def phase_kernels(torch, dev, record, calls, launches):
                  lambda w=wrapper, c=cand: w(prof, *args, **kw, **c),
                  lambda: want, timed=False)
 
+    # ---- the fused encode + matmul on every main-path input, at every
+    # compiled tile with its split over D forced
+    f_ops = mods["rns_fused_encode_matmul"]
+    rule = f_ops.splits_for
+    try:
+        for entry in calls.values():
+            if entry["kernel"] != "rns_fused_encode_matmul":
+                continue
+            prof, args, kw = entry["profile"], entry["args"], entry["kw"]
+            label = _cost(torch, entry["kernel"],
+                          get_profile(prof).n_digits, args, kw)[0]
+            want = f_ops.rns_fused_encode_matmul_plain(prof, *args, **kw)
+            for cand in autotune.CANDIDATES["rns_fused_encode_matmul"]:
+                for n in (1, 2, 4):
+                    f_ops.splits_for = lambda *_, n=n: n
+                    case("rns_fused_encode_matmul",
+                         f"{label} tile {_blk(cand)} split {n} (forced)",
+                         lambda c=cand: f_ops.rns_fused_encode_matmul(
+                             prof, *args, **kw, **c),
+                         lambda: want, timed=False)
+    finally:
+        f_ops.splits_for = rule
+
     # ---- flash_attention: ragged shapes (untimed), full width (timed)
     def flash_check(got, want):
         ok, _ = fa_ops.within_tolerance(got, want)
@@ -750,8 +788,9 @@ def phase_kernels(torch, dev, record, calls, launches):
         x = torch.randn((13, 1100), generator=g, device=dev)
         s = 127.0 / x.abs().amax(dim=1, keepdim=True)
         b = _residues(torch, p, (1100, 70), g, dev).to(bd)
-        split_in = [("rns_fused_dot", "x[13,1100] rows @[K,1100,70]",
-                     (x, s, b), {"bits": 8})]
+        split_in = [(k, "x[13,1100] rows @[K,1100,70]", (x, s, b),
+                     {"bits": 8}) for k in ("rns_fused_dot",
+                                            "rns_fused_encode_matmul")]
         split_in += [("rns_fused_matmul_normalize",
                       f"[K,13,1100]{ad}@[K,1100,70]",
                       (_residues(torch, p, (13, 1100), g, dev).to(ad), b),
@@ -762,7 +801,7 @@ def phase_kernels(torch, dev, record, calls, launches):
             for cand in legal:
                 bk = fused_ring(kernel, p.n_digits, cand["bm"], cand["bn"])[0]
                 sp = f_ops.splits_for(13, 1100, 70, cand["bm"], cand["bn"],
-                                      bk, sms)
+                                      bk, sms, f_ops.MIN_STEPS[kernel])
                 if sp < 2:
                     bad.append(f"{kernel} {name} {label} {cand}: no split")
                 case(kernel, f"{name} {label} tile {_blk(cand)} split {sp}",
@@ -968,8 +1007,8 @@ def _profile_serve(torch, engine, results, unprofiled_wall_s) -> dict:
                 str(ev.device_type).endswith("CUDA") and dt:
             busy_us += dt
             for k in ("rns_convert", "rns_matmul", "rns_normalize",
-                      "rns_fused_mma", "rns_fused"):
-                if k in ev.key:     # B.4 + B.6, or B.5
+                      "rns_fused_mma", "rns_encode_residues"):
+                if k in ev.key:     # B.4 + B.6; B.5 on its own
                     by_name[k] = by_name.get(k, 0.0) + dt / 1e3
                     break
     out = {"profiled_run": "the serve traffic re-served under "
@@ -1124,19 +1163,19 @@ def phase_identity(torch):
 
 
 def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
-    fused_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused.cu"
+    matmul_src = "src/repro_torch/kernels/rns_matmul/csrc/rns_matmul.cu"
     mma_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused_mma.cu"
     meta = {
         "rns_convert": ("src/repro_torch/kernels/rns_convert/csrc/"
                         "rns_convert.cu",
                         "src/repro/kernels/rns_convert/kernel.py:38"),
-        "rns_matmul": ("src/repro_torch/kernels/rns_matmul/csrc/rns_matmul.cu",
+        "rns_matmul": (matmul_src,
                        "src/repro/kernels/rns_matmul/kernel.py:51"),
         "rns_normalize": ("src/repro_torch/kernels/rns_normalize/csrc/"
                           "rns_normalize.cu",
                           "src/repro/kernels/rns_normalize/kernel.py:93"),
         "rns_fused_encode_matmul": (
-            fused_src, "src/repro/kernels/rns_fused/kernel.py:82"),
+            mma_src, "src/repro/kernels/rns_fused/kernel.py:82"),
         "rns_fused_matmul_normalize": (
             mma_src, "src/repro/kernels/rns_fused/kernel.py:141"),
         "rns_fused_dot": (mma_src,

@@ -4,15 +4,19 @@
     python3 scripts/kernel_variants.py [--out FILE] STUDY...
 
 Each STUDY (see ``STUDIES``) names variants of one kernel source: copies
-of ``rns_matmul.cu``, ``rns_fused_mma.cu`` or ``flash_attention.cu``
-edited by regular-expression substitutions, built with the port's nvcc
-flags into ``build/variants/`` (all in parallel).  Each variant's
-library is bound in place of the kernel's own, and the real wrapper is
-timed through it (device time per call from CUDA-graph replays,
-``autotune.device_seconds``) on the main path's shapes: smollm-135m
-rns9's four RNS matmuls (decode 8 rows, prefill 144 rows; d_model 576,
-d_ff 1536), its fused dot (wg: x [rows, 576] with row scales) and fused
-matmul + normalize (wo: int32 residues [9, rows, 1536]), and its
+of ``rns_matmul.cu``, ``rns_fused_mma.cu``, ``rns_convert.cu``,
+``flash_attention.cu`` or the design candidate
+``variants/rns_encode_one_digit.cu`` edited by regular-expression
+substitutions, built with the port's nvcc flags into ``build/variants/``
+(all in parallel).  Each variant's library is bound in place of the
+kernel's own, and the real wrapper is timed through it (the candidate,
+which has no wrapper, through :func:`_one_digit_encode`; device time
+per call from CUDA-graph replays, ``autotune.device_seconds``) on the
+main path's shapes: smollm-135m rns9's four RNS matmuls (decode 8 rows,
+prefill 144 rows; d_model 576, d_ff 1536), its fused dot (wg: x [rows,
+576] with row scales), fused encode + matmul (wi, the same inputs) and
+fused matmul + normalize (wo: int32 residues [9, rows, 1536]), its
+convert rows, and its
 attention at 2048 tokens (9 query heads, 3 KV heads of 64), inputs made
 from seed 0, every output checked against the plain version.  Variants
 that drop work are timing probes only: their outputs are marked wrong.
@@ -29,10 +33,10 @@ Studies:
 * ``flash_parts``: flash_attention as built, and with the exponentials,
   the P.V products, the Q.K products or all of a tile's arithmetic, or
   the K/V loads, left out: where the time of a tile goes;
-* ``fused_splits``: the fused dot and matmul + normalize as built (all K
-  digits of a tile in one block), with the split over D forced to 1, 2,
-  4, 6 and 8 blocks a tile at every compiled tile (what
-  ``rns_fused.splits_for`` chooses from);
+* ``fused_splits``: the fused dot, matmul + normalize and encode +
+  matmul as built (all K digits of a tile in one block), with the split
+  over D forced to 1, 2, 4, 6 and 8 blocks a tile at every compiled tile
+  (what ``rns_fused.splits_for`` chooses from);
 * ``fused_ring``: their ring's K step and depth forced to 128 x 3, 128 x
   2, 64 x 3, 64 x 4, 64 x 2, 32 x 4, 32 x 3 and 32 x 2 at every tile
   (shallower rings fit two blocks an SM; the built rule takes the
@@ -49,7 +53,25 @@ Studies:
   the MRC in a second kernel (rns_normalize), preceded by rns_convert
   for the dot, in one CUDA graph on the same inputs (int32 a_res cast to
   int8 outside the graph).  The last-block-MRC form of the digit-a-block
-  layout is not built.
+  layout is not built;
+* ``encode_layout``: the fused encode + matmul (B.5, x [rows, 576] with
+  row scales @ wi [9, 576, 1536] at bits 8) in its two layouts: all K
+  digits of a tile in one block (``rns_fused_mma.cu``'s
+  ``rns_encode_residues_kernel``, the kernel the port runs, through its
+  wrapper at every tile, splits by ``rns_fused.splits_for``) against one
+  digit a block (``variants/rns_encode_one_digit.cu``, built only here:
+  rns_matmul's tiles and splits, the block's x rows quantized once into
+  shared memory, several column tiles a block by
+  :func:`col_tiles_for`);
+* ``encode_parts``: where a one-digit B.5 block's time goes -- as built,
+  without the quantize step, without b's copies, without the MMAs
+  (timing probes); rns_matmul on the same shapes (int8 residues) beside
+  them;
+* ``encode_coltiles``: the one-digit B.5 with the column tiles a block
+  walks forced to 1, 2 and 4 at every tile;
+* ``convert_quads``: rns_convert with 1, 2 or 4 runs of 4 elements a
+  thread, at every candidate block size, on the per-op path's weight
+  rows and activation rows.
 
 The fused studies build rns9's digit count only (K = 9), which keeps
 their builds short.
@@ -105,6 +127,9 @@ STUDIES = {
     }, [None]),
 }
 _K9 = [(r"RNS_FUSED_MMA_CASE\((?:5|6|7|8|12|16|18|21)\)", "")]
+# the one-digit fused encode + matmul, a design candidate
+ONE_DIGIT_SOURCE = ROOT / "scripts" / "variants" / "rns_encode_one_digit.cu"
+_ONE: list = []
 # probes: a copy left out (the ring keeps what was there before)
 _NOLOAD_B = (r"(      if \(b_vec\)\n)        stage_async<BT, BK, BN, NT, K>"
              r"\(st, BK \* BST, BST, b, bmat, N, D, N,\n\s*k0, col0\);",
@@ -140,6 +165,26 @@ STUDIES.update({
                        (32, 4), (32, 3), (32, 2))},
         [None]),
     "fused_layout": ("rns_fused_mma", {"as built": _K9}, [None]),
+    "encode_layout": ("one_digit", {"one digit a block": _ONE}, [None]),
+    "encode_parts": ("one_digit", {
+        "as built": _ONE,
+        "no quantize": _ONE + [
+            (r"quantize\(\(kb \+ i\) \* BK, min\(cst, n - i\)\);", "")],
+        "no b copies": _ONE + [
+            (r"stage_async<BT, BK, BN, L::THREADS>\(sb, 0, L::BST, B, 0, N, "
+             r"D, N, k0,\n\s*col0\);", "{}")],
+        "no MMAs": _ONE + [
+            (r"mma_(?:s8)?u8\(acc\[mi\]\[j\], a0, a1, a2, a3, "
+             r"b0\[j\], b1\[j\]\);",
+             "acc[mi][j][0] += (int)(a0 ^ a1 ^ a2 ^ a3 ^ b0[j] ^ b1[j]);")],
+    }, [None]),
+    "encode_coltiles": ("one_digit", {"one digit a block": _ONE},
+                        [1, 2, 4]),
+    "convert_quads": ("rns_convert", {
+        "1 quad a thread (as built)": [],
+        **{f"{q} quads a thread": [(r"constexpr int QUADS = 1;",
+                                    f"constexpr int QUADS = {q};")]
+           for q in (2, 4)}}, [None]),
     "fused_loads": ("rns_fused_mma", {
         "as built": _K9,
         "no b loads": _K9 + [_NOLOAD_B],
@@ -149,9 +194,10 @@ STUDIES.update({
     "fused_parts": ("rns_fused_mma", {
         "as built": _K9,
         "no MRC epilogue": _K9 + [
-            (r"out\[\(long long\)gm \* N \+ gc\] = mrc_decode_float<K, "
-             r"true>\(res, t\);",
-             "out[(long long)gm * N + gc] = (float)res[0] + res[K - 1];")],
+            (r"\(\(float\*\)out\)\[\(long long\)gm \* N \+ gc\] = "
+             r"mrc_decode_float<K, true>\(res,\n\s*t\);",
+             "((float*)out)[(long long)gm * N + gc] = (float)res[0] + "
+             "res[K - 1];")],
         "no MMAs": _K9 + [
             (r"mma_(?:s8)?u8\(acc\[mi\]\[j\], a0, a1, a2, a3, b0\[j\], "
              r"b1\[j\]\);",
@@ -163,9 +209,17 @@ STUDIES.update({
 #: wo (matmul + normalize), decode and prefill
 FUSED_SHAPES = {"rns_fused_dot": [(8, 576, 1536), (144, 576, 1536)],
                 "rns_fused_matmul_normalize": [(8, 1536, 576),
-                                               (144, 1536, 576)]}
+                                               (144, 1536, 576)],
+                "rns_fused_encode_matmul": [(8, 576, 1536),
+                                            (144, 576, 1536)]}
 MATMUL_SHAPES = [(8, 576, 1536), (8, 1536, 576), (144, 576, 1536),
                  (144, 1536, 576)]
+#: (rows, D, N) of the fused encode + matmul's main-path calls (wi)
+ENCODE_SHAPES = [(8, 576, 1536), (144, 576, 1536)]
+#: rns_convert's main-path calls: the per-op weight rows (a scalar
+#: scale) and activation rows (one scale a row)
+CONVERT_SHAPES = [((576, 1536), False), ((1536, 576), False),
+                  ((8, 1536), True), ((144, 1536), True)]
 FLASH_CASES = [("bfloat16", True), ("bfloat16", False), ("float32", True),
                ("float32", False)]
 FLASH_TILES = [(64, 64), (128, 64), (128, 128), (64, 32)]
@@ -217,7 +271,49 @@ def _digit_a_block(kind, p, call, kw, want, us):
     return [us(run), torch.equal(run(), want)]
 
 
+def col_tiles_for(S: int, M: int, N: int, bm: int, bn: int,
+                  sms: int) -> int:
+    """Column tiles each block of the one-digit encode + matmul walks on
+    its once-quantized x rows when its tile is not split: as many as
+    leave about two blocks an SM, at most 4 (prefill; decode's tiles are
+    too few to share)."""
+    tiles = S * -(-M // bm) * -(-N // bn)
+    return max(1, min(4, tiles // (2 * sms)))
+
+
+def _one_digit_encode(lib, mm, fo, p, call, tile):
+    """A runner of the one-digit encode + matmul
+    (``variants/rns_encode_one_digit.cu``) on one call: rns_matmul's
+    splits (``mm.splits_for``) and workspace, and :func:`col_tiles_for`
+    column tiles a block when unsplit."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    x, s, b = call
+    M, D = x.shape
+    N = b.shape[-1]
+    bm, bn = tile["bm"], tile["bn"]
+    splits, ws, cnt = mm.split_args(p.n_digits, M, D, N, bm, bn, x.device)
+    ntile = 1 if splits > 1 else col_tiles_for(
+        p.n_digits, M, N, bm, bn,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    sc, group = fo._row_scales("encode_matmul", x, s)
+    out = torch.empty((p.n_digits, M, N), dtype=torch.int32, device=x.device)
+
+    def run():
+        err = lib.rns_fused_encode_matmul(
+            x.data_ptr(), sc.data_ptr(), group, 127.0, b.data_ptr(), 1, M, N,
+            D, p.lazy_chunk - 1, ctypes.byref(build.rns_tables_c(p)),
+            out.data_ptr(), bm, bn, splits, ws, cnt, ntile,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(err, "rns_fused_encode_matmul (one digit a block)")
+        return out
+    return run
+
+
 def main() -> int:
+    global col_tiles_for            # forced by the encode_coltiles study
     ap = argparse.ArgumentParser()
     ap.add_argument("studies", nargs="+", choices=sorted(STUDIES))
     ap.add_argument("--out", type=Path)
@@ -235,6 +331,7 @@ def main() -> int:
     from repro_torch.core.moduli import get_profile
     from repro_torch.kernels import autotune, build
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rns_convert import ops as co
     from repro_torch.kernels.rns_fused import ops as fo
     from repro_torch.kernels.rns_matmul import ops as mm
 
@@ -243,9 +340,11 @@ def main() -> int:
                           text=True).stdout.strip()
     # source -> (module, its source file, library name, binder)
     mods = {"rns_matmul": (mm, mm.SOURCE, "rns_matmul", mm._bind),
-            "rns_fused_mma": (fo, fo.MMA_SOURCE, "rns_fused_mma",
-                              fo._bind_mma),
-            "flash_attention": (fa, fa.SOURCE, "flash_attention", fa._bind)}
+            "rns_fused_mma": (fo, fo.SOURCE, "rns_fused_mma", fo._bind),
+            "flash_attention": (fa, fa.SOURCE, "flash_attention", fa._bind),
+            "rns_convert": (co, co.SOURCE, "rns_convert", co._bind),
+            "one_digit": (mm, ONE_DIGIT_SOURCE, "one_digit",
+                          lambda lib: None)}
     jobs = [(study, name, mods[STUDIES[study][0]], subs)
             for study in args.studies
             for name, subs in STUDIES[study][1].items()]
@@ -275,17 +374,23 @@ def main() -> int:
         for dt in ("bfloat16", "float32")}
     splits_rule, fused_splits, fused_ring = (mm.splits_for, fo.splits_for,
                                              fo.fused_ring)
+    ct_rule = col_tiles_for
     fu_in = {}
     for kind, shapes in FUSED_SHAPES.items():
         for M, D, N in shapes:
             b = res((D, N))
-            if kind == "rns_fused_dot":
+            if kind != "rns_fused_matmul_normalize":
                 x = torch.randn((M, D), generator=g, device=dev)
                 call = (x, 127.0 / x.abs().amax(dim=1, keepdim=True), b)
                 kw = {"bits": 8}
             else:
                 call, kw = (res((M, D)).to(torch.int32), b), {}
             fu_in[(kind, M, D, N)] = (call, kw)
+    enc_in = {}
+    for M, D, N in ENCODE_SHAPES:
+        x = torch.randn((M, D), generator=g, device=dev)
+        enc_in[(M, D, N)] = (x, 127.0 / x.abs().amax(dim=1, keepdim=True),
+                             res((D, N)))
     for (study, name, (mod, _, libname, bind), subs), (so, regs) in zip(
             jobs, built):
         lib = ctypes.CDLL(str(so))
@@ -295,7 +400,54 @@ def main() -> int:
         ring = re.search(r"BK (\d+), (\d+) stages", name)
         if ring:                    # the wrapper sizes its splits on it
             fo.fused_ring = lambda *_, r=ring: (int(r[1]), int(r[2]))
-        if mod is fo:
+        if study.startswith("encode_"):
+            # the one-digit candidate; in encode_layout, the port's
+            # all-digit kernel through its wrapper beside it
+            p_i, p_f, p_l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.rns_fused_encode_matmul.argtypes = [
+                p_i, p_i, p_l, ctypes.c_float, p_i, p_f, p_f, p_f, p_f, p_f,
+                ctypes.POINTER(build.RnsTablesC), p_i, p_f, p_f, p_f, p_i,
+                p_i, p_f, p_i]
+            lib.rns_fused_encode_matmul.restype = ctypes.c_int
+            for shape, call in enc_in.items():
+                want = fo.rns_fused_encode_matmul_plain(p, *call, bits=8)
+                if study == "encode_parts" and name == "as built":
+                    a8 = co.rns_convert(p, call[0], call[1], bits=8)
+
+                    def run(a8=a8, b=call[2]):
+                        return mm.rns_matmul(p, a8, b)
+                    rows[f"{shape} rns_matmul on int8 residues"] = [
+                        us(run), torch.equal(run(), want)]
+                if study == "encode_layout":
+                    for tile in autotune.CANDIDATES[
+                            "rns_fused_encode_matmul"]:
+                        def run(c=call, t=tile):
+                            return fo.rns_fused_encode_matmul(p, *c, bits=8,
+                                                              **t)
+                        rows[f"{shape} {tile['bm']}x{tile['bn']} all "
+                             "digits"] = [us(run), torch.equal(run(), want)]
+                for tile in autotune.CANDIDATES["rns_matmul"]:
+                    for n in STUDIES[study][2]:
+                        col_tiles_for = ct_rule if n is None else (
+                            lambda *_, n=n: n)
+                        run = _one_digit_encode(lib, mm, fo, p, call, tile)
+                        label = (f"{shape} {tile['bm']}x{tile['bn']} one "
+                                 "digit" + ("" if n is None
+                                            else f" column tiles {n}"))
+                        rows[label] = [us(run), torch.equal(run(), want)]
+            col_tiles_for = ct_rule
+        elif study == "convert_quads":
+            for shape, rows_scale in CONVERT_SHAPES:
+                x = torch.randn(shape, generator=g, device=dev)
+                sc = (127.0 / x.abs().amax(dim=-1, keepdim=True)
+                      if rows_scale else 127.0 / x.abs().amax())
+                want = co.rns_convert_plain(p, x, sc, bits=8)
+                for bt in (128, 256, 512):
+                    def run(x=x, sc=sc, bt=bt):
+                        return co.rns_convert(p, x, sc, bits=8, bt=bt)
+                    rows[f"{shape} bt{bt}"] = [us(run),
+                                               torch.equal(run(), want)]
+        elif mod is fo:
             for (kind, M, D, N), (call, kw) in fu_in.items():
                 wrapper = getattr(fo, kind)
                 want = getattr(fo, kind + "_plain")(p, *call, **kw)
@@ -314,7 +466,8 @@ def main() -> int:
                                  f"{tile['bn']}" + ("" if n is None
                                                    else f" splits {n}"))
                         rows[label] = [t_us, ok]
-                if study == "fused_layout":
+                if study == "fused_layout" and \
+                        kind != "rns_fused_encode_matmul":  # encode_layout
                     rows[f"{kind} {(M, D, N)} digit a block"] = \
                         _digit_a_block(kind, p, call, kw, want, us)
             fo.splits_for, fo.fused_ring = fused_splits, fused_ring

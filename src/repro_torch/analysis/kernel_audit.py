@@ -5,9 +5,8 @@ The counterpart of ``repro.analysis.kernel_audit``'s closed-form layer
 Hopper's rules in place of Mosaic's (8, 128) tiling and 16 MiB VMEM:
 
 * shared memory per block: what the ``.cu`` launch code allocates
-  (:func:`smem_bytes`), at most 48 KiB, or 227 KiB for a kernel that
-  opts in with ``cudaFuncSetAttribute`` (rns_matmul, flash_attention,
-  the tensor-core fused kernels);
+  (:func:`smem_bytes`), at most 227 KiB (the kernels that need more
+  than 48 KiB opt in with ``cudaFuncSetAttribute``);
 * threads per block at most 1024;
 * registers: the block's threads times each thread's registers, both in
   the units the card allocates (warps of 32, registers in eights), at
@@ -17,16 +16,16 @@ Hopper's rules in place of Mosaic's (8, 128) tiling and 16 MiB VMEM:
   ``chip_smoke.py [build]`` holds against ``ptxas -v``;
 * each kernel's own constraints: the matmul kernels reduce at least
   every ``lazy_chunk - 1`` terms, so their K step (128 deep in
-  rns_matmul, 32 in rns_fused, the ring's in rns_fused_mma) must not
-  exceed that; a block of rns_fused's 32 K threads quantizes its
-  ``bm x 32`` activation tile in ``_FUSED_NX`` passes; and every tile
-  must be one that is compiled.
+  rns_matmul.cu, the ring's in rns_fused_mma.cu) must not exceed that;
+  and every tile must be one that is compiled.
 
-The fused dot (B.4) and matmul + normalize (B.6) run on
+rns_matmul (B.2) runs ``rns_matmul.cu``: one digit's bm x bn tile a
+block, bn threads, a 3-stage ring of 128-deep K steps.  The fused dot
+(B.4), matmul + normalize (B.6) and encode + matmul (B.5) run on
 ``rns_fused_mma.cu``: K x bn threads (bn / 32 warps a digit), and a ring
 whose K step and depth are the deepest of :data:`FUSED_MMA_RINGS` that
-fits in 227 KiB (:func:`fused_ring`, the kernel's ``Ring``); the fused
-encode + matmul (B.5) stays on ``rns_fused.cu``'s template.
+fits in 227 KiB (:func:`fused_ring`, the kernel's ``Ring``; B.5 stages
+and quantizes x as the dot does).
 
 ``kernels/autotune.py`` gates the tiles of every wrapper call through
 :func:`check_wrapper_blocks` (once per call shape, and whenever a caller
@@ -40,28 +39,24 @@ import functools
 
 from repro_torch.core.moduli import get_profile
 
-__all__ = ["BlockConfigError", "MATMUL_TILES", "FUSED_TILES",
-           "FUSED_MMA_TILES", "FUSED_MMA_RINGS", "FLASH_TILES", "REGISTERS",
-           "SMEM_STATIC", "SMEM_OPT_IN", "register_cap",
-           "registers_per_thread", "threads", "smem_bytes", "fused_ring",
-           "validate_blocks", "check_wrapper_blocks"]
+__all__ = ["BlockConfigError", "MATMUL_TILES", "FUSED_MMA_TILES",
+           "FUSED_MMA_RINGS", "FLASH_TILES", "REGISTERS", "SMEM_OPT_IN",
+           "register_cap", "registers_per_thread", "threads", "smem_bytes",
+           "fused_ring", "validate_blocks", "check_wrapper_blocks"]
 
-SMEM_STATIC = 48 * 1024         # a block's shared memory without opting in
 SMEM_OPT_IN = 232_448           # 227 KiB, after cudaFuncSetAttribute
 MAX_THREADS = 1024
 REGS_PER_SM = 65_536
 
-_MATMUL_BK = 32                 # csrc/rns_fused.cu: K step (B.5)
 _RNS_MATMUL_BK = 128            # csrc/rns_matmul.cu: K step (4 k32 MMAs)
 _RNS_MATMUL_STAGES = 3          # csrc/rns_matmul.cu: cp.async ring
 _RNS_MATMUL_PAD = 16            # csrc/rns_matmul.cu: bytes after a row
-_FUSED_NX = 2                   # x elements per thread per tile (rns_fused.cu)
 
-#: compiled (bm, bn) tiles: template instantiations, dispatched at launch
-#: (rns_matmul.cu, rns_fused.cu), the first being the kernel's default
+#: compiled (bm, bn) tiles: template instantiations, dispatched at launch,
+#: the first being the kernel's default: rns_matmul.cu (B.2),
+#: rns_fused_mma.cu (B.4, B.5, B.6)
 MATMUL_TILES = ((32, 64), (64, 64), (32, 128), (64, 128))
-FUSED_TILES = ((8, 16), (8, 32), (16, 16))                  # B.5
-FUSED_MMA_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))  # B.4, B.6
+FUSED_MMA_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))
 #: rns_fused_mma.cu's rings (K step, stages), deepest first
 FUSED_MMA_RINGS = ((128, 3), (64, 3), (64, 2), (32, 3), (32, 2))
 _MMA_PAD, _MMA_XPAD, _MMA_IPAD, _MMA_FLAG = 16, 4, 16, 16
@@ -72,17 +67,21 @@ FLASH_DMAX = 128                # csrc/flash_attention.cu DMAX
 
 #: registers per thread of the instantiations built without
 #: ``__launch_bounds__``, from ``ptxas -v`` (sm_90a, CUDA 12.8):
-#: rns_convert by output type, rns_normalize by digit count K
+#: rns_convert by output type and digit count K, rns_normalize by K
 REGISTERS = {
-    "rns_convert": {"int8": 31, "int32": 30},
+    "rns_convert": {"int8": {5: 32, 6: 32, 7: 32, 8: 32, 9: 32, 12: 32,
+                             16: 32, 18: 32, 21: 32},
+                    "int32": {5: 32, 6: 32, 7: 38, 8: 32, 9: 32, 12: 32,
+                              16: 32, 18: 32, 21: 32}},
     "rns_normalize": {5: 30, 6: 30, 7: 30, 8: 39, 9: 48, 12: 95, 16: 180,
                       18: 215, 21: 255},
 }
 
 _MATMUL_KINDS = ("rns_matmul", "rns_fused_encode_matmul",
                  "rns_fused_matmul_normalize", "rns_fused_dot")
-_FUSED_KINDS = ("rns_fused_encode_matmul",)        # rns_fused.cu
-_MMA_KINDS = ("rns_fused_matmul_normalize", "rns_fused_dot")
+_MMA_KINDS = ("rns_fused_matmul_normalize", "rns_fused_dot",
+              "rns_fused_encode_matmul")          # rns_fused_mma.cu
+_QUANT_KINDS = ("rns_fused_dot", "rns_fused_encode_matmul")  # x in
 
 #: block names each kind requires (the autotune DEFAULTS schema)
 _REQUIRED: dict[str, tuple[str, ...]] = {
@@ -119,15 +118,14 @@ def registers_per_thread(kind, n_digits=1, res_bytes=1, blocks=None):
     """The register model of one instantiation (None: not compiled);
     ``blocks`` gives the tensor-core fused kernels' bn."""
     if kind == "rns_convert":
-        return REGISTERS[kind]["int8" if res_bytes == 1 else "int32"]
+        return REGISTERS[kind]["int8" if res_bytes == 1 else "int32"].get(
+            int(n_digits))
     if kind == "rns_normalize":
         return REGISTERS[kind].get(int(n_digits))
     if kind == "rns_matmul":          # __launch_bounds__(bn), bn >= 64
         return register_cap(64)
     if kind == "flash_attention":       # __launch_bounds__(256)
         return register_cap(256)
-    if kind == "rns_fused_encode_matmul":     # bounds for rns21
-        return register_cap(32 * 21)
     return register_cap(int(n_digits) * blocks["bn"])  # K x bn threads
 
 
@@ -135,8 +133,6 @@ def threads(kind, blocks, n_digits=1) -> int:
     """Threads per block of a launch."""
     if kind in ("rns_convert", "rns_normalize"):
         return blocks["bt"]
-    if kind in _FUSED_KINDS:
-        return 32 * int(n_digits)           # one warp per digit
     if kind in _MMA_KINDS:
         return int(n_digits) * blocks["bn"]  # bn / 32 warps a digit
     if kind == "rns_matmul":
@@ -161,10 +157,10 @@ def _mma_smem(quant, K, bm, bn, bk, stages) -> int:
 
 
 def fused_ring(kind, n_digits, bm, bn):
-    """The (K step, stages) of rns_fused_mma.cu's ring for a B.4 / B.6
-    tile: the first of :data:`FUSED_MMA_RINGS` that fits in 227 KiB, or
-    None when none does."""
-    quant = kind == "rns_fused_dot"
+    """The (K step, stages) of rns_fused_mma.cu's ring for a B.4, B.5 or
+    B.6 tile: the first of :data:`FUSED_MMA_RINGS` that fits in 227 KiB,
+    or None when none does."""
+    quant = kind in _QUANT_KINDS
     for bk, stages in FUSED_MMA_RINGS:
         if _mma_smem(quant, int(n_digits), bm, bn, bk, stages) <= \
                 SMEM_OPT_IN:
@@ -184,13 +180,10 @@ def smem_bytes(kind, blocks, n_digits=1, res_bytes=4, dims=None) -> int:
         bk, pad = _RNS_MATMUL_BK, _RNS_MATMUL_PAD
         return _RNS_MATMUL_STAGES * (blocks["bm"] * (bk + pad)
                                      + bk * (blocks["bn"] + pad))
-    if kind in _FUSED_KINDS:                # Vs + As + Bs (rns_fused.cu)
-        bm, bn, bk = blocks["bm"], blocks["bn"], _MATMUL_BK
-        return 4 * bk * bm + 4 * K * bk * bm + res_bytes * K * bk * bn
     if kind in _MMA_KINDS:                  # rns_fused_mma.cu
         bm, bn = blocks["bm"], blocks["bn"]
         bk, stages = fused_ring(kind, K, bm, bn) or FUSED_MMA_RINGS[-1]
-        return _mma_smem(kind == "rns_fused_dot", K, bm, bn, bk, stages)
+        return _mma_smem(kind in _QUANT_KINDS, K, bm, bn, bk, stages)
     if kind == "flash_attention":           # 2 stages x (K, V) [bk][DP + pad]
         d = dict(dims or {})
         D, Dv = d.get("D", 128), d.get("Dv", d.get("D", 128))
@@ -215,9 +208,7 @@ def _compiled(kind, blocks) -> list[str]:
             return [f"{kind}: tile {blocks['bq']}x{blocks['bk']} is not "
                     f"compiled (bq in {bqs}, bk in {bks})"]
         return []
-    tiles = {"rns_matmul": MATMUL_TILES,
-             "rns_fused_encode_matmul": FUSED_TILES}.get(kind,
-                                                         FUSED_MMA_TILES)
+    tiles = MATMUL_TILES if kind == "rns_matmul" else FUSED_MMA_TILES
     if (blocks["bm"], blocks["bn"]) not in tiles:
         return [f"{kind}: tile {blocks['bm']}x{blocks['bn']} is not "
                 f"compiled (bm x bn in {tiles})"]
@@ -256,19 +247,17 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
         if used > REGS_PER_SM:
             out.append(f"{kind}: {nt} threads x {regs} registers = {used} "
                        f"> {REGS_PER_SM} per SM")
-    limit = SMEM_STATIC if kind in _FUSED_KINDS else SMEM_OPT_IN
     sm = smem_bytes(kind, blocks, K, res_bytes, dims)
-    if sm > limit:
+    if sm > SMEM_OPT_IN:
         out.append(f"{kind}: {sm} bytes of shared memory per block > "
-                   f"{limit}")
+                   f"{SMEM_OPT_IN}")
     if kind == "flash_attention":
         d = dict(dims or {})
         for name in ("D", "Dv"):
             if d.get(name, 0) > FLASH_DMAX:
                 out.append(f"{kind}: {name}={d[name]} > {FLASH_DMAX}, the "
                            "widest head the kernel's accumulators hold")
-    step = {"rns_matmul": _RNS_MATMUL_BK,
-            "rns_fused_encode_matmul": _MATMUL_BK}.get(kind)
+    step = _RNS_MATMUL_BK if kind == "rns_matmul" else None
     if kind in _MMA_KINDS:
         ring = fused_ring(kind, K, blocks["bm"], blocks["bn"])
         if ring is None:
@@ -279,11 +268,6 @@ def validate_blocks(kind, blocks, *, n_digits=1, res_bytes=4, dims=None,
             step > lazy_chunk - 1:
         out.append(f"{kind}: K tile {step} > lazy_chunk - 1 = "
                    f"{lazy_chunk - 1} (int32 accumulators could overflow)")
-    if kind in _FUSED_KINDS and 32 * K * _FUSED_NX < blocks["bm"] * \
-            _MATMUL_BK:
-        out.append(f"{kind}: 32*K*NX = {32 * K * _FUSED_NX} threads-passes "
-                   f"< bm*{_MATMUL_BK} = {blocks['bm'] * _MATMUL_BK} "
-                   f"activations per tile (K={K})")
     return out
 
 

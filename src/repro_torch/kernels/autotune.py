@@ -20,12 +20,13 @@ resolves tiles it was not given through :func:`get_blocks`:
   keeps the fastest.
 
 An empty table gives :data:`DEFAULTS`: ``rns_matmul.cu``'s 32 x 64 (the
-tile it had before the table, kept by its tensor-core redesign),
-``rns_fused.cu``'s 8 x 16 for the fused encode + matmul, 16 x 32 for
-the fused dot and matmul + normalize on ``rns_fused_mma.cu`` (the
-smallest tile of its m16 MMA rows and 32-column warps, legal at every
-profile), 256 threads for rns_convert and rns_normalize,
-flash_attention's 64 x 64.
+tile it had before the table, kept by its tensor-core redesign), 16 x 32
+for the three fused kernels on ``rns_fused_mma.cu`` (the smallest tile
+of its m16 MMA rows and 32-column warps, legal at every profile), 256
+threads for rns_convert and rns_normalize, flash_attention's 64 x 64.
+A cached row naming a tile that is no longer compiled (the fused encode
++ matmul's retired CUDA-core tiles, 8 x 16 ...) is dropped with a
+warning when the table loads.
 
 Cache file format (versioned)::
 
@@ -57,7 +58,7 @@ _MMA_DEFAULTS = {"bm": 16, "bn": 32}
 #: kernels' own, not a choice)
 DEFAULTS: dict[str, dict[str, int]] = {
     "rns_matmul": {"bm": 32, "bn": 64},
-    "rns_fused_encode_matmul": {"bm": 8, "bn": 16},
+    "rns_fused_encode_matmul": _MMA_DEFAULTS,
     "rns_fused_matmul_normalize": _MMA_DEFAULTS,
     "rns_fused_dot": _MMA_DEFAULTS,
     "rns_convert": {"bt": 256},
@@ -70,14 +71,13 @@ CANDIDATES: dict[str, list[dict[str, int]]] = {
     "rns_matmul": [{"bm": bm, "bn": bn}
                    for bm, bn in ((32, 64), (64, 64), (32, 128),
                                   (64, 128))],
-    "rns_fused_encode_matmul": [{"bm": bm, "bn": bn}
-                                for bm, bn in ((8, 16), (8, 32), (16, 16))],
     "rns_convert": [{"bt": t} for t in (128, 256, 512, 1024)],
     "rns_normalize": [{"bt": t} for t in (128, 256, 512)],
     "flash_attention": [{"bq": q, "bk": k} for q in (32, 64, 128)
                         for k in (32, 64, 128)],
 }
-for _kind in ("rns_fused_matmul_normalize", "rns_fused_dot"):
+for _kind in ("rns_fused_matmul_normalize", "rns_fused_dot",
+              "rns_fused_encode_matmul"):
     CANDIDATES[_kind] = [{"bm": bm, "bn": bn}
                          for bm, bn in ((16, 32), (16, 64), (32, 32),
                                         (32, 64))]

@@ -1,5 +1,5 @@
 // Building blocks of the integer tensor-core kernels, shared by
-// rns_matmul.cu (B.2) and rns_fused_mma.cu (B.4, B.6): 16-byte cp.async
+// rns_matmul.cu (B.2, B.5) and rns_fused_mma.cu (B.4, B.6): 16-byte cp.async
 // staging into a shared-memory ring, staging element by element with a
 // narrowing to unsigned bytes, the u8 (and s8 x u8) MMA, and the 4 x 4
 // byte transpose that turns N-contiguous b rows into the MMA's column

@@ -1,6 +1,7 @@
 // The fixed-point rule of core/quantize.quantize_with_scale, shared by the
-// forward conversion (rns_convert.cu) and the fused kernels' quantize
-// prologue (rns_fused.cu): v = clip(round_half_even(x * s), -qmax, qmax).
+// forward conversion (rns_convert.cu) and the quantize prologues of the
+// fused encode + matmul (rns_matmul.cu) and the fused dot
+// (rns_fused_mma.cu): v = clip(round_half_even(x * s), -qmax, qmax).
 #pragma once
 
 // __fmul_rn: one rounded float32 product, never contracted into an FMA;

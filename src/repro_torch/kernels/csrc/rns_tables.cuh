@@ -13,7 +13,8 @@ struct RnsTables {
   float w[RNS_MAX_K];               // float32(W_j), W_j = prod_{i<j} m_i
   int inv[RNS_MAX_K * RNS_MAX_K];   // inv[i*RNS_MAX_K+j] = m_i^-1 mod m_j
   unsigned magic[RNS_MAX_K];        // floor((2^32 - 1) / m_j), mulhi_mod
-  int moff[RNS_MAX_K];              // m_j * ceil(2^16 / m_j) >= 65536
+  int moff[RNS_MAX_K];              // m_j * ceil(2^16 / m_j) >= 65536,
+                                    // for quant_residue and the MRC
 };
 
 // floor-mod for m > 0 (C's % truncates toward zero)
@@ -29,4 +30,22 @@ __device__ __forceinline__ int mulhi_mod(int x, int m, unsigned magic) {
   const unsigned q = __umulhi((unsigned)x, magic);
   const int r = x - (int)q * m;
   return r >= m ? r - m : r;
+}
+
+// floor-mod of a signed accumulator, |x| < 2^31
+__device__ __forceinline__ int signed_mod(int x, int m, unsigned magic) {
+  if (x >= 0) return mulhi_mod(x, m, magic);
+  const int r = mulhi_mod(-x, m, magic);
+  return r ? m - r : 0;
+}
+
+// floor-mod of a quantized value v by digit j: while |v| <= 65535
+// (NARROW: qmax <= 65535, bits <= 17) the offset moff_j, a multiple of
+// m_j of at least 65536, makes it non-negative for mulhi_mod; wider
+// values take floor_mod's division
+template <bool NARROW>
+__device__ __forceinline__ int quant_residue(int v, int j,
+                                             const RnsTables& t) {
+  return NARROW ? mulhi_mod(v + t.moff[j], t.moduli[j], t.magic[j])
+                : floor_mod(v, t.moduli[j]);
 }

@@ -5,15 +5,23 @@ Replaces ``src/repro/kernels/rns_convert/kernel.py:rns_convert_tiles``
 
 Bound on an H100: bytes.  Each element reads 4 bytes of x and writes
 K residue bytes (4 + 9 for rns9) against one multiply, a round, a clip
-and K integer mods, so device memory is the limit; at the decode sizes
-of the main path the launch itself costs more than either (PERF.md).
-Design: one thread per element, the
-scale read per run of ``group`` elements (a scalar, a row or a token
-grid is never materialised to x's shape), the K stores of one thread
-going to K digit planes so that a warp's stores to each plane coalesce.
-Tables travel by value as a kernel argument (``build.RnsTablesC``).
-Threads per block (the tile ``bt``) are a launch parameter, chosen per
-shape bucket through ``kernels/autotune.py``.
+and K integer mods, so device memory is the limit: a per-op weight row
+[576, 1536] moves 11.5 MB, 3.43 us at 3.35 TB/s; at the decode sizes of
+the main path the launch itself costs more (PERF.md).
+Design (``csrc/rns_convert.cu``): each thread converts 4 consecutive
+elements, with one float4 load where x is 16-byte aligned and T % 4 ==
+0; the scale is read per run of ``group`` elements (a scalar, a row or
+a token grid is never materialised to x's shape), a scalar once, other
+runs found by one 32-bit division and a counter; K is a template
+parameter (an instantiation per profile digit count,
+:data:`SUPPORTED_K`), each residue an offset multiply-high mod while
+qmax <= 65535 (bits <= 17; wider values keep floor-mod's division); one
+32-bit store of 4 int8 residues (an int4 of int32 ones) per digit plane,
+so a warp's stores to each plane coalesce.  Indices are 32-bit: a call
+of more than :data:`MAX_T` elements raises.  Tables travel by value as a
+kernel argument (``build.RnsTablesC``).  Threads per block (the tile
+``bt``) are a launch parameter, chosen per shape bucket through
+``kernels/autotune.py``.
 """
 
 from __future__ import annotations
@@ -28,13 +36,17 @@ from repro_torch.core.moduli import get_profile
 from repro_torch.core.quantize import quantize_with_scale
 from repro_torch.core.rns import encode_int32
 from repro_torch.kernels import autotune, build
+from repro_torch.kernels.rns_normalize.ops import SUPPORTED_K
 
-__all__ = ["rns_convert", "rns_convert_plain", "SOURCE", "launches"]
+__all__ = ["rns_convert", "rns_convert_plain", "SOURCE", "launches",
+           "MAX_T"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_convert.cu"
 
 #: kernel launches made by :func:`rns_convert` (CUDA tensors only)
 launches = 0
+#: the kernel's 32-bit indices: elements of one call, at most
+MAX_T = 2 ** 31 - 2 ** 16 - 1
 
 
 def _bind(lib):
@@ -79,7 +91,7 @@ def rns_convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
     global launches
     p = get_profile(profile)
     key, blk = autotune.resolve("rns_convert", p, (x.numel(),), x.device,
-                                bt=bt)
+                                gate=p.n_digits in SUPPORTED_K, bt=bt)
     if not torch.is_tensor(scale):      # a fill, no host copy: graph-safe
         scale = torch.full((), scale, dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
@@ -91,6 +103,12 @@ def rns_convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
         raise ValueError(f"rns_convert: out_dtype {out_dtype}")
     if out_dtype == torch.int8 and not p.int8_safe:
         raise ValueError(f"rns_convert: {p.name} residues exceed int8")
+    if p.n_digits not in SUPPORTED_K:
+        raise ValueError(f"rns_convert: K={p.n_digits} for {p.name} "
+                         f"(kernel digit counts {SUPPORTED_K})")
+    if x.numel() > MAX_T:
+        raise ValueError(f"rns_convert: {x.numel()} elements > {MAX_T}, "
+                         "the kernel's 32-bit indices; split the call")
     shape = tuple(x.shape)
     xf = x.to(torch.float32).contiguous()
     s, group = _scale_runs(shape, scale.to(torch.float32))

@@ -1,15 +1,19 @@
 // Fused residue datapath on the integer tensor cores: one projection's
-// digit matmul and MRC normalize in one kernel (for the dot, its forward
-// conversion too), every digit's accumulators and residues on chip.
+// digit matmul with its forward conversion, its MRC normalize or both in
+// one kernel, every digit's accumulators and residues on chip.
 //
 //   rns_fused_dot              x f32 [M,D] (+ row scales), b [K,D,N]
 //                              -> [M,N] float32 (unscaled)
 //   rns_fused_matmul_normalize a [K,M,D] residues, b [K,D,N]
 //                              -> [M,N] float32 (unscaled)
+//   rns_fused_encode_matmul    x f32 [M,D] (+ row scales), b [K,D,N]
+//                              -> [K,M,N] int32 residues
 //
-// They replace the Pallas kernels rns_fused_dot_tiles and
-// rns_fused_matmul_normalize_tiles of src/repro/kernels/rns_fused/
-// kernel.py; see kernels/rns_fused/ops.py for the bound and design.
+// They replace the Pallas kernels rns_fused_dot_tiles,
+// rns_fused_matmul_normalize_tiles and rns_fused_encode_matmul_tiles of
+// src/repro/kernels/rns_fused/kernel.py; see kernels/rns_fused/ops.py for
+// the bound and design.  The first two run rns_fused_mma_kernel, the
+// encode + matmul the same body as rns_encode_residues_kernel.
 //
 // * A block owns a BM x BN output tile for ALL K digits: BN / 32 warps a
 //   digit (K * BN threads), each warp BM rows x 32 columns of its digit's
@@ -38,7 +42,9 @@
 // * Epilogue: the tile's K x BM x BN residues are parked in shared memory
 //   (aliasing the ring) and all K * BN threads run the MRC of
 //   csrc/rns_mrc.cuh, one output element each, with its multiply-high mod
-//   (MULHI): the same bits as core/mrc.decode_float.
+//   (MULHI): the same bits as core/mrc.decode_float.  The encode + matmul
+//   (RES) stores each warp's residues from its registers instead, 16
+//   bytes at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,25 +98,18 @@ struct Ring {
   static constexpr bool FITS = SMEM <= SMEM_MAX;
 };
 
-// x mod m of a signed accumulator, |x| < 2^31 (floor-mod)
-__device__ __forceinline__ int signed_mod(int x, int m, unsigned magic) {
-  if (x >= 0) return mulhi_mod(x, m, magic);
-  const int r = mulhi_mod(-x, m, magic);
-  return r ? m - r : 0;
-}
-
-// AT: float (x, quantized in the kernel) or int8 / int32 residues
-// [K, M, D]; BT: int8 / int32 residues [K, D, N]; K == t.K.  s8: (the
-// dot) the quantized x fits a signed byte, qmax <= 127.
-template <typename AT, typename BT, int K, int BM, int BN>
-__global__ void __launch_bounds__(K * BN)
-rns_fused_mma_kernel(const AT* __restrict__ a, const float* __restrict__ s,
-                     long long group, float qmax, const BT* __restrict__ b,
-                     int M, int N, int D, int lim, int per, int splits,
-                     bool a_vec, bool b_vec, bool s8,
-                     const __grid_constant__ RnsTables t,
-                     float* __restrict__ out, int32_t* __restrict__ ws,
-                     int32_t* __restrict__ cnt) {
+// One block's tile.  AT: float (x, quantized in the kernel) or int8 /
+// int32 residues [K, M, D]; BT: int8 / int32 residues [K, D, N]; K ==
+// t.K.  s8: (x) the quantized x fits a signed byte, qmax <= 127.  RES
+// (the fused encode + matmul): the epilogue stores the digits' residues,
+// int32 [K, M, N] at out, in place of the MRC's floats.
+template <typename AT, typename BT, int K, int BM, int BN, bool RES>
+__device__ __forceinline__ void fused_tile(
+    const AT* __restrict__ a, const float* __restrict__ s, long long group,
+    float qmax, const BT* __restrict__ b, int M, int N, int D, int lim,
+    int per, int splits, bool a_vec, bool b_vec, bool s8, const RnsTables& t,
+    void* __restrict__ out, int32_t* __restrict__ ws,
+    int32_t* __restrict__ cnt) {
   constexpr bool Q = std::is_same<AT, float>::value;
   constexpr bool A32 = !Q && sizeof(AT) == 4;
   using RG = Ring<Q, K, BM, BN>;
@@ -369,6 +368,28 @@ rns_fused_mma_kernel(const AT* __restrict__ a, const float* __restrict__ s,
     if (threadIdx.x == 0) cnt[tile] = 0;
   }
 
+  if constexpr (RES) {              // the residues, 16-byte stores
+    int32_t* O = (int32_t*)out + (long long)dg * M * N;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int gm = row0 + 16 * mi + g + 8 * (h / 2);
+        const int gn = col0 + 32 * wn + 8 * tq + 4 * (h % 2);
+        if (gm >= M || gn >= N) continue;
+        int32_t* dst = O + (long long)gm * N + gn;
+        if (N % 4 == 0) {
+          *(int4*)dst = make_int4(acc[mi][0][h], acc[mi][1][h],
+                                  acc[mi][2][h], acc[mi][3][h]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (gn + j < N) dst[j] = acc[mi][j][h];
+        }
+      }
+    return;
+  }
+
   // park the residues [K][BM][BN] over the ring, then the MRC of each
   // output element by one thread
   __syncthreads();                  // every warp is done with the ring
@@ -388,11 +409,45 @@ rns_fused_mma_kernel(const AT* __restrict__ a, const float* __restrict__ s,
     int res[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) res[j] = Rs[(j * BM + r) * BN + c];
-    out[(long long)gm * N + gc] = mrc_decode_float<K, true>(res, t);
+    ((float*)out)[(long long)gm * N + gc] = mrc_decode_float<K, true>(res,
+                                                                     t);
   }
 }
 
+// The dot and the matmul + normalize: [M, N] float32 out.
 template <typename AT, typename BT, int K, int BM, int BN>
+__global__ void __launch_bounds__(K * BN)
+rns_fused_mma_kernel(const AT* __restrict__ a, const float* __restrict__ s,
+                     long long group, float qmax, const BT* __restrict__ b,
+                     int M, int N, int D, int lim, int per, int splits,
+                     bool a_vec, bool b_vec, bool s8,
+                     const __grid_constant__ RnsTables t,
+                     float* __restrict__ out, int32_t* __restrict__ ws,
+                     int32_t* __restrict__ cnt) {
+  fused_tile<AT, BT, K, BM, BN, false>(a, s, group, qmax, b, M, N, D, lim,
+                                       per, splits, a_vec, b_vec, s8, t, out,
+                                       ws, cnt);
+}
+
+// The fused encode + matmul: [K, M, N] int32 residues out, under its own
+// name (a profile tells its device time from the dot's).
+template <typename BT, int K, int BM, int BN>
+__global__ void __launch_bounds__(K * BN)
+rns_encode_residues_kernel(const float* __restrict__ x,
+                           const float* __restrict__ s, long long group,
+                           float qmax, const BT* __restrict__ b, int M,
+                           int N, int D, int lim, int per, int splits,
+                           bool x_vec, bool b_vec, bool s8,
+                           const __grid_constant__ RnsTables t,
+                           int32_t* __restrict__ out,
+                           int32_t* __restrict__ ws,
+                           int32_t* __restrict__ cnt) {
+  fused_tile<float, BT, K, BM, BN, true>(x, s, group, qmax, b, M, N, D, lim,
+                                         per, splits, x_vec, b_vec, s8, t,
+                                         out, ws, cnt);
+}
+
+template <typename AT, typename BT, int K, int BM, int BN, bool RES = false>
 static int launch(const void* a, const void* s, long long group, float qmax,
                   const void* b, int M, int N, int D, int lim, int splits,
                   const RnsTables& t, void* out, void* ws, void* cnt,
@@ -415,22 +470,27 @@ static int launch(const void* a, const void* s, long long group, float qmax,
     const bool b_vec = sizeof(BT) == 1 && (uintptr_t)b % 16 == 0 &&
                        N % 16 == 0;
     const bool s8 = Q && qmax <= 127.f;
-    auto kern = rns_fused_mma_kernel<AT, BT, K, BM, BN>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, RG::SMEM);
-    if (err != cudaSuccess) return (int)err;
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-    kern<<<grid, K * BN, RG::SMEM, st>>>(
-        (const AT*)a, (const float*)s, group, qmax, (const BT*)b, M, N, D,
-        lim, per, splits, a_vec, b_vec, s8, t, (float*)out, (int32_t*)ws,
-        (int32_t*)cnt);
-    return (int)cudaGetLastError();
+    auto go = [&](auto kern, auto* o) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, RG::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      kern<<<grid, K * BN, RG::SMEM, st>>>(
+          (const AT*)a, (const float*)s, group, qmax, (const BT*)b, M, N, D,
+          lim, per, splits, a_vec, b_vec, s8, t, o, (int32_t*)ws,
+          (int32_t*)cnt);
+      return (int)cudaGetLastError();
+    };
+    if constexpr (RES)
+      return go(rns_encode_residues_kernel<BT, K, BM, BN>, (int32_t*)out);
+    else
+      return go(rns_fused_mma_kernel<AT, BT, K, BM, BN>, (float*)out);
   }
 }
 
 // Every profile's digit count; int32 b residues belong to the profile that
 // is not int8-safe (rns8_u8, K = 8), whose a residues are int32 too.
-template <typename AT, int BM, int BN>
+template <typename AT, int BM, int BN, bool RES = false>
 static int launch_k(const void* a, const void* s, long long group,
                     float qmax, const void* b, int b_int8, int M, int N,
                     int D, int lim, int splits, const RnsTables& t, void* out,
@@ -440,14 +500,16 @@ static int launch_k(const void* a, const void* s, long long group,
       return (int)cudaErrorInvalidValue;
     } else {
       if (t.K != 8) return (int)cudaErrorInvalidValue;
-      return launch<AT, int32_t, 8, BM, BN>(a, s, group, qmax, b, M, N, D,
-                                            lim, splits, t, out, ws, cnt, st);
+      return launch<AT, int32_t, 8, BM, BN, RES>(a, s, group, qmax, b, M, N,
+                                                 D, lim, splits, t, out, ws,
+                                                 cnt, st);
     }
   }
 #define RNS_FUSED_MMA_CASE(k)                                             \
   case k:                                                                 \
-    return launch<AT, int8_t, k, BM, BN>(a, s, group, qmax, b, M, N, D, \
-                                         lim, splits, t, out, ws, cnt, st);
+    return launch<AT, int8_t, k, BM, BN, RES>(a, s, group, qmax, b, M, N, \
+                                              D, lim, splits, t, out, ws,   \
+                                              cnt, st);
   switch (t.K) {
     RNS_FUSED_MMA_CASE(5) RNS_FUSED_MMA_CASE(6) RNS_FUSED_MMA_CASE(7)
     RNS_FUSED_MMA_CASE(8) RNS_FUSED_MMA_CASE(9) RNS_FUSED_MMA_CASE(12)
@@ -506,5 +568,21 @@ extern "C" int rns_fused_matmul_normalize(const void* a, int a_int8,
                                         st);
     return launch_k<int32_t, TBM, TBN>(a, nullptr, 1, 0.f, b, b_int8, M, N, D,
                                        lim, splits, *t, out, ws, cnt, st);
+  });
+}
+
+// The fused encode + matmul: as rns_fused_dot, with out [K, M, N] int32
+// residues.
+extern "C" int rns_fused_encode_matmul(const void* x, const void* s,
+                                       long long group, float qmax,
+                                       const void* b, int b_int8, int M,
+                                       int N, int D, int lim,
+                                       const RnsTables* t, void* out, int bm,
+                                       int bn, int splits, void* ws,
+                                       void* cnt, void* stream) {
+  return with_tile(bm, bn, [&](auto tm, auto tn) {
+    return launch_k<float, decltype(tm)::value, decltype(tn)::value, true>(
+        x, s, group, qmax, b, b_int8, M, N, D, lim, splits, *t, out, ws, cnt,
+        (cudaStream_t)stream);
   });
 }

@@ -35,17 +35,20 @@ epilogue parks the tile's residues in shared memory and every thread of
 the block runs the MRC of ``csrc/rns_mrc.cuh`` on its elements, with an
 exact multiply-high mod: the bits of ``rns_normalize``.
 
-The encode + matmul (B.5), ``csrc/rns_fused.cu``, is the first, simple
-design: a block owns an 8 x 16 output tile for all K digits, one warp a
-digit, each lane one column and 4 rows; 32-deep K tiles staged in
-shared memory, the next one loaded into registers while the current one
-is multiplied; CUDA cores, no split over D.
+The encode + matmul (B.5) runs the same kernel body
+(``rns_encode_residues_kernel``): the dot's x tile quantized once a step
+into one s8 operand for every digit, and, in place of the MRC, each
+warp's residues stored from its registers ([K, M, N] int32, 16-byte
+stores); its splits follow the dot's.  Its other layout, one digit's
+tile a block (rns_matmul's, with the block's x rows quantized once),
+measured slower in both main-path rows; it is the design candidate
+``scripts/variants/rns_encode_one_digit.cu`` of
+``scripts/kernel_variants.py`` (PERF.md).
 
 The scale travels as one float per run of ``group`` activation rows (a
 scalar, per-row or per-token grid, never expanded to x's shape).  Output
 tiles are chosen per shape bucket through ``kernels/autotune.py`` among
-the compiled tiles (template instantiations, ``FUSED_TILES`` and
-``FUSED_MMA_TILES``).
+the compiled tiles (template instantiations, ``FUSED_MMA_TILES``).
 
 On a CPU tensor each wrapper takes its plain version: the composition of
 the port's plain stages, as ``repro/kernels/rns_fused/ref.py`` composes
@@ -72,12 +75,9 @@ from repro_torch.kernels.rns_normalize.ops import (SUPPORTED_K,
 __all__ = ["rns_fused_encode_matmul", "rns_fused_matmul_normalize",
            "rns_fused_dot", "rns_fused_encode_matmul_plain",
            "rns_fused_matmul_normalize_plain", "rns_fused_dot_plain",
-           "splits_for", "SOURCE", "MMA_SOURCE", "SOURCES", "launches"]
+           "splits_for", "MIN_STEPS", "SOURCE", "launches"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_fused.cu"
-MMA_SOURCE = SOURCE.with_name("rns_fused_mma.cu")
-#: library name -> source: B.5 on rns_fused.cu, B.4 and B.6 on the other
-SOURCES = {"rns_fused": SOURCE, "rns_fused_mma": MMA_SOURCE}
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_fused_mma.cu"
 
 #: kernel launches made by each wrapper (CUDA tensors only)
 launches = {"rns_fused_encode_matmul": 0, "rns_fused_matmul_normalize": 0,
@@ -88,37 +88,38 @@ def _bind(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     tab = ctypes.POINTER(build.RnsTablesC)
-    lib.rns_fused_encode_matmul.argtypes = [p, p, ll, f, p, i, i, i, i, i,
-                                            tab, p, i, i, p]
-    lib.rns_fused_encode_matmul.restype = ctypes.c_int
-
-
-def _bind_mma(lib):
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float
-    tab = ctypes.POINTER(build.RnsTablesC)
     lib.rns_fused_dot.argtypes = [p, p, ll, f, p, i, i, i, i, i, tab, p, i,
                                   i, i, p, p, p]
+    lib.rns_fused_encode_matmul.argtypes = lib.rns_fused_dot.argtypes
+    lib.rns_fused_encode_matmul.restype = ctypes.c_int
     lib.rns_fused_matmul_normalize.argtypes = [p, i, p, i, i, i, i, i, tab,
                                                p, i, i, i, p, p, p]
     lib.rns_fused_dot.restype = ctypes.c_int
     lib.rns_fused_matmul_normalize.restype = ctypes.c_int
 
 
+#: K steps a split takes at least, by kernel: the encode + matmul's last
+#: block only adds slices and stores them (no MRC), and its decode tile
+#: of 16 x 64 ran fastest split 5 ways, one K step more or less each
+#: (PERF.md)
+MIN_STEPS = {"rns_fused_dot": 2, "rns_fused_matmul_normalize": 2,
+             "rns_fused_encode_matmul": 1}
+
+
 def splits_for(M: int, D: int, N: int, bm: int, bn: int, bk: int,
-               sms: int) -> int:
+               sms: int, min_steps: int = 2) -> int:
     """Blocks of rns_fused_mma.cu that share each output tile's K steps
     (``bk`` deep) in one launch: 1 when the row x column tiles alone fill
     the card's ``sms`` SMs or D has fewer than 4 K steps, else about one
-    block an SM, at most 8 ways and each with at least two K steps.  A
-    block holds a tile's every digit and most of an SM's shared memory,
-    so the target is one block an SM, not rns_matmul's two
-    (``rns_matmul.splits_for``)."""
+    block an SM, at most 8 ways and each with at least ``min_steps`` K
+    steps (:data:`MIN_STEPS`).  A block holds a tile's every digit and
+    most of an SM's shared memory, so the target is one block an SM, not
+    rns_matmul's two (``rns_matmul.splits_for``)."""
     tiles = -(-M // bm) * -(-N // bn)
     ksteps = -(-D // bk)
     if tiles >= sms or ksteps < 4:
         return 1
-    want = max(1, min(8, ksteps // 2, sms // tiles))
+    want = max(1, min(8, ksteps // min_steps, sms // tiles))
     per = -(-ksteps // want)
     return -(-ksteps // per)        # as the launch recounts it
 
@@ -132,7 +133,8 @@ def _split_args(name, p, M, D, N, blk, dev):
     """(splits, workspace pointer, counters pointer) of one launch."""
     bm, bn = blk["bm"], blk["bn"]
     bk = fused_ring(name, p.n_digits, bm, bn)[0]
-    splits = splits_for(M, D, N, bm, bn, bk, _sms(dev.index))
+    splits = splits_for(M, D, N, bm, bn, bk, _sms(dev.index),
+                        MIN_STEPS[name])
     if splits == 1:
         return 1, 0, 0
     tiles = -(-M // bm) * -(-N // bn)
@@ -200,8 +202,8 @@ def _row_scales(name, x, scale):
 
 
 def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
-    """Launch rns_fused_encode_matmul (rns_fused.cu) or rns_fused_dot
-    (rns_fused_mma.cu) into ``out``."""
+    """Launch rns_fused_encode_matmul or rns_fused_dot (rns_fused_mma.cu)
+    into ``out``."""
     D, N = x.shape[-1], b_res.shape[-1]
     b2 = _check_b(name, p, b_res, D, x.device)
     if p.n_digits not in SUPPORTED_K:
@@ -216,11 +218,8 @@ def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
                 blk["bm"], blk["bn"]]
-        if name == "rns_fused_dot":
-            lib = build.load("rns_fused_mma", MMA_SOURCE, _bind_mma)
-            args += _split_args(name, p, M, D, N, blk, dev)
-        else:
-            lib = build.load("rns_fused", SOURCE, _bind)
+        lib = build.load("rns_fused_mma", SOURCE, _bind)
+        args += _split_args(name, p, M, D, N, blk, dev)
         with torch.cuda.device(dev):
             err = getattr(lib, name)(
                 *args, torch.cuda.current_stream(dev).cuda_stream)
@@ -313,7 +312,7 @@ def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
     M = a2.shape[1]
     out = torch.empty(lead + (N,), dtype=torch.float32, device=a_res.device)
     if M and N:
-        lib = build.load("rns_fused_mma", MMA_SOURCE, _bind_mma)
+        lib = build.load("rns_fused_mma", SOURCE, _bind)
         dev = a_res.device
         splits, ws, cnt = _split_args(name, p, M, D, N, blk, dev)
         with torch.cuda.device(dev):

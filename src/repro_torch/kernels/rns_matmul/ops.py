@@ -28,6 +28,11 @@ workspace comes from ``kernels/workspace.py``, per device and stream,
 and no buffer a launch was handed is ever freed.  The
 (bm, bn) tile is chosen per shape bucket through ``kernels/autotune.py``
 among the compiled tiles (template instantiations, ``MATMUL_TILES``).
+
+The fused encode + matmul's one-digit design candidate
+(``scripts/variants/rns_encode_one_digit.cu``, timed by
+``scripts/kernel_variants.py``) is this kernel with x quantized in the
+block; :func:`split_args` sizes its splits too.
 """
 
 from __future__ import annotations
@@ -43,8 +48,8 @@ from repro_torch.core.moduli import get_profile
 from repro_torch.core.rns_matmul import rns_matmul_res
 from repro_torch.kernels import autotune, build, workspace
 
-__all__ = ["rns_matmul", "rns_matmul_plain", "splits_for", "SOURCE",
-           "launches", "BK"]
+__all__ = ["rns_matmul", "rns_matmul_plain", "splits_for", "split_args",
+           "SOURCE", "launches", "BK"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_matmul.cu"
 
@@ -54,12 +59,10 @@ BK = 128                # csrc/rns_matmul.cu: the K step
 
 
 def _bind(lib):
-    lib.rns_matmul.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(build.RnsTablesC), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rns_matmul.argtypes = [p, p, i, i, i, i, i,
+                               ctypes.POINTER(build.RnsTablesC), p, i, i, i,
+                               i, p, p, p]
     lib.rns_matmul.restype = ctypes.c_int
 
 
@@ -93,6 +96,19 @@ def splits_for(S: int, M: int, D: int, N: int, bm: int, bn: int,
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_args(K: int, M: int, D: int, N: int, bm: int, bn: int,
+               device) -> tuple[int, int, int]:
+    """(splits, workspace pointer, counters pointer) of one launch of
+    ``csrc/rns_matmul.cu``: :func:`splits_for` on the card's SMs, the
+    workspace of ``kernels/workspace.py`` when it splits."""
+    splits = splits_for(K, M, D, N, bm, bn, _sms(device.index))
+    if splits == 1:
+        return 1, 0, 0
+    ws, cnt = workspace.get(device, splits * K * M * N,
+                            K * -(-M // bm) * -(-N // bn))
+    return splits, ws.data_ptr(), cnt.data_ptr()
 
 
 def rns_matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
@@ -130,19 +146,14 @@ def rns_matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
     out = torch.empty((K, M, N), dtype=torch.int32, device=a_res.device)
     if M and N:
         lib = build.load("rns_matmul", SOURCE, _bind)
-        bm_, bn_ = blk["bm"], blk["bn"]
         dev = a_res.device
-        splits = splits_for(K, M, D, N, bm_, bn_, _sms(dev.index))
-        ws = cnt = 0
-        if splits > 1:
-            ws, cnt = (t.data_ptr() for t in workspace.get(
-                dev, splits * K * M * N, K * -(-M // bm_) * -(-N // bn_)))
+        split = split_args(K, M, D, N, blk["bm"], blk["bn"], dev)
         with torch.cuda.device(dev):
             err = lib.rns_matmul(
                 a2.data_ptr(), b2.data_ptr(), K, M, N, D, p.lazy_chunk - 1,
                 ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
-                int(a_res.dtype == torch.int8), bm_, bn_, splits, ws, cnt,
-                torch.cuda.current_stream(dev).cuda_stream)
+                int(a_res.dtype == torch.int8), blk["bm"], blk["bn"],
+                *split, torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "rns_matmul")
         launches += 1
         autotune.last_launch["rns_matmul"] = (key, blk)

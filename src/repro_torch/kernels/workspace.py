@@ -1,5 +1,6 @@
 """Split workspaces of the kernels whose blocks share a tile's K steps
-(``rns_matmul``, ``rns_fused_dot``, ``rns_fused_matmul_normalize``).
+(``rns_matmul``, ``rns_fused_dot``, ``rns_fused_matmul_normalize``,
+``rns_fused_encode_matmul``).
 
 A split launch needs int32 scratch for the blocks' partial residues and
 one int32 counter per output tile; the kernel writes every slice before
@@ -15,8 +16,8 @@ captured with, so the rules here are:
   the stream it was captured on);
 * counters are zeroed once, when they are allocated.
 
-The two kernels share one pair per (device, stream): launches on one
-stream run one after another.
+The kernels share one pair per (device, stream): launches on one stream
+run one after another.
 """
 
 from __future__ import annotations

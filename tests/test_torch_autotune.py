@@ -75,7 +75,7 @@ def test_get_blocks_defaults_without_cache(tmp_cache):
     assert autotune.get_blocks("rns_fused_dot", "rns9", (8, 576, 1536)) == {
         "bm": 16, "bn": 32}
     assert autotune.get_blocks("rns_fused_encode_matmul", "rns9",
-                               (8, 576, 1536)) == {"bm": 8, "bn": 16}
+                               (8, 576, 1536)) == {"bm": 16, "bn": 32}
     assert autotune.get_blocks("rns_normalize", "rns9", (100,)) == {"bt": 256}
     assert autotune.get_blocks("rns_convert", "rns9", (100,)) == {"bt": 256}
     assert autotune.get_blocks("flash_attention", "float32",
@@ -258,8 +258,9 @@ def test_tune_rewrites_corrupt_cache(tmp_cache):
     # on the tensor-core kernel, so the row resolves to the new default
     ("rns_fused_dot|rns9|8x1024x2048|cpu", {"bm": 8, "bn": 16},
      "not compiled"),
-    ("rns_fused_encode_matmul|rns5|8x512x512|cpu", {"bm": 16, "bn": 16},
-     "activations per tile"),
+    # a row of the fused encode + matmul's retired CUDA-core template
+    ("rns_fused_encode_matmul|rns5|8x512x512|cpu", {"bm": 8, "bn": 16},
+     "not compiled"),
     ("rns_matmul|rns9|8x512x512|cpu", {"bm": 128, "bn": 128},
      "not compiled"),
     ("rns_matmul|rns9|8x512x512|cpu", {"bm": 32, "bn": 64, "bk": 32},
@@ -321,12 +322,13 @@ def test_every_default_and_candidate_is_legal_on_the_main_path(kind):
     ("rns_normalize", {"bt": 512}, dict(n_digits=16), "registers"),
     ("rns_fused_dot", {"bm": 32, "bn": 64},
      dict(n_digits=21, res_bytes=1), "1344 threads per block > 1024"),
-    ("rns_fused_encode_matmul", {"bm": 16, "bn": 16},
-     dict(n_digits=21, res_bytes=1), "55808 bytes of shared memory"),
+    ("rns_fused_encode_matmul", {"bm": 16, "bn": 32},
+     dict(n_digits=9, res_bytes=1, lazy_chunk=100),
+     "K tile 128 > lazy_chunk - 1 = 99"),
     ("rns_fused_matmul_normalize", {"bm": 16, "bn": 32},
      dict(n_digits=9, lazy_chunk=50), "K tile 64 > lazy_chunk - 1 = 49"),
     ("rns_fused_encode_matmul", {"bm": 16, "bn": 16},
-     dict(n_digits=5, res_bytes=1), "32*K*NX = 320"),
+     dict(n_digits=5, res_bytes=1), "tile 16x16 is not compiled"),
     ("rns_matmul", {"bm": 32, "bn": 64},
      dict(n_digits=9, lazy_chunk=20), "lazy_chunk - 1 = 19"),
     ("rns_fused_dot", {"bm": 16, "bn": 32, "bk": 64}, dict(n_digits=9),
@@ -359,19 +361,31 @@ def test_checker_gate_raises_value_error_naming_kernel_and_bytes():
                                 n_digits=21, res_bytes=1)
     ka.check_wrapper_blocks("rns_fused_dot", {"bm": 16, "bn": 32},
                             n_digits=21, res_bytes=1)
+    # the retired CUDA-core tile on rns_fused_mma.cu's model, the dot's:
+    # rns21's shallowest ring, its digits' tiles, the quantized tile, the
+    # row scales and the flag
     with pytest.raises(ValueError, match=r"rns_fused_encode_matmul: "
-                       r"illegal block config .* 55808 bytes"):
+                       r"illegal block config .*\(174160 bytes .* not "
+                       r"compiled"):
         ka.check_wrapper_blocks("rns_fused_encode_matmul",
                                 {"bm": 16, "bn": 16}, n_digits=21,
                                 res_bytes=1)
 
 
 def test_checker_models_the_launch_code():
-    """Shared memory as rns_fused.cu / rns_fused_mma.cu / rns_matmul.cu /
+    """Shared memory as rns_fused_mma.cu / rns_matmul.cu /
     flash_attention.cu allocate it, and the register caps ptxas applies
     under __launch_bounds__."""
-    assert ka.smem_bytes("rns_fused_encode_matmul", {"bm": 8, "bn": 16},
-                         9, 1) == 4 * 32 * 8 + 4 * 9 * 32 * 8 + 9 * 32 * 16
+    # the fused encode + matmul stages and quantizes x as the dot does, K
+    # x bn threads, and its stored residues need no parked tile beyond the
+    # dot's
+    for K in (5, 9, 21):
+        blk = {"bm": 32, "bn": 64}
+        assert ka.smem_bytes("rns_fused_encode_matmul", blk, K, 1) == \
+            ka.smem_bytes("rns_fused_dot", blk, K, 1)
+        assert ka.fused_ring("rns_fused_encode_matmul", K, 32, 64) == \
+            ka.fused_ring("rns_fused_dot", K, 32, 64)
+        assert ka.threads("rns_fused_encode_matmul", blk, K) == K * 64
     # rns9 at 16 x 32 takes the deepest ring, 128 deep in 3 stages: b's
     # 9 tiles [128][32 + 16] and x [16][128 + 4] floats a stage, then the
     # 9 u8 tiles [16][128 + 16], quantized x [16][128 + 16] ints, 16 row
@@ -403,7 +417,8 @@ def test_checker_models_the_launch_code():
 
 
 @pytest.mark.parametrize("kind", ["rns_fused_dot",
-                                  "rns_fused_matmul_normalize"])
+                                  "rns_fused_matmul_normalize",
+                                  "rns_fused_encode_matmul"])
 @pytest.mark.parametrize("profile", sorted(PROFILES))
 def test_every_profile_has_a_legal_tensor_core_fused_tile(kind, profile):
     """The tensor-core fused kernels have a legal tile at every profile,
@@ -476,3 +491,18 @@ def test_profiles_table_covers_every_normalize_instantiation():
 
     assert set(ka.REGISTERS["rns_normalize"]) == set(SUPPORTED_K)
     assert {get_profile(p).n_digits for p in PROFILES} <= set(SUPPORTED_K)
+
+
+def test_registers_table_covers_every_convert_instantiation():
+    """rns_convert.cu instantiates every digit count for int8 and int32
+    residues; the checker's model names each, and a digit count without
+    an instantiation has no model (the wrapper refuses it on the card)."""
+    from repro_torch.kernels.rns_convert.ops import SUPPORTED_K
+
+    for out in ("int8", "int32"):
+        assert set(ka.REGISTERS["rns_convert"][out]) == set(SUPPORTED_K)
+    assert ka.registers_per_thread("rns_convert", 9, 1) == \
+        ka.REGISTERS["rns_convert"]["int8"][9]
+    assert ka.registers_per_thread("rns_convert", 10, 1) is None
+    assert any("no instantiation for K=10" in b for b in ka.validate_blocks(
+        "rns_convert", {"bt": 256}, n_digits=10, res_bytes=1))

@@ -664,6 +664,28 @@ def test_gpu_fused_matmul_normalize_capture_grow_replay(cuda):
 
 
 @pytest.mark.gpu
+def test_gpu_encode_matmul_capture_grow_replay(cuda):
+    """B.5 now splits through the same workspace: 18 tiles of 16 x 32 (all
+    9 digits a block) at D = 1536 split 6 ways; then 40 tiles at D = 3072,
+    3 ways, need more slices and counters."""
+    p = get_profile("rns9")
+    rng = np.random.default_rng(7)
+
+    def operands(M, D, N):
+        x = _t((3 * rng.standard_normal((M, D))).astype(np.float32)).to(cuda)
+        s = 127.0 / x.abs().amax(dim=1, keepdim=True)
+        b = _t(np.stack([rng.integers(0, m, (D, N)) for m in p.moduli])
+               .astype(np.int8)).to(cuda)
+        return x, s, b
+
+    _capture_grow_replay(
+        cuda, lambda x, s, b: fused_ops.rns_fused_encode_matmul(p, x, s, b,
+                                                                bits=8),
+        operands(8, 1536, 576), operands(32, 3072, 640),
+        lambda x, s, b: fused_ops.rns_fused_encode_matmul_plain(p, x, s, b,
+                                                                bits=8))
+
+@pytest.mark.gpu
 def test_gpu_matmul_normalize_c1(cuda):
     a = _t(encode_exact("rns5", [[C1_VALUE], [-C1_VALUE]])).to(cuda)
     one = _t(encode_exact("rns5", [[1]]).astype(np.int8)).to(cuda)

@@ -4,8 +4,11 @@ package's Pallas kernels, bit for bit.
 On the CPU a wrapper takes its kernel's plain version; those are held
 against the Pallas kernels in interpret mode (convert, matmul) or their
 ``ref.py`` oracle (normalize: ROADMAP C.1, the interpreted kernel's sum
-is FMA-contracted).  The tests marked ``gpu`` hold each CUDA kernel
-against its plain version on the card and skip without one.
+is FMA-contracted).  ``rns_convert.cu``'s own arithmetic -- 4 elements a
+thread with a masked tail, the scale's runs stepped by a counter, the
+offset multiply-high residues up to 17 bits -- is emulated and held
+against the Pallas kernel too.  The tests marked ``gpu`` hold each CUDA
+kernel against its plain version on the card and skip without one.
 """
 
 import numpy as np
@@ -14,12 +17,14 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels.rns_convert.kernel import rns_convert_tiles
 from repro.kernels.rns_convert.ops import rns_convert as j_convert
 from repro.kernels.rns_convert.ref import rns_convert_ref
 from repro.kernels.rns_matmul.ops import rns_matmul as j_matmul
 from repro.kernels.rns_matmul.ref import rns_matmul_ref
 from repro.kernels.rns_normalize.ref import rns_normalize_ref
 from repro_torch.core.moduli import PROFILES, get_profile
+from repro_torch.core.quantize import quantize_with_scale
 from repro_torch.core.rns import encode_exact
 from repro_torch.kernels import build
 from repro_torch.kernels.rns_convert import ops as convert_ops
@@ -68,6 +73,76 @@ def test_convert_plain_matches_pallas(name, grid):
     ref = rns_convert_ref(jnp.asarray(x), jnp.asarray(s), profile=name,
                           bits=8, out_dtype=jdt)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def emulate_convert(p, x, s_flat, group, bits):
+    """rns_convert.cu on a flat x [T]: threads of 4 elements (the last
+    one's tail masked), the scale once (group >= T) or from the run of
+    the first element (one division) stepped by a counter, quantize, then
+    each digit's residue by the offset multiply-high mod while qmax <=
+    65535, else floor-mod -> [K, T] int64."""
+    T = x.numel()
+    qmax = 2 ** (bits - 1) - 1
+    i0 = torch.arange(0, T, 4)
+    sc = torch.zeros((len(i0), 4))
+    if group >= T:
+        sc[:] = s_flat[0]
+    else:
+        q, r = i0 // group, i0 % group
+        for e in range(4):
+            live = i0 + e < T
+            sc[live, e] = s_flat[q[live]]
+            r = r + 1
+            wrap = r == group
+            r, q = torch.where(wrap, 0, r), torch.where(wrap, q + 1, q)
+    v = quantize_with_scale(x, sc.reshape(-1)[:T], bits).long()
+    out = []
+    for m in p.moduli:
+        if qmax <= 65535:
+            off = v + build.mulhi_offset(m)
+            assert int(off.min()) >= 0
+            out.append(build.mulhi_mod(off, m))
+        else:
+            out.append(torch.remainder(v, m))
+    return torch.stack(out)
+
+
+def _pallas_convert(name, x, s_elem, bits, jdt):
+    """rns_convert_tiles in interpret mode, x and a per-element scale (or
+    a scalar) zero-padded to one whole tile."""
+    T = x.size
+    Tp = -(-T // 128) * 128
+    xp = np.zeros(Tp, np.float32)
+    xp[:T] = x
+    if np.ndim(s_elem):
+        sp = np.ones(Tp, np.float32)
+        sp[:T] = s_elem
+    else:
+        sp = np.float32(s_elem)
+    out = rns_convert_tiles(jnp.asarray(xp), jnp.asarray(sp), profile=name,
+                            bits=bits, bt=Tp, interpret=True, out_dtype=jdt)
+    return np.asarray(out)[:, :T]
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+@pytest.mark.parametrize("group", ["scalar", 7, 3, 1])
+def test_convert_kernel_arithmetic_matches_pallas(name, group):
+    """The kernel's vectorised schedule at T = 1001, 13 (ragged tails)
+    and 4096, scale runs of 7, 3 and 1 elements (per row, shorter than a
+    thread's 4, per element) or a scalar, bits 8 and 16."""
+    p = get_profile(name)
+    jdt = jnp.int8 if p.int8_safe else jnp.int32
+    for T in (1001, 13, 4096):
+        x = _x(T + 11, (T,), 200).reshape(-1)
+        g = T if group == "scalar" else group
+        rng = np.random.default_rng(T)
+        s_flat = (2.0 * rng.integers(1, 4, -(-T // g))).astype(np.float32)
+        s_elem = s_flat[0] if group == "scalar" else \
+            np.repeat(s_flat, g)[:T]
+        for bits in (8, 16):
+            got = emulate_convert(p, _t(x), _t(s_flat), g, bits)
+            want = _pallas_convert(name, x, s_elem, bits, jdt)
+            np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
 @pytest.mark.parametrize("scale_shape", [(), (1,), (3, 1, 1), (3, 4, 1),
@@ -216,3 +291,45 @@ def test_gpu_normalize_c1_and_rns21(cuda):
     want = np.asarray(rns_normalize_ref(jnp.asarray(r.cpu().numpy()),
                                         profile="rns21"))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rns9", "rns21", "rns8_u8", "rns5"])
+def test_gpu_convert_ragged_misaligned_and_wide(cuda, name):
+    """rns_convert on the card against its plain version: T not a
+    multiple of 4, x a view offset by one element (no float4 loads),
+    scalar, per-element and per-row scales, bits 8 and 16, and the
+    main path's weight rows; rns8_u8 with int32 residues."""
+    p = get_profile(name)
+    od = torch.int8 if p.int8_safe else torch.int32
+    base = _t(_x(10, (576 * 1536 + 1,), 30)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shapes = [(7, 143), (13,), (64, 64), (576, 1536), (1536, 576)]
+    for shape in shapes:
+        T = int(np.prod(shape))
+        for off in (0, 1):
+            x = base[off:off + T].reshape(shape)
+            assert (x.data_ptr() % 16 == 0) == (off == 0)
+            scales = [torch.tensor(2.0, device=cuda),
+                      1 + 3 * torch.rand(shape, generator=g, device=cuda)]
+            if len(shape) == 2:
+                scales.append(1 + 3 * torch.rand((shape[0], 1), generator=g,
+                                                 device=cuda))
+            for sc in scales:
+                for bits in (8, 16):
+                    got = convert_ops.rns_convert(p, x, sc, bits=bits,
+                                                  out_dtype=od)
+                    want = convert_ops.rns_convert_plain(p, x, sc, bits=bits,
+                                                         out_dtype=od)
+                    assert torch.equal(got, want), (shape, off, sc.shape,
+                                                    bits)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_convert_refuses_what_it_does_not_index(cuda):
+    from repro_torch.core.moduli import RnsProfile, greedy_coprime_moduli
+
+    p = RnsProfile("custom10", greedy_coprime_moduli(128, 10), 2)
+    with pytest.raises(ValueError, match="K=10"):
+        convert_ops.rns_convert(p, torch.ones(8, device=cuda), 1.0)

@@ -26,15 +26,20 @@ emulated in int64 (checking that no int32 accumulator could overflow)
 and held bit for bit against the Pallas kernel in interpret mode on
 every profile, rns8_u8's int32 residues included, at ragged M, D, N.
 
-``rns_fused_mma.cu`` (the fused dot, B.4, and matmul + normalize, B.6)
-runs the same products with its own ring's K step; the dot's a operand
-is the quantized x itself as signed bytes when it fits one (bits <= 8:
-s8 x u8 products, signed sums reduced by a floor-mod), else residues
-computed from it by a multiply-high mod; the MRC epilogue's mod is a
-multiply-high too.  Those steps are emulated
-and held bit for bit against the JAX package's fused references
-(``rns_fused/ref.py``); the multiply-high mod is checked against
-floor-mod over every operand the epilogue can meet, for every modulus.
+``rns_fused_mma.cu`` (the fused dot, B.4, matmul + normalize, B.6, and
+encode + matmul, B.5) runs the same products with its own ring's K
+step; the dot's and the encode + matmul's a operand is the quantized x
+itself as signed bytes when it fits one (bits <= 8: s8 x u8 products,
+signed sums reduced by a floor-mod, lazily and at the end), else
+residues computed from it by a multiply-high mod; the MRC epilogue's
+mod is a multiply-high too.  Those steps are emulated and held bit for
+bit against the JAX package's fused references (``rns_fused/ref.py``)
+and, for B.5's residues, against the Pallas kernel
+``rns_fused_encode_matmul_tiles`` in interpret mode on every profile,
+at bits 8 and 16, ragged M, D, N and every split the launch may take;
+the multiply-high mods are checked against floor-mod over every operand
+they can meet (the offset form of rns_convert's residues exhaustively
+over 16 and 17 bits), for every modulus.
 
 The tests marked ``gpu`` run the kernels themselves on the card.
 """
@@ -49,6 +54,7 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro.kernels.rns_fused import ref as jfused
+from repro.kernels.rns_fused.kernel import rns_fused_encode_matmul_tiles
 from repro.kernels.rns_matmul.ops import rns_matmul as j_matmul
 from repro_torch.analysis.kernel_audit import fused_ring
 from repro_torch.core.moduli import PROFILES, get_profile
@@ -507,6 +513,135 @@ def test_fused_splits_for_the_main_path(M, D, N, bm, bn, bk, want):
     assert got == 1 or per >= 2
 
 
+# ----------------------------------------- fused encode + matmul (B.5) --
+def emulate_encode_matmul(p, x, s, b, bits, bk, splits=1, lim=None):
+    """rns_encode_residues_kernel's arithmetic (rns_fused_mma.cu with its
+    residue epilogue): x quantized (elementwise, so once for all of x
+    here); at bits <= 8 the quantized values are the s8 a operand of
+    every digit, else each digit's residues by the dot's multiply-high
+    rule; then the ring's ``bk``-deep K steps, the lazy floor-mod and the
+    splits -> [K, M, N] residues."""
+    v = quantize_with_scale(x, s, bits).long()
+    if bits <= 8:
+        a_op = v.expand((p.n_digits,) + tuple(v.shape))
+    else:
+        a_op = emulate_dot_residues(p, v)
+    return emulate_rns_matmul(p, a_op, b, splits, lim=lim, bk=bk,
+                              signed=bits <= 8)
+
+
+def _pallas_encode_matmul(p, x, s, b, bits):
+    """rns_fused_encode_matmul_tiles in interpret mode, on operands
+    zero-padded to whole blocks (one block a digit: zero rows quantize to
+    0, zero columns of x and rows of b add nothing)."""
+    M, D = x.shape
+    N = b.shape[-1]
+    Mp, Dp, Np = -(-M // 8) * 8, -(-D // 128) * 128, -(-N // 128) * 128
+    xp = np.zeros((Mp, Dp), np.float32)
+    xp[:M, :D] = x
+    sp = np.ones((Mp, 1), np.float32)
+    sp[:M] = s
+    bp = np.zeros((p.n_digits, Dp, Np), b.numpy().dtype)
+    bp[:, :D, :N] = b.numpy()
+    out = rns_fused_encode_matmul_tiles(
+        jnp.asarray(np.array(p.moduli, np.int32)), jnp.asarray(xp),
+        jnp.asarray(sp), jnp.asarray(bp), bits=bits, bm=Mp, bn=Np, bk=Dp,
+        interpret=True)
+    return torch.from_numpy(np.array(out)[:, :M, :N])
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+@pytest.mark.parametrize("M,D,N,bm,bn", [(8, 576, 48, 16, 32),
+                                         (13, 1100, 70, 32, 64),
+                                         (37, 130, 37, 16, 64)])
+def test_encode_matmul_arithmetic_matches_pallas(name, M, D, N, bm, bn):
+    """B.5 at bits 8 (s8 operand) and 16 (residues), in the K steps of
+    the tile's ring, at every split the launch can take (1, 2, 3, the
+    rule's and one per K step), and with a reduction forced after every
+    other K step (lim = 2 bk): bit for bit the Pallas kernel's
+    residues."""
+    p, x, s, _, b = _fused_case(name, M, D, N, M + D + N)
+    ring = fused_ring("rns_fused_encode_matmul", p.n_digits, bm, bn)
+    if ring is None or p.n_digits * bn > 1024:
+        bm, bn = 16, 32                   # the tile legal at every profile
+        ring = fused_ring("rns_fused_encode_matmul", p.n_digits, bm, bn)
+    bk = ring[0]
+    ksteps = -(-D // bk)
+    rule = fused.splits_for(M, D, N, bm, bn, bk, 132,
+                            fused.MIN_STEPS["rns_fused_encode_matmul"])
+    for bits in (8, 16):
+        sb = (s * (2 ** (bits - 1) - 1) / 127).astype(np.float32)
+        want = _pallas_encode_matmul(p, x, sb, b, bits)
+        for splits in sorted({1, 2, 3, rule, ksteps}):
+            got = emulate_encode_matmul(p, torch.from_numpy(x),
+                                        torch.from_numpy(sb), b, bits, bk,
+                                        splits)
+            assert torch.equal(got, want), (bits, splits)
+        got = emulate_encode_matmul(p, torch.from_numpy(x),
+                                    torch.from_numpy(sb), b, bits, bk,
+                                    lim=2 * bk)
+        assert torch.equal(got, want), bits
+
+
+@pytest.mark.parametrize("name", ["rns9", "rns8_u8", "rns21"])
+def test_encode_matmul_at_the_clip(name):
+    """Every x at +-qmax and every residue of b at m - 1: the largest
+    signed sums (bits 8) and residue sums (bits 16) the accumulators can
+    meet, against the Pallas kernel, at the rings' K steps."""
+    p = get_profile(name)
+    dt = np.int8 if p.int8_safe else np.int32
+    x = np.where(np.arange(700) % 3 == 0, -1e6, 1e6).astype(np.float32)
+    x = np.stack([x, -x, x[::-1]])
+    b = torch.from_numpy(np.stack([np.full((700, 9), m - 1) for m in
+                                   p.moduli]).astype(dt))
+    s = np.ones((3, 1), np.float32)
+    for bits in (8, 16):
+        want = _pallas_encode_matmul(p, x, s, b, bits)
+        for bk, splits in ((128, 1), (64, 6), (32, 11)):
+            assert torch.equal(emulate_encode_matmul(
+                p, torch.from_numpy(x), torch.from_numpy(s), b, bits, bk,
+                splits), want)
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_quant_residue_equals_floor_mod_at_16_bits(name):
+    """quant_residue<true> (rns_tables.cuh, rns_convert's residues),
+    exhaustively over the values a 16-bit quantize gives: mulhi_mod(v +
+    moff, m) == v mod m for every v in [-32767, 32767] and every
+    modulus, the offset sum inside mulhi_mod's domain -- and up to 17
+    bits, the kernels' NARROW bound."""
+    p = get_profile(name)
+    t = build.rns_tables_c(p)
+    for qmax in (32767, 65535):
+        v = torch.arange(-qmax, qmax + 1, dtype=torch.int64)
+        for j, m in enumerate(p.moduli):
+            assert t.moff[j] == build.mulhi_offset(m)
+            assert int((v + t.moff[j]).min()) >= 0
+            got = _mulhi_mod(v + t.moff[j], m)
+            assert torch.equal(got, torch.remainder(v, m)), (m, qmax)
+        assert torch.equal(emulate_dot_residues(p, v),
+                           torch.stack([torch.remainder(v, m)
+                                        for m in p.moduli]))
+
+
+@pytest.mark.parametrize("M,D,N,bm,bn,want", [
+    (8, 576, 1536, 16, 32, 2),           # B.5 decode: 48 tiles, 5 steps
+    (8, 576, 1536, 16, 64, 5),           # 24 tiles, 9 steps of 64
+    (144, 576, 1536, 32, 64, 1),         # prefill: 120 tiles
+    (13, 1100, 70, 16, 32, 5),           # [kernels]' split-forcing case
+])
+def test_encode_splits_follow_the_fused_dot(M, D, N, bm, bn, want):
+    """B.5 takes the dot's ring and split rule (all digits a block), its
+    splits down to one K step each."""
+    bk = fused_ring("rns_fused_encode_matmul", 9, bm, bn)[0]
+    assert bk == fused_ring("rns_fused_dot", 9, bm, bn)[0]
+    got = fused.splits_for(M, D, N, bm, bn, bk, 132,
+                           fused.MIN_STEPS["rns_fused_encode_matmul"])
+    assert got == want
+    per = -(-(-(-D // bk)) // got)
+    assert (got - 1) * per < -(-D // bk) <= got * per   # no empty split
+
+
 # ---------------------------------------------------------- on the card --
 @pytest.fixture
 def cuda():
@@ -532,6 +667,35 @@ def test_gpu_rns_matmul_every_tile_and_split(cuda, name, monkeypatch):
                                     lambda *_, s=splits: s)
                 got = mm.rns_matmul(p, a, b, **tile)
                 assert torch.equal(got, want), (M, D, N, tile, splits)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rns9", "rns5", "rns21", "rns8_u8"])
+def test_gpu_encode_matmul_every_tile_and_split(cuda, name, monkeypatch):
+    """B.5 on the card at every legal tile with its split forced to 1, 2
+    and 5 ways, at bits 8 and 16, on the main path's shapes and ragged
+    ones, against the plain version."""
+    p = get_profile(name)
+    for M, D, N in ((8, 576, 1536), (144, 576, 1536), (13, 1100, 70),
+                    (37, 130, 37)):
+        _, x, s, _, b = _fused_case(name, M, D, N, M + D)
+        x, s, b = torch.from_numpy(x).to(cuda), torch.from_numpy(s).to(cuda), \
+            b.to(cuda)
+        for bits in (8, 16):
+            sb = s * ((2 ** (bits - 1) - 1) / 127)
+            want = fused.rns_fused_encode_matmul_plain(p, x, sb, b,
+                                                       bits=bits)
+            legal, _ = autotune.legal_candidates(
+                "rns_fused_encode_matmul", name, (M, D, N))
+            for tile in legal:
+                for splits in (1, 2, 5):
+                    monkeypatch.setattr(fused, "splits_for",
+                                        lambda *_, n=splits: n)
+                    got = fused.rns_fused_encode_matmul(p, x, sb, b,
+                                                        bits=bits, **tile)
+                    assert torch.equal(got, want), (M, D, N, bits, tile,
+                                                    splits)
     torch.cuda.synchronize()
 
 
