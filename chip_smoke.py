@@ -14,7 +14,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 instructions in the SASS (``cuobjdump -sass``): IMMA in
                 rns_matmul and rns_fused_mma (the fused dot, matmul +
                 normalize and, counted on its own too, encode + matmul),
-                HMMA in flash_attention, none may be 0;
+                HMMA in flash_attention, none may be 0; and MUFU.RCP
+                (a division's reciprocal) in rns_normalize, which must
+                be 0;
   [serve]       full-width smollm-135m with the rns9 MLP datapath through
                 ContinuousEngine.run on mixed-length requests (after one
                 short warm-up request): the per-op path, weights
@@ -47,7 +49,10 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 on the inputs both serves gave them (every distinct
                 shape), at every candidate tiling on one main-path input
                 each, and on boundary cases of every profile (rns8_u8's
-                int32 residues included; rns_matmul, the fused dot and
+                int32 residues included; rns_normalize on the edge
+                values 0, 1, M/2 - 1, M/2, M/2 + 1, M - 1, T % 4 != 0
+                (planes off a 16-byte boundary) and a view one int32
+                off one; rns_matmul, the fused dot and
                 the fused matmul + normalize (int8 and int32 a) at every
                 candidate tile with their K steps split among blocks;
                 the fused encode + matmul also on both main-path inputs
@@ -242,10 +247,27 @@ def _register_model(entry: str):
     return None
 
 
+def _sass_counts(lib: Path, op: str):
+    """({compiled function: count of ``op`` lines}, cuobjdump's process)
+    from ``cuobjdump -sass`` of one library; every function is a key."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    by_fn, fn = {}, ""
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            by_fn.setdefault(fn, 0)
+        elif op in line:
+            by_fn[fn] = by_fn.get(fn, 0) + 1
+    return by_fn, sass
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.rns_normalize import ops as n_ops
 
     sources = {m.SOURCE.stem: m.SOURCE for m in _kernel_mods().values()}
 
@@ -279,17 +301,9 @@ def phase_build():
     if over:
         raise AssertionError("instantiations over the tile checker's "
                              "register model:\n" + "\n".join(over))
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name, op in SASS_MMA.items():
         lib = build.library_path(name, sources[name])
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True, timeout=300)
-        by_fn, fn = {}, ""      # instruction count per compiled function
-        for line in sass.stdout.splitlines():
-            if "Function :" in line:
-                fn = line.split("Function :")[1].strip()
-            elif op in line:
-                by_fn[fn] = by_fn.get(fn, 0) + 1
+        by_fn, sass = _sass_counts(lib, op)
         counts = {name: sum(by_fn.values())}
         if name == "rns_fused_mma":     # B.5's instantiations on their own
             counts["rns_encode_residues_kernel"] = sum(
@@ -302,6 +316,18 @@ def phase_build():
                 raise AssertionError(
                     f"{what}: no {op} instruction in its SASS (cuobjdump rc "
                     f"{sass.returncode}: {sass.stderr.strip()[:200]})")
+    # B.3's MRC reduces by multiply-high mods: no division, whose
+    # reciprocal (MUFU.RCP) would show in the SASS
+    lib = build.library_path("rns_normalize", sources["rns_normalize"])
+    by_fn, sass = _sass_counts(lib, "MUFU.RCP")
+    n = sum(by_fn.values())
+    print(f"  rns_normalize: {n} MUFU.RCP instructions in the SASS of "
+          f"{len(by_fn)} functions (cuobjdump -sass {lib.name})")
+    if sass.returncode or len(by_fn) < len(n_ops.SUPPORTED_K) or n:
+        raise AssertionError(
+            f"rns_normalize: {n} MUFU.RCP in {len(by_fn)} functions, want 0 "
+            f"in at least {len(n_ops.SUPPORTED_K)} (cuobjdump rc "
+            f"{sass.returncode}: {sass.stderr.strip()[:200]})")
 
 
 def _kernel_mods():
@@ -761,6 +787,31 @@ def phase_kernels(torch, dev, record, calls, launches):
         case("rns_normalize", f"{name} uniform [K,4096]",
              lambda: n_ops.rns_normalize(p, r),
              lambda: n_ops.rns_normalize_plain(p, r), timed=False)
+        # B.3's edge values (0, 1, M/2 - 1, M/2, M/2 + 1, M - 1) at both
+        # ends, T % 4 == 1, 2, 3 (a partial last block; planes off a
+        # 16-byte boundary) and a contiguous view one int32 past one;
+        # every candidate bt on the ragged, misaligned one
+        edge = torch.as_tensor(encode_exact(name, [
+            0, 1, p.M // 2 - 1, p.M // 2, p.M // 2 + 1, p.M - 1]),
+            device=dev)
+        for T in (4096, 4097, 4098, 4099):
+            for off in (0, 1):
+                buf = torch.zeros(p.n_digits * T + 1, dtype=torch.int32,
+                                  device=dev)
+                rr = buf[off:off + p.n_digits * T].view(p.n_digits, T)
+                rr.copy_(_residues(torch, p, (T,), g, dev))
+                rr[:, :6], rr[:, T - 6:] = edge, edge
+                tiles = autotune.legal_candidates(
+                    "rns_normalize", p, (T,))[0] if (T, off) == (4099, 1) \
+                    else [{}]
+                for cand in tiles:
+                    case("rns_normalize",
+                         f"{name} edges [K,{T}] +{off} int32"
+                         + (f" tile {_blk(cand)}" if cand else ""),
+                         lambda rr=rr, c=cand: n_ops.rns_normalize(p, rr,
+                                                                   **c),
+                         lambda rr=rr: n_ops.rns_normalize_plain(p, rr),
+                         timed=False)
         # the fused kernels at ragged M, D, N, row scales, both a dtypes
         x = torch.randn((13, 130), generator=g, device=dev)
         s = 127.0 / x.abs().amax(dim=1, keepdim=True)

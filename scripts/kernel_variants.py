@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Design sweeps of the tensor-core kernels, on one card.
+"""Design sweeps of the port's kernels, on one card.
 
     python3 scripts/kernel_variants.py [--out FILE] STUDY...
 
 Each STUDY (see ``STUDIES``) names variants of one kernel source: copies
 of ``rns_matmul.cu``, ``rns_fused_mma.cu``, ``rns_convert.cu``,
-``flash_attention.cu`` or the design candidate
-``variants/rns_encode_one_digit.cu`` edited by regular-expression
-substitutions, built with the port's nvcc flags into ``build/variants/``
-(all in parallel).  Each variant's library is bound in place of the
+``flash_attention.cu``, ``rns_normalize.cu`` or the design candidates
+``variants/rns_encode_one_digit.cu``,
+``variants/rns_normalize_two_pass.cu`` and
+``variants/rns_normalize_elems.cu`` edited by regular-expression
+substitutions (a variant may name its own source), built with the
+port's nvcc flags into ``build/variants/`` (all in parallel).  Each
+variant's library is bound in place of the
 kernel's own, and the real wrapper is timed through it (the candidate,
 which has no wrapper, through :func:`_one_digit_encode`; device time
 per call from CUDA-graph replays, ``autotune.device_seconds``) on the
@@ -16,10 +19,12 @@ main path's shapes: smollm-135m rns9's four RNS matmuls (decode 8 rows,
 prefill 144 rows; d_model 576, d_ff 1536), its fused dot (wg: x [rows,
 576] with row scales), fused encode + matmul (wi, the same inputs) and
 fused matmul + normalize (wo: int32 residues [9, rows, 1536]), its
-convert rows, and its
-attention at 2048 tokens (9 query heads, 3 KV heads of 64), inputs made
-from seed 0, every output checked against the plain version.  Variants
-that drop work are timing probes only: their outputs are marked wrong.
+convert rows, its normalize rows (the per-op path's int32 residues
+[9, 8, 1, 1536], [9, 8, 1, 576], [9, 1, 144, 1536], [9, 1, 144, 576]),
+and its attention at 2048 tokens (9 query heads, 3 KV heads of 64),
+inputs made from seed 0, every output checked against the plain
+version.  Variants that drop work are timing probes only: their outputs
+are marked wrong.
 One JSON object per study and variant is printed (and appended to
 FILE), each with the card's name and power limit.
 
@@ -71,7 +76,16 @@ Studies:
   walks forced to 1, 2 and 4 at every tile;
 * ``convert_quads``: rns_convert with 1, 2 or 4 runs of 4 elements a
   thread, at every candidate block size, on the per-op path's weight
-  rows and activation rows.
+  rows and activation rows;
+* ``normalize_design``: rns_normalize (B.3) at bt 128, 256 and 512 on
+  the per-op path's four rows -- the two-pass kernel with floor-mods
+  (``variants/rns_normalize_two_pass.cu``, the design before the one
+  pass), with offset multiply-high mods (``mulhi_mod``), and in one pass
+  with those; the shipped one-pass kernel (direct-remainder terms,
+  ``mrc_term``, one element a thread), the same at 2 and 4 elements a
+  thread with vector loads (``variants/rns_normalize_elems.cu``), and
+  with 32-bit in place of 64-bit indices; and a timing probe that only loads the
+  residues and stores a float (their XOR): the memory floor.
 
 The fused studies build rns9's digit count only (K = 9), which keeps
 their builds short.
@@ -129,6 +143,9 @@ STUDIES = {
 _K9 = [(r"RNS_FUSED_MMA_CASE\((?:5|6|7|8|12|16|18|21)\)", "")]
 # the one-digit fused encode + matmul, a design candidate
 ONE_DIGIT_SOURCE = ROOT / "scripts" / "variants" / "rns_encode_one_digit.cu"
+# the two-pass MRC normalize, the design the one-pass kernel replaced
+TWO_PASS_SOURCE = ROOT / "scripts" / "variants" / "rns_normalize_two_pass.cu"
+ELEMS_SOURCE = ROOT / "scripts" / "variants" / "rns_normalize_elems.cu"
 _ONE: list = []
 # probes: a copy left out (the ring keeps what was there before)
 _NOLOAD_B = (r"(      if \(b_vec\)\n)        stage_async<BT, BK, BN, NT, K>"
@@ -147,6 +164,9 @@ _SKIP_A_ROWS = (
     "  cp_async16(sa + j * ADIG + r * IST * 4 + 4 * (gk - k0) * 1,\n"
     "             gk < D ? (const void*)(a + ((long long)j * M + row0 + r) * D"
     " + gk) : (const void*)a, gk < D ? 16 : 0);\n}")
+
+
+_MULHI = (r"constexpr bool MULHI = false;", "constexpr bool MULHI = true;")
 
 
 def _ring(bk, stages):
@@ -191,11 +211,31 @@ STUDIES.update({
         "no a loads": _K9 + _NOLOAD_A,
         "no loads": _K9 + [_NOLOAD_B] + _NOLOAD_A,
         "a rows past M not copied": _K9 + [_SKIP_A_ROWS]}, [None]),
+    "normalize_design": ("rns_normalize", {
+        "two passes, floor-mod": ("normalize_two_pass", []),
+        "two passes, multiply-high": ("normalize_two_pass", [_MULHI]),
+        "one pass, offset multiply-high": ("normalize_two_pass", [
+            _MULHI,
+            (r"constexpr int PASSES = 2;", "constexpr int PASSES = 1;")]),
+        "one pass, 1 element a thread": [],
+        **{f"one pass, {e} elements a thread": ("normalize_elems", [
+            (r"constexpr int ELEMS = \d;", f"constexpr int ELEMS = {e};")])
+           for e in (2, 4)},
+        "one pass, 32-bit indices": [
+            (r"const int32_t\* __restrict__ res,\n(\s*)long long T,",
+             r"const int32_t* __restrict__ res,\n\1int T,"),
+            (r"const long long i = \(long long\)blockIdx",
+             "const int i = (int)blockIdx"),
+            (r"res\[\(long long\)j \* T \+ i\]", "res[j * T + i]")],
+        "loads and stores only (timing probe)": [
+            (r"mrc_decode_float<K>\(r, t\)",
+             "[&] { int x = 0; for (int j = 0; j < K; ++j) x ^= r[j]; "
+             "return (float)x; }()")]}, [None]),
     "fused_parts": ("rns_fused_mma", {
         "as built": _K9,
         "no MRC epilogue": _K9 + [
             (r"\(\(float\*\)out\)\[\(long long\)gm \* N \+ gc\] = "
-             r"mrc_decode_float<K, true>\(res,\n\s*t\);",
+             r"mrc_decode_float<K>\(res, t\);",
              "((float*)out)[(long long)gm * N + gc] = (float)res[0] + "
              "res[K - 1];")],
         "no MMAs": _K9 + [
@@ -216,6 +256,9 @@ MATMUL_SHAPES = [(8, 576, 1536), (8, 1536, 576), (144, 576, 1536),
                  (144, 1536, 576)]
 #: (rows, D, N) of the fused encode + matmul's main-path calls (wi)
 ENCODE_SHAPES = [(8, 576, 1536), (144, 576, 1536)]
+#: rns_normalize's main-path calls (the per-op path's int32 residues)
+NORMALIZE_SHAPES = [(9, 8, 1, 1536), (9, 8, 1, 576), (9, 1, 144, 1536),
+                    (9, 1, 144, 576)]
 #: rns_convert's main-path calls: the per-op weight rows (a scalar
 #: scale) and activation rows (one scale a row)
 CONVERT_SHAPES = [((576, 1536), False), ((1536, 576), False),
@@ -225,13 +268,18 @@ FLASH_CASES = [("bfloat16", True), ("bfloat16", False), ("float32", True),
 FLASH_TILES = [(64, 64), (128, 64), (128, 128), (64, 32)]
 
 
+def variant_source(study, subs):
+    """(source key, substitutions) of one variant of ``study``: its own
+    when it names one as a (key, subs) pair, else the study's."""
+    return subs if isinstance(subs, tuple) else (STUDIES[study][0], subs)
+
+
 def _build(name, source, subs, nvcc, flags, include):
     text = source.read_text()
     for pat, rep in subs:
-        new = re.sub(pat, rep, text)
-        if new == text:
+        text, n = re.subn(pat, rep, text)
+        if not n:
             raise ValueError(f"{name}: pattern {pat!r} matches nothing")
-        text = new
     out = ROOT / "build" / "variants"
     out.mkdir(parents=True, exist_ok=True)
     stem = re.sub(r"\W+", "_", name)
@@ -334,6 +382,7 @@ def main() -> int:
     from repro_torch.kernels.rns_convert import ops as co
     from repro_torch.kernels.rns_fused import ops as fo
     from repro_torch.kernels.rns_matmul import ops as mm
+    from repro_torch.kernels.rns_normalize import ops as no
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -343,11 +392,16 @@ def main() -> int:
             "rns_fused_mma": (fo, fo.SOURCE, "rns_fused_mma", fo._bind),
             "flash_attention": (fa, fa.SOURCE, "flash_attention", fa._bind),
             "rns_convert": (co, co.SOURCE, "rns_convert", co._bind),
+            "rns_normalize": (no, no.SOURCE, "rns_normalize", no._bind),
+            "normalize_two_pass": (no, TWO_PASS_SOURCE, "rns_normalize",
+                                   no._bind),
+            "normalize_elems": (no, ELEMS_SOURCE, "rns_normalize", no._bind),
             "one_digit": (mm, ONE_DIGIT_SOURCE, "one_digit",
                           lambda lib: None)}
-    jobs = [(study, name, mods[STUDIES[study][0]], subs)
+    jobs = [(study, name, mods[key], subs)
             for study in args.studies
-            for name, subs in STUDIES[study][1].items()]
+            for name, v in STUDIES[study][1].items()
+            for key, subs in [variant_source(study, v)]]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda j: _build(
@@ -368,6 +422,7 @@ def main() -> int:
                             for m in p.moduli]).to(torch.int8)
 
     mm_in = {s: (res(s[:2]), res(s[1:])) for s in MATMUL_SHAPES}
+    no_in = {s: res(s[1:]).to(torch.int32) for s in NORMALIZE_SHAPES}
     fa_in = {dt: tuple(torch.randn(s, generator=g, device=dev).to(
         getattr(torch, dt)) for s in ((1, 2048, 9, 64), (1, 2048, 3, 64),
                                       (1, 2048, 3, 64)))
@@ -447,6 +502,14 @@ def main() -> int:
                         return co.rns_convert(p, x, sc, bits=8, bt=bt)
                     rows[f"{shape} bt{bt}"] = [us(run),
                                                torch.equal(run(), want)]
+        elif mod is no:             # a probe's outputs are wrong
+            for shape, r in no_in.items():
+                want = no.rns_normalize_plain(p, r)
+                for bt in (128, 256, 512):
+                    def run(r=r, bt=bt):
+                        return no.rns_normalize(p, r, bt=bt)
+                    rows[f"{list(shape)} bt{bt}"] = [
+                        us(run), torch.equal(run(), want)]
         elif mod is fo:
             for (kind, M, D, N), (call, kw) in fu_in.items():
                 wrapper = getattr(fo, kind)

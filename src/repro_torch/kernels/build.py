@@ -22,8 +22,9 @@ import numpy as np
 
 from repro_torch.core.rns import tables
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "RNS_MAX_K", "RnsTablesC",
-           "rns_tables_c", "mulhi_magic", "mulhi_offset", "mulhi_mod",
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "RNS_MAX_K", "RNS_PAIRS", "rns_pair",
+           "RnsTablesC", "rns_tables_c", "mulhi_magic", "mulhi_offset",
+           "mulhi_mod", "mrc_c", "mrc_offset",
            "library_path", "load", "build_all", "check"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -33,21 +34,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 RNS_MAX_K = 21      # widest profile (rns21); matches csrc/rns_tables.cuh
+RNS_PAIRS = RNS_MAX_K * (RNS_MAX_K - 1) // 2
+
+
+def rns_pair(i: int, j: int) -> int:
+    """Index of the MRC pair i < j in the packed ``mrc_c`` table
+    (``RNS_PAIR`` of csrc/rns_tables.cuh)."""
+    return i * (2 * RNS_MAX_K - i - 1) // 2 + j - i - 1
 
 
 class RnsTablesC(ctypes.Structure):
     """Mirror of ``struct RnsTables`` (csrc/rns_tables.cuh), passed to the
-    kernels by value: moduli, MRC digits of M//2, float32 weights W_j, the
-    MRC inverses (row stride ``RNS_MAX_K``), and each modulus's
-    :func:`mulhi_magic` and :func:`mulhi_offset`."""
+    kernels by value: moduli, MRC digits of M//2, float32 weights W_j,
+    each modulus's :func:`mulhi_magic` and :func:`mulhi_offset`, the MRC
+    terms' :func:`mrc_c` (which hold the inverses m_i^-1 mod m_j; pairs
+    i < j at :func:`rns_pair`) and :func:`mrc_offset`."""
 
     _fields_ = [("K", ctypes.c_int),
                 ("moduli", ctypes.c_int * RNS_MAX_K),
                 ("half", ctypes.c_int * RNS_MAX_K),
                 ("w", ctypes.c_float * RNS_MAX_K),
-                ("inv", ctypes.c_int * (RNS_MAX_K * RNS_MAX_K)),
                 ("magic", ctypes.c_uint * RNS_MAX_K),
-                ("moff", ctypes.c_int * RNS_MAX_K)]
+                ("moff", ctypes.c_int * RNS_MAX_K),
+                ("mrc_c", ctypes.c_uint * RNS_PAIRS),
+                ("roff", ctypes.c_int * RNS_MAX_K)]
 
 
 def mulhi_magic(m: int) -> int:
@@ -57,8 +67,9 @@ def mulhi_magic(m: int) -> int:
 
 
 def mulhi_offset(m: int) -> int:
-    """``m * ceil(2**16 / m)``: a multiple of m that makes every MRC term
-    ``(r_j - d_i) * inv`` (within +-65536 for m <= 256) non-negative."""
+    """``m * ceil(2**16 / m)``: a multiple of m that makes a quantized
+    value (|v| <= 65535) non-negative for ``mulhi_mod``
+    (``quant_residue``)."""
     return m * -(-2 ** 16 // m)
 
 
@@ -70,6 +81,19 @@ def mulhi_mod(x, m: int):
     return r - m * (r >= m)
 
 
+def mrc_c(m: int, inv: int) -> int:
+    """``ceil(2**32 / m) * inv mod 2**32``: the multiply-low constant of
+    the MRC term ``(r_j - r_i) * inv mod m`` (``mrc_term``,
+    csrc/rns_mrc.cuh)."""
+    return -(-2 ** 32 // m) * inv % 2 ** 32
+
+
+def mrc_offset(m: int) -> int:
+    """``m * ceil(256 / m)``: a multiple of m that makes ``r_j - r_i``
+    non-negative for residues below 256."""
+    return m * -(-256 // m)
+
+
 @functools.lru_cache(maxsize=None)
 def rns_tables_c(profile) -> RnsTablesC:
     """The profile's tables laid out as ``RnsTablesC``.  The float32
@@ -79,20 +103,25 @@ def rns_tables_c(profile) -> RnsTablesC:
     K = t.profile.n_digits
     if K > RNS_MAX_K:
         raise ValueError(f"profile {t.profile.name}: K={K} > {RNS_MAX_K}")
-    buf = np.zeros(1 + 5 * RNS_MAX_K + RNS_MAX_K * RNS_MAX_K, np.int32)
+    buf = np.zeros(1 + 6 * RNS_MAX_K + RNS_PAIRS, np.int32)
     buf[0] = K
     buf[1:1 + K] = t.moduli
     buf[1 + RNS_MAX_K:1 + RNS_MAX_K + K] = t.half_digits
     o = 1 + 2 * RNS_MAX_K
     buf[o:o + K] = t.W_f32.view(np.int32)
-    inv = np.zeros((RNS_MAX_K, RNS_MAX_K), np.int32)
-    inv[:K, :K] = t.mrc_inv
-    o = 1 + 3 * RNS_MAX_K + RNS_MAX_K * RNS_MAX_K
-    buf[1 + 3 * RNS_MAX_K:o] = inv.reshape(-1)
+    o += RNS_MAX_K
     ms = [int(m) for m in t.moduli]
     buf[o:o + K] = np.array([mulhi_magic(m) for m in ms],
                             np.uint32).view(np.int32)
     buf[o + RNS_MAX_K:o + RNS_MAX_K + K] = [mulhi_offset(m) for m in ms]
+    o += 2 * RNS_MAX_K
+    c = np.zeros(RNS_PAIRS, np.uint32)
+    for i in range(K):
+        for j in range(i + 1, K):
+            c[rns_pair(i, j)] = mrc_c(ms[j], int(t.mrc_inv[i][j]))
+    buf[o:o + RNS_PAIRS] = c.view(np.int32)
+    o += RNS_PAIRS
+    buf[o:o + K] = [mrc_offset(m) for m in ms]
     return RnsTablesC.from_buffer_copy(buf.tobytes())
 
 

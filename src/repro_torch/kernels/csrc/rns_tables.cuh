@@ -1,20 +1,25 @@
-// Constant tables of one RNS profile, passed to a kernel BY VALUE (about
-// 2 KB of kernel parameters), so no fixed pool of __constant__ slots caps
+// Constant tables of one RNS profile, passed to a kernel BY VALUE (1348
+// bytes of kernel parameters), so no fixed pool of __constant__ slots caps
 // how many profiles one process can use.  Mirrors RnsTablesC in
 // kernels/build.py.
 #pragma once
 
 #define RNS_MAX_K 21
+// the MRC's pairs i < j, packed row by row: (i, j) -> RNS_PAIR(i, j)
+#define RNS_PAIRS (RNS_MAX_K * (RNS_MAX_K - 1) / 2)
+#define RNS_PAIR(i, j) ((i) * (2 * RNS_MAX_K - (i) - 1) / 2 + (j) - (i) - 1)
 
 struct RnsTables {
   int K;
   int moduli[RNS_MAX_K];
   int half[RNS_MAX_K];              // MRC digits of M/2 (sign threshold)
   float w[RNS_MAX_K];               // float32(W_j), W_j = prod_{i<j} m_i
-  int inv[RNS_MAX_K * RNS_MAX_K];   // inv[i*RNS_MAX_K+j] = m_i^-1 mod m_j
   unsigned magic[RNS_MAX_K];        // floor((2^32 - 1) / m_j), mulhi_mod
   int moff[RNS_MAX_K];              // m_j * ceil(2^16 / m_j) >= 65536,
-                                    // for quant_residue and the MRC
+                                    // for quant_residue
+  unsigned mrc_c[RNS_PAIRS];        // ceil(2^32 / m_j) * inv_ij mod 2^32,
+                                    // at RNS_PAIR(i, j): mrc_term
+  int roff[RNS_MAX_K];              // m_j * ceil(256 / m_j) >= 256
 };
 
 // floor-mod for m > 0 (C's % truncates toward zero)

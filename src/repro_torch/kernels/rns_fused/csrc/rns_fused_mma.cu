@@ -41,10 +41,10 @@
 //   graph-safe, as in rns_matmul.cu.
 // * Epilogue: the tile's K x BM x BN residues are parked in shared memory
 //   (aliasing the ring) and all K * BN threads run the MRC of
-//   csrc/rns_mrc.cuh, one output element each, with its multiply-high mod
-//   (MULHI): the same bits as core/mrc.decode_float.  The encode + matmul
-//   (RES) stores each warp's residues from its registers instead, 16
-//   bytes at a time.
+//   csrc/rns_mrc.cuh (one pass of multiply-high mods, as rns_normalize.cu),
+//   one output element each: the same bits as core/mrc.decode_float.  The
+//   encode + matmul (RES) stores each warp's residues from its registers
+//   instead, 16 bytes at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -409,8 +409,7 @@ __device__ __forceinline__ void fused_tile(
     int res[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) res[j] = Rs[(j * BM + r) * BN + c];
-    ((float*)out)[(long long)gm * N + gc] = mrc_decode_float<K, true>(res,
-                                                                     t);
+    ((float*)out)[(long long)gm * N + gc] = mrc_decode_float<K>(res, t);
   }
 }
 

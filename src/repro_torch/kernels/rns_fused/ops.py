@@ -32,8 +32,8 @@ steps among several blocks of the one launch, combining their residues
 through the per-stream workspace of ``kernels/workspace.py`` (the last
 block of a tile, elected by an atomic counter, adds the slices).  The
 epilogue parks the tile's residues in shared memory and every thread of
-the block runs the MRC of ``csrc/rns_mrc.cuh`` on its elements, with an
-exact multiply-high mod: the bits of ``rns_normalize``.
+the block runs the MRC of ``csrc/rns_mrc.cuh`` on its elements (one
+pass of exact multiply-high mods): the bits of ``rns_normalize``.
 
 The encode + matmul (B.5) runs the same kernel body
 (``rns_encode_residues_kernel``): the dot's x tile quantized once a step

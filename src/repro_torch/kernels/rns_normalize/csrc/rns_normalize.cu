@@ -1,9 +1,19 @@
-// MRC normalization: [K, T] int32 residues -> [T] float32 signed values,
-// one thread per element, the K digits in registers; the per-element
-// steps live in csrc/rns_mrc.cuh (shared with the fused kernels).
+// MRC normalization: [K, T] int32 residues -> [T] float32 signed values.
 // Replaces the Pallas kernel
 // src/repro/kernels/rns_normalize/kernel.py:rns_normalize_tiles; see
 // kernels/rns_normalize/ops.py for its bound and design.
+//
+// * Input contract: every residue res[j, i] lies in [0, m_j), as every
+//   producer in the port leaves it (core/rns.py's floor-mods, rns_matmul's
+//   reduced sums).
+// * One element a thread, its K digits in registers: a block's threads
+//   take consecutive elements, so each of a warp's K plane loads
+//   coalesces.  The MRC is a long dependent chain, and 2 or 4 elements a
+//   thread leave too few warps to hide it (scripts/kernel_variants.py
+//   normalize_design, scripts/variants/rns_normalize_elems.cu).
+// * Each element: one MRC pass of multiply-high terms, the sign, and the
+//   magnitude's digits from the same pass (csrc/rns_mrc.cuh, shared with
+//   the fused kernels' epilogue): no division on the path.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,7 +24,7 @@ __global__ void rns_normalize_kernel(const int32_t* __restrict__ res,
                                      long long T,
                                      const __grid_constant__ RnsTables t,
                                      float* __restrict__ out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= T) return;
   int r[K];
 #pragma unroll
@@ -30,8 +40,8 @@ static void launch(const int32_t* res, long long T, const RnsTables& t,
 }
 
 // res [K, T] int32, out [T] float32.  K must be a profile's digit count;
-// `threads` per block is the tile bt (registers cap it for wide K:
-// analysis/kernel_audit.py).
+// `threads` per block is the tile bt (every candidate fits every K:
+// analysis/kernel_audit.py REGISTERS).
 extern "C" int rns_normalize(const void* res, long long T, const RnsTables* t,
                              void* out, int threads, void* stream) {
   const int32_t* r = (const int32_t*)res;

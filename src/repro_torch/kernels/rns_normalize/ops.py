@@ -4,19 +4,35 @@ Replaces ``src/repro/kernels/rns_normalize/kernel.py:rns_normalize_tiles``
 (the Pallas TPU kernel, ``pl.pallas_call`` at ``kernel.py:97``).
 
 Bound on an H100: bytes.  Each element reads K int32 residues and
-writes one float32 (40 bytes for rns9) against two K-step MRC passes
-(~K**2 integer ops) and 2K float32 ops.  Design: one thread per
-element, all K digits in registers (K is a template parameter so the
-digit loops unroll), the float sum written with ``__fmul_rn`` /
-``__fadd_rn`` so that nvcc cannot contract it into FMAs: this is what
-holds the kernel bit for bit to ``core/mrc.decode_float`` (ROADMAP
-C.1).  Wide profiles whose W_j overflow float32 (rns21) get the same
-inf/NaN the float32 reference gives.  Tables travel by value as a
-kernel argument (``build.RnsTablesC``), so any number of profiles can
-be in use at once.  Threads per block (the tile ``bt``) are a launch
+writes one float32 (40 bytes for rns9) against one K-step MRC pass
+(K(K-1)/2 terms) and 2K float32 ops, but a floor-mod by a runtime
+modulus (C's ``%``) costs about 20 instructions, so an MRC of them is
+instruction-bound.  The design has no division and one pass:
+
+* every MRC term ``(r_j - d_i) * inv_ij mod m_j`` by a direct
+  remainder: an add of the offset ``roff_j``, a multiply-low by the
+  table's ``mrc_c`` (which holds ``inv_ij``) and a multiply-high by
+  ``m_j`` (``mrc_term``, ``csrc/rns_mrc.cuh``): the same integers;
+* one MRC pass an element: a negative value's magnitude M - X has the
+  digits ``m_j - 1 - d_j`` plus one carried digit-ascending, the digits
+  a second MRC of ``(m_j - r_j) mod m_j`` would give
+  (``csrc/rns_mrc.cuh``, the fused kernels' epilogue too);
+* one element a thread, all K digits in registers (K a template
+  parameter), each digit plane's load coalesced across a warp; 2 or 4
+  elements a thread with vector loads measured slower (fewer warps to
+  hide the MRC's latency: ``scripts/kernel_variants.py
+  normalize_design``);
+* the float sum written with ``__fmul_rn`` / ``__fadd_rn`` so that nvcc
+  cannot contract it into FMAs: this is what holds the kernel bit for
+  bit to ``core/mrc.decode_float`` (ROADMAP C.1).
+
+Wide profiles whose W_j overflow float32 (rns21) get the same inf/NaN
+the float32 reference gives.  Tables travel by value as a kernel
+argument (``build.RnsTablesC``), so any number of profiles can be in
+use at once.  Threads per block (the tile ``bt``) are a launch
 parameter, chosen per shape bucket through ``kernels/autotune.py``;
-registers cap them for the wide profiles (rns21's 255 registers a
-thread allow 256 threads a block).
+at 32 registers a thread or fewer (``REGISTERS`` in
+``analysis/kernel_audit.py``) every candidate fits every profile.
 """
 
 from __future__ import annotations
@@ -57,6 +73,9 @@ def rns_normalize(profile, res: torch.Tensor, *,
                   bt: int | None = None) -> torch.Tensor:
     """res [K, ...] int residues -> [...] float32 signed values (unscaled).
 
+    Residues must be reduced: ``res[j]`` in ``[0, m_j)``, as every
+    producer in the port leaves them (the kernel's multiply-high mods
+    assume it; the plain version's first digit is ``res[0]`` as given).
     ``bt`` (threads per block) resolves through ``autotune.resolve``,
     which gates it with ``check_wrapper_blocks`` (for the digit counts
     the kernel has).  A CPU

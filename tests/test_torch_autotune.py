@@ -268,10 +268,11 @@ def test_tune_rewrites_corrupt_cache(tmp_cache):
     ("rns_matmul|nosuchprofile|8x512x512|cpu", {"bm": 32}, "unreadable"),
 ])
 def test_illegal_rows_dropped_with_a_reason(tmp_cache, caplog, key, blocks,
-                                            why):
+                                            why, capped_registers):
     """A structurally valid row whose tiles are illegal on Hopper (hand
     edited, or from another card's limits) is dropped with the checker's
-    reason logged; lookups fall back to the defaults."""
+    reason logged; lookups fall back to the defaults.  (The rns21 row is
+    held to a synthetic register model that refuses it.)"""
     tmp_cache.write_text(json.dumps({"version": 1, "entries": {
         key: {"blocks": blocks}}}))
     autotune.clear_cache()
@@ -303,6 +304,39 @@ def test_tune_skips_illegal_candidates(caplog):
 
 
 # ------------------------------------------------------------ checker ----
+#: a synthetic register model of rns_normalize, heavy enough at wide K
+#: that the register rule refuses bt 512 at rns16 and rns21: it exercises
+#: the rule, which the shipped kernel (every bt fits) never meets
+CAPPED_REGISTERS = {5: 30, 6: 30, 7: 30, 8: 39, 9: 48, 12: 95, 16: 180,
+                    18: 215, 21: 255}
+
+
+@pytest.fixture
+def capped_registers(monkeypatch):
+    """Hold rns_normalize to the synthetic :data:`CAPPED_REGISTERS` (the
+    shipped kernel fits every bt:
+    test_one_pass_normalize_fits_every_candidate), with the checker's
+    memo cleared around it."""
+    monkeypatch.setitem(ka.REGISTERS, "rns_normalize", CAPPED_REGISTERS)
+    ka._check_cached.cache_clear()
+    autotune.clear_cache()
+    yield
+    ka._check_cached.cache_clear()
+    autotune.clear_cache()
+
+
+def test_one_pass_normalize_fits_every_candidate():
+    """The one-pass normalize keeps one residue copy in registers: every
+    candidate bt is legal for every digit count, rns21's 512 included."""
+    from repro_torch.kernels.rns_normalize.ops import SUPPORTED_K
+
+    for K in SUPPORTED_K:
+        assert ka.REGISTERS["rns_normalize"][K] <= 64
+        for cand in autotune.CANDIDATES["rns_normalize"]:
+            assert ka.validate_blocks("rns_normalize", cand,
+                                      n_digits=K) == [], (K, cand)
+
+
 @pytest.mark.parametrize("kind", sorted(autotune.DEFAULTS))
 def test_every_default_and_candidate_is_legal_on_the_main_path(kind):
     prof = _profile(kind)
@@ -345,7 +379,10 @@ def test_every_default_and_candidate_is_legal_on_the_main_path(kind):
     ("rns_matmul", {"bm": 32}, {}, "'bn' is None"),
     ("no_such_kernel", {"bt": 256}, {}, "unknown kernel kind"),
 ])
-def test_checker_names_known_illegal_cases(kind, blocks, meta, why):
+def test_checker_names_known_illegal_cases(kind, blocks, meta, why,
+                                           capped_registers):
+    """(rns_normalize's register cases under a synthetic register model
+    that refuses bt 512 at wide K.)"""
     bad = ka.validate_blocks(kind, blocks, **meta)
     assert any(why in b for b in bad), bad
 
@@ -437,7 +474,7 @@ def test_every_profile_has_a_legal_tensor_core_fused_tile(kind, profile):
         assert ka.fused_ring(kind, K, c["bm"], c["bn"]) is not None
 
 
-def test_wrappers_refuse_an_illegal_tile_on_the_cpu():
+def test_wrappers_refuse_an_illegal_tile_on_the_cpu(capped_registers):
     from repro_torch.kernels.rns_matmul.ops import rns_matmul
     from repro_torch.kernels.rns_normalize.ops import rns_normalize
 

@@ -28,18 +28,21 @@ def _source(key: str) -> Path:
     from repro_torch.kernels.rns_convert import ops as co
     from repro_torch.kernels.rns_fused import ops as fo
     from repro_torch.kernels.rns_matmul import ops as mm
+    from repro_torch.kernels.rns_normalize import ops as no
 
     return {"rns_matmul": mm.SOURCE, "rns_fused_mma": fo.SOURCE,
             "rns_convert": co.SOURCE, "flash_attention": fa.SOURCE,
-            "one_digit": KV.ONE_DIGIT_SOURCE}[key]
+            "rns_normalize": no.SOURCE,
+            "one_digit": KV.ONE_DIGIT_SOURCE,
+            "normalize_two_pass": KV.TWO_PASS_SOURCE,
+            "normalize_elems": KV.ELEMS_SOURCE}[key]
 
 
 @pytest.mark.parametrize("study", sorted(KV.STUDIES))
 def test_every_substitution_matches_its_source(study):
-    key, variants, _ = KV.STUDIES[study]
-    for name, subs in variants.items():
+    for name, variant in KV.STUDIES[study][1].items():
+        key, subs = KV.variant_source(study, variant)
         text = _source(key).read_text()
         for pattern, replacement in subs:
-            new = re.sub(pattern, replacement, text)
-            assert new != text, (study, name, pattern)
-            text = new
+            text, n = re.subn(pattern, replacement, text)
+            assert n, (study, name, pattern)

@@ -213,6 +213,32 @@ def test_normalize_plain_matches_ref(name):
     np.testing.assert_array_equal(got, want)     # NaN where rns21 has NaN
 
 
+def _edge_residues(name, T, seed):
+    """[K, T] int32: uniform residues with the values 0, 1, M/2 - 1, M/2,
+    M/2 + 1 and M - 1 at the front and again at the end (the last run's
+    tail)."""
+    p = get_profile(name)
+    rng = np.random.default_rng(seed)
+    r = np.stack([rng.integers(0, m, T) for m in p.moduli]).astype(np.int32)
+    edge = encode_exact(name, [0, 1, p.M // 2 - 1, p.M // 2, p.M // 2 + 1,
+                               p.M - 1])
+    n = min(T, edge.shape[1])
+    r[:, :n] = edge[:, :n]
+    r[:, T - n:] = edge[:, edge.shape[1] - n:]
+    return r
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_normalize_plain_edges_and_tails_match_ref(name):
+    """The edge values and ragged T of the card's case below, through the
+    wrapper on the CPU (its plain version), against the JAX oracle."""
+    for T in (4099, 3):
+        r = _edge_residues(name, T, seed=T)
+        got = normalize_ops.rns_normalize(name, _t(r)).numpy()
+        want = np.asarray(rns_normalize_ref(jnp.asarray(r), profile=name))
+        np.testing.assert_array_equal(got, want)
+
+
 def test_normalize_c1_regression():
     r = encode_exact("rns5", [C1_VALUE, -C1_VALUE])
     got = normalize_ops.rns_normalize("rns5", _t(r)).numpy()
@@ -221,7 +247,8 @@ def test_normalize_c1_regression():
 
 def test_tables_struct_carries_float32_bits():
     """The by-value kernel tables hold the float32 weights bit for bit,
-    inf included (rns21), and the MRC inverses at stride RNS_MAX_K."""
+    inf included (rns21), and the MRC inverses, folded into each pair's
+    mrc_c: the term (1 - 0) * inv_ij mod m_j (mrc_term) gives them back."""
     for name in ("rns9", "rns21"):
         c = build.rns_tables_c(name)
         t = normalize_ops.mrc.tables(name)
@@ -229,8 +256,10 @@ def test_tables_struct_carries_float32_bits():
         w = np.frombuffer(bytes(c.w), np.float32)[:K]
         np.testing.assert_array_equal(w.view(np.int32),
                                       t.W_f32.view(np.int32))
-        inv = np.frombuffer(bytes(c.inv), np.int32).reshape(21, 21)
-        np.testing.assert_array_equal(inv[:K, :K], t.mrc_inv)
+        for i in range(K):
+            for j in range(i + 1, K):
+                lo = (1 + c.roff[j]) * c.mrc_c[build.rns_pair(i, j)] % 2 ** 32
+                assert lo * c.moduli[j] >> 32 == t.mrc_inv[i][j], (i, j)
     assert np.isinf(np.frombuffer(bytes(build.rns_tables_c("rns21").w),
                                   np.float32)).any()
 
@@ -291,6 +320,36 @@ def test_gpu_normalize_c1_and_rns21(cuda):
     want = np.asarray(rns_normalize_ref(jnp.asarray(r.cpu().numpy()),
                                         profile="rns21"))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_gpu_normalize_edges_tails_and_misaligned(cuda, name):
+    """rns_normalize on the card, bit for bit against its plain version at
+    every candidate bt: the edge values among uniform residues; T = 4096,
+    8, 4097, 4098, 4099, 1, 2 and 3 (a partial last block, and planes
+    that start off a 16-byte boundary when T % 4 != 0); and a contiguous
+    [K, T] view 1, 2 or 3 int32 past a 16-byte boundary."""
+    from repro_torch.kernels import autotune
+
+    p = get_profile(name)
+    K = p.n_digits
+    for T in (4096, 8, 4097, 4098, 4099, 1, 2, 3):
+        r = _t(_edge_residues(name, T, seed=T)).to(cuda)
+        legal, _ = autotune.legal_candidates("rns_normalize", p, (T,))
+        assert legal
+        for off in (0, 1, 2, 3):
+            buf = torch.zeros(K * T + 4, dtype=torch.int32, device=cuda)
+            view = buf[off:off + K * T].view(K, T)
+            view.copy_(r)
+            assert (view.data_ptr() % 16 == 0) == (off == 0)
+            want = normalize_ops.rns_normalize_plain(p, view)
+            for cand in legal:
+                got = normalize_ops.rns_normalize(p, view, **cand)
+                assert torch.equal(got.isnan(), want.isnan()), (T, off, cand)
+                assert torch.equal(got.nan_to_num(), want.nan_to_num()), (
+                    T, off, cand)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -41,6 +41,15 @@ the multiply-high mods are checked against floor-mod over every operand
 they can meet (the offset form of rns_convert's residues exhaustively
 over 16 and 17 bits), for every modulus.
 
+``csrc/rns_mrc.cuh`` is the port's one MRC (rns_normalize.cu and the
+fused epilogue): one pass of direct-remainder terms (``mrc_term``: an
+add, a multiply-low by the table's ``mrc_c``, a multiply-high by m_j,
+checked over every residue pair of every profile), the magnitude of a
+negative value from the same digits (the complement plus a carried one,
+checked against a second MRC), the float32 sum digit-ascending.  Its
+emulation is held bit for bit against the JAX package's
+``core.mrc.decode_float`` and the port's plain version on every profile.
+
 The tests marked ``gpu`` run the kernels themselves on the card.
 """
 
@@ -58,6 +67,7 @@ from repro.kernels.rns_fused.kernel import rns_fused_encode_matmul_tiles
 from repro.kernels.rns_matmul.ops import rns_matmul as j_matmul
 from repro_torch.analysis.kernel_audit import fused_ring
 from repro_torch.core.moduli import PROFILES, get_profile
+from repro_torch.core.mrc import is_negative_digits
 from repro_torch.core.quantize import quantize_with_scale
 from repro_torch.core.rns import tables
 from repro_torch.kernels import autotune, build
@@ -359,8 +369,8 @@ def test_rns_matmul_cpu_call_launches_nothing():
 
 # ------------------------------------------------ rns_fused_mma path ----
 def _mulhi_mod(x, m):
-    """rns_tables.cuh's mulhi_mod (x in [0, 2**31)), with its domain
-    checked."""
+    """rns_tables.cuh's mulhi_mod (x in [0, 2**31)) with the magic of
+    ``build.mulhi_magic``, its domain checked."""
     assert int(x.min()) >= 0 and int(x.max()) < 2 ** 31
     return build.mulhi_mod(x, m)
 
@@ -375,48 +385,152 @@ def emulate_dot_residues(p, v):
     return torch.stack(out)
 
 
-def emulate_mrc(p, r):
-    """rns_mrc.cuh's mrc_decode_float with MULHI on [K, ...] residues:
-    every MRC term (r_j - d_i) * inv reduced by mulhi_mod after the
-    offset mulhi_offset(m_j); the float sum digit-ascending, one rounding
-    per operation."""
-    t = tables(p)
-    ms = [int(m) for m in p.moduli]
-    K = len(ms)
+def mrc_term(c, ri, rj, i, j):
+    """rns_mrc.cuh's mrc_term with the by-value tables ``c``: (r_j - r_i
+    + roff_j) times mrc_c (mod 2**32), then the high word of its product
+    with m_j -> (r_j - r_i) * inv_ij mod m_j."""
+    x = rj - ri + int(c.roff[j])
+    assert int(x.min()) >= 0
+    lo = (x * int(c.mrc_c[build.rns_pair(i, j)])) % 2 ** 32
+    return (lo * int(c.moduli[j])) >> 32
 
-    def digits(r):
-        d = []
-        for i in range(K):
-            d.append(r[i])
-            for j in range(i + 1, K):
-                v = (r[j] - d[i]) * int(t.mrc_inv[i][j])
-                assert int(v.abs().max()) < 2 ** 16
-                r[j] = _mulhi_mod(v + build.mulhi_offset(ms[j]), ms[j])
-        return d
 
-    d = digits(list(r.long()))
-    ge = torch.zeros(d[0].shape, dtype=torch.bool)
-    eq = torch.ones(d[0].shape, dtype=torch.bool)
-    for j in range(K - 1, -1, -1):
-        h = int(t.half_digits[j])
-        ge = ge | (eq & (d[j] > h))
-        eq = eq & (d[j] == h)
-    neg = ge | eq
-    r = r.long()
-    d = digits([torch.where(neg, torch.where(r[j] != 0, ms[j] - r[j], 0),
-                            r[j]) for j in range(K)])
+def emulate_mrc(p, r, digits_out=None):
+    """rns_mrc.cuh's mrc_decode_float (rns_normalize.cu and the fused
+    epilogue) on [K, ...] residues in [0, m_j), with the constants of the
+    kernel's by-value tables (``build.rns_tables_c``): one MRC pass,
+    every term by :func:`mrc_term`; the sign as the borrow out of X - M/2
+    digit by digit (the lexicographic rule); a negative value's magnitude
+    digits m_j - 1 - d_j with one carried in digit-ascending; the float32
+    sum digit-ascending, one rounding per operation, negated last.
+    ``digits_out`` (a list) receives the magnitude's digits."""
+    c = build.rns_tables_c(p)
+    K = p.n_digits
+    ms = [int(c.moduli[j]) for j in range(K)]
+    d = list(r.long())
+    for i in range(K - 1):
+        for j in range(i + 1, K):
+            d[j] = mrc_term(c, d[i], d[j], i, j)
+    borrow = torch.zeros(d[0].shape, dtype=torch.int64)
+    for j in range(K):              # X - M/2 digit by digit: 0 or -1
+        borrow = (d[j] - int(c.half[j]) + borrow) >> 31
+    neg = borrow == 0
+    # the lexicographic rule of core/mrc.is_negative_digits
+    assert torch.equal(neg, is_negative_digits(p, torch.stack(d)))
+    w = np.frombuffer(bytes(c.w), np.float32)
+    carry = torch.ones(d[0].shape, dtype=torch.int64)
     acc = torch.zeros(d[0].shape, dtype=torch.float32)
     for j in range(K):
-        w = torch.tensor(t.W_f32[j], dtype=torch.float32)
-        acc = acc + d[j].to(torch.float32) * w
+        g = ms[j] - 1 - d[j] + carry
+        carry = (g == ms[j]).long()
+        g = torch.where(neg, torch.where(carry == 1, 0, g), d[j])
+        if digits_out is not None:
+            digits_out.append(g)
+        # digit_float: 2**23 + g as float32 bits, less 2**23 (exact)
+        gf = (g + 0x4B000000).to(torch.int32).view(torch.float32) - 2.0 ** 23
+        assert torch.equal(gf, g.to(torch.float32))
+        acc = acc + gf * torch.tensor(w[j])
     return torch.where(neg, -acc, acc)
+
+
+def _mrc_cases(name, n, seed):
+    """[K, n + 6 (+ 2)] residues: n uniform vectors from a numpy seed,
+    then the values 0, 1, M/2 - 1, M/2, M/2 + 1 and M - 1 (and, for
+    rns5, ROADMAP C.1's pair)."""
+    from repro_torch.core.rns import encode_exact
+
+    p = get_profile(name)
+    rng = np.random.default_rng(seed)
+    r = np.stack([rng.integers(0, m, n) for m in p.moduli])
+    vals = [0, 1, p.M // 2 - 1, p.M // 2, p.M // 2 + 1, p.M - 1]
+    if name == "rns5":
+        vals += [4_503_599_542_737_792, -4_503_599_542_737_792]
+    return np.concatenate([r, encode_exact(name, vals)], axis=1).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_mrc_one_pass_matches_decode_float(name):
+    """The one-pass MRC of multiply-high terms, bit for bit against the JAX
+    package's ``core.mrc.decode_float`` and the port's plain version, on
+    10^4 uniform residue vectors and the edge values of every profile:
+    each digit count of ``SUPPORTED_K`` and rns8_u8 (modulus 256);
+    rns21's float32 weights overflow, and the inf / NaN land where the
+    reference's do.  The MRC terms' multiply-high mod over every operand
+    it can meet is checked exhaustively by
+    test_mrc_term_equals_floor_mod_for_every_residue_pair."""
+    from repro.core import mrc as jmrc
+    from repro_torch.kernels.rns_normalize import ops as norm
+
+    p = get_profile(name)
+    assert p.n_digits in norm.SUPPORTED_K
+    r = _mrc_cases(name, 10_000, 18 + p.n_digits)
+    got = emulate_mrc(p, torch.from_numpy(r)).numpy()
+    want = np.asarray(jmrc.decode_float(name, jnp.asarray(r)))
+    plain = norm.rns_normalize_plain(p, torch.from_numpy(r)).numpy()
+    for ref in (want, plain):       # NaN at the same places, else bits
+        nan = np.isnan(ref)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                      ref[~nan].view(np.int32))
+    if name == "rns21":     # W_20 past float32's range: inf, or 0 * inf
+        assert np.isinf(got).any() and np.isnan(got).any()
+        return
+    edge = got[-6:] if name != "rns5" else got[-8:-2]
+    assert edge[0] == 0.0 and edge[1] == 1.0 and edge[3] < 0 < edge[2]
+    assert edge[5] == -1.0 and edge[4] == -edge[2]
+    if name == "rns5":
+        assert got[-2:].tolist() == [13505986560.0, -13505986560.0]
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_mrc_term_equals_floor_mod_for_every_residue_pair(name):
+    """mrc_term over every (r_i, r_j) in [0, m_i) x [0, m_j) of every
+    pair i < j of the profile -- every term (r_j - r_i) * inv_ij, within
+    (-m_i * m_j, m_j**2), the MRC can meet -- equals its floor-mod, and
+    the tables hold build.mrc_c / mrc_offset at their packed places."""
+    from repro_torch.core.rns import tables
+
+    p = get_profile(name)
+    c = build.rns_tables_c(p)
+    t = tables(p)
+    ms = [int(m) for m in p.moduli]
+    for i in range(p.n_digits):
+        ri = torch.arange(ms[i], dtype=torch.int64)[None, :]
+        for j in range(i + 1, p.n_digits):
+            inv = int(t.mrc_inv[i][j])
+            assert c.mrc_c[build.rns_pair(i, j)] == build.mrc_c(ms[j], inv)
+            assert c.roff[j] == build.mrc_offset(ms[j]) >= 256
+            rj = torch.arange(ms[j], dtype=torch.int64)[:, None]
+            got = mrc_term(c, ri, rj, i, j)
+            assert torch.equal(got, torch.remainder((rj - ri) * inv, ms[j]))
+
+
+@pytest.mark.parametrize("name", sorted(PROFILES))
+def test_mrc_one_pass_magnitude_is_the_second_pass(name):
+    """The complement-plus-carry digits of a negative value are those an
+    MRC of its negated residues ((m_j - r_j) mod m_j, the reference's
+    second pass) gives; a non-negative value keeps its own digits."""
+    from repro_torch.core import mrc
+
+    p = get_profile(name)
+    r = torch.from_numpy(_mrc_cases(name, 10_000, 40 + p.n_digits))
+    mag = []
+    emulate_mrc(p, r, mag)
+    neg = mrc.is_negative(p, r)
+    m = torch.tensor(p.moduli).reshape(-1, 1)
+    want = mrc.mrc_digits(p, torch.where(neg[None], torch.remainder(
+        m - r.long(), m), r.long()))
+    assert neg.any() and (~neg).any()
+    assert torch.equal(torch.stack(mag), want.long())
 
 
 @pytest.mark.parametrize("name", sorted(PROFILES))
 def test_mulhi_mod_equals_floor_mod_for_every_operand(name):
-    """Every modulus of the profile: the epilogue's MRC terms over
-    -65536..65536 (offset, then mulhi_mod), the dot's |v| up to 2**30 and
-    the accumulators up to 2**31 - 1 give floor-mod's integers."""
+    """Every modulus of the profile: quantized values over -65536..65536
+    (offset moff, then mulhi_mod: quant_residue), the dot's |v| up to
+    2**30 and the accumulators up to 2**31 - 1 give floor-mod's
+    integers."""
     p = get_profile(name)
     x = torch.arange(-2 ** 16, 2 ** 16 + 1, dtype=torch.int64)
     big = torch.cat([torch.arange(0, 2 ** 17),
@@ -451,7 +565,7 @@ def _fused_case(name, M, D, N, seed):
 def test_fused_mma_arithmetic_matches_jax_ref(name, M, D, N, bm, bn):
     """rns_fused_mma.cu's arithmetic -- x quantized, residues by the
     multiply-high rule, u8 products in the ring's K steps split as the
-    launch splits them, the MULHI MRC -- equals ``rns_fused/ref.py`` bit
+    launch splits them, the one-pass MRC -- equals ``rns_fused/ref.py`` bit
     for bit, for the dot and the matmul + normalize."""
     p, x, s, a, b = _fused_case(name, M, D, N, M + D)
     for kind in ("rns_fused_dot", "rns_fused_matmul_normalize"):
@@ -485,7 +599,7 @@ def test_fused_mma_arithmetic_matches_jax_ref(name, M, D, N, bm, bn):
 
 
 def test_fused_mma_mrc_c1():
-    """ROADMAP C.1's rns5 value through the MULHI MRC: one rounding per
+    """ROADMAP C.1's rns5 value through the one-pass MRC: one rounding per
     operation, 13505986560.0 (the FMA-contracted sum is 13505985536.0)."""
     from repro_torch.core.rns import encode_exact
 
