@@ -20,33 +20,45 @@ toolkit.  Phases (any failure makes the exit code non-zero):
   [serve]       full-width smollm-135m with the rns9 MLP datapath through
                 ContinuousEngine.run on mixed-length requests (after one
                 short warm-up request): the per-op path, weights
-                re-encoded every step, three kernels.  Every kernel's
-                launch count is set to 0 just before and read after, and
-                a copy is kept of each distinct call the wrappers see;
-                then the same traffic is re-served under torch.profiler
-                for the device's idle share;
-  [serve_fused] the same traffic on the fused path: resident weights
-                (encoded once at engine build), the deferred MLP and the
-                fused kernels (``rns_backend="cuda_fused"``), with the
+                re-encoded every step, three kernels.  Each path is
+                served twice.  First eager (``graphs=False``): every
+                kernel's launch count is set to 0 just before and read
+                after, a copy is kept of each distinct call the wrappers
+                see, and each decode step's launches are held to the
+                path's; then captured (the engine's prefill and decode
+                replayed from CUDA graphs): the same greedy tokens and
+                rns_ops as the eager serve, each phase captured once,
+                and torch.profiler's count of the kernels in one
+                replayed decode step equal to the eager launches.  Each
+                serve is re-served under torch.profiler for the device's
+                idle share, and the two are printed side by side;
+  [serve_fused] the same on the fused path: resident weights (encoded
+                once at engine build), the deferred MLP and the fused
+                kernels (``rns_backend="cuda_fused"``), with the
                 launches of every decode step held to 30 each of the
                 three fused kernels and rns_convert, and none of
                 rns_matmul or rns_normalize;
+  [serve_per_layer] the same on the fused path with per-layer profiles
+                (``per_layer_profiles=True``): every layer on the
+                profile its weights select (rns7 for these weights), 120
+                launches a decode step, tokens equal to [serve_fused]'s;
   [tune]        with the block table pointed at a fresh file under
                 build/, tune every kernel kind at every shape bucket the
-                two serves gave the wrappers (on the recorded inputs),
+                three serves gave the wrappers (on the recorded inputs),
                 and flash_attention at smollm-135m's attention geometry
                 (Tq = Tk = 120 and 2048, causal): every legal candidate
                 is held against the plain version and timed, and every
                 candidate the checker drops is printed with its reason;
-  [serve_tuned] the [serve] and [serve_fused] traffic again, once each,
-                with the tuned table in force (and re-served under
-                torch.profiler, as the untuned serves are): greedy
-                tokens bit-equal to the untuned serves, the same
-                launches per decode step, every launch on its bucket's
-                row, and its numbers beside the untuned run's;
+  [serve_tuned] the three serves again, eager and captured, with engines
+                built after the tuned table is in force (a captured step
+                keeps the tiles it was captured with; each also
+                re-served under torch.profiler): greedy tokens bit-equal
+                to the untuned serves, the same launches per decode
+                step, every launch on its bucket's row, and its numbers
+                beside the untuned run's;
   [kernels]     hold all seven kernels against their plain PyTorch
                 versions on the card -- the six RNS kernels bit for bit
-                on the inputs both serves gave them (every distinct
+                on the inputs the serves gave them (every distinct
                 shape), at every candidate tiling on one main-path input
                 each, and on boundary cases of every profile (rns8_u8's
                 int32 residues included; rns_normalize on the edge
@@ -74,7 +86,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 fused resident per-op path vs the re-encode per-op path
                 -- logits and tokens bit-equal; the deferred fused path on
                 the card vs the CPU -- logits within LOGIT_TOL, every
-                greedy token equal.
+                greedy token equal; and the same with per-layer profiles
+                -- the same profiles selected on both devices.  The card's
+                engines here are captured.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -114,6 +128,15 @@ JAX_FUSED_DECODE_RNS_OPS = {"converts": 2, "matmuls": 3, "normalizes": 2,
                             "fused": 3, "fallbacks": 0, "weight_converts": 0}
 FUSED_SERVE = dict(rns_backend="cuda_fused", rns_defer=True,
                    resident_weights=True)
+# each serve path: its ServeConfig overrides and the JAX engine's decode
+# rns_ops for one layer (the per-layer path's layers run the fused
+# path's ops on their own profile)
+SERVE_PATHS = {
+    "serve": ({}, JAX_DECODE_RNS_OPS),
+    "serve_fused": (FUSED_SERVE, JAX_FUSED_DECODE_RNS_OPS),
+    "serve_per_layer": (dict(FUSED_SERVE, per_layer_profiles=True),
+                        JAX_FUSED_DECODE_RNS_OPS),
+}
 # kernel launches of one full-width decode step on each path
 DECODE_LAUNCHES = {
     "serve": {"rns_convert": 150, "rns_matmul": 90, "rns_normalize": 90,
@@ -124,6 +147,7 @@ DECODE_LAUNCHES = {
                     "rns_fused_matmul_normalize": 30, "rns_fused_dot": 30,
                     "flash_attention": 0},
 }
+DECODE_LAUNCHES["serve_per_layer"] = DECODE_LAUNCHES["serve_fused"]
 RNS_KERNELS = ("rns_convert", "rns_matmul", "rns_normalize",
                "rns_fused_encode_matmul", "rns_fused_matmul_normalize",
                "rns_fused_dot")
@@ -493,32 +517,55 @@ METRICS = ("tokens_per_s", "ttft_p50_s", "decode_step_ms_median",
 
 
 def phase_serve_tuned(torch, launches, calls, untuned):
-    """[serve] and [serve_fused] once more each, with the table [tune]
-    wrote: tokens bit-equal to the untuned serves, every launch on its
-    bucket's row, the numbers beside the untuned run's."""
-    for path, kw, ops in (("serve", {}, JAX_DECODE_RNS_OPS),
-                          ("serve_fused", FUSED_SERVE,
-                           JAX_FUSED_DECODE_RNS_OPS)):
+    """Each serve path once more, eager and captured, with engines built
+    under the table [tune] wrote: tokens bit-equal to the untuned
+    serves, every launch on its bucket's row, the numbers beside the
+    untuned run's."""
+    for path in SERVE_PATHS:
         if path not in untuned:
             raise AssertionError(f"[{path}] did not run: nothing to "
                                  "compare with")
         base, base_tokens = untuned[path]
         with _table(TUNE_CACHE):
-            run, tokens = phase_serve(torch, path, launches, calls, kw, ops,
+            run, tokens = phase_serve(torch, path, launches, calls,
                                       rerun="tuned")
         if tokens != base_tokens:
             raise AssertionError(f"{path} tuned: greedy tokens differ from "
                                  "the untuned serve's")
-        for name in METRICS:
-            print(f"  {path} {name}: untuned {base.get(name, 'not measured')}"
-                  f", tuned {run.get(name, 'not measured')}")
+        for mode in ("eager", "captured"):
+            for name in METRICS:
+                print(f"  {path} {mode} {name}: untuned "
+                      f"{base[mode].get(name, 'not measured')}, tuned "
+                      f"{run[mode].get(name, 'not measured')}")
         print(f"  {path}: launches per decode step "
-              f"{sum(run['decode_step_launches'].values())}; greedy tokens "
-              "bit-equal to the untuned serve")
+              f"{run['eager']['rns_kernels_per_decode_step']} eager, "
+              f"{run['captured']['rns_kernels_per_decode_step']} replayed; "
+              "greedy tokens bit-equal to the untuned serve")
+
+
+def phase_serve_per_layer(torch, launches, calls, untuned):
+    """The fused path with per-layer profiles, eager and captured: one
+    profile for the layers' one period slot, narrower than rns9, and
+    greedy tokens equal to [serve_fused]'s (a resident chain on a
+    narrower profile computes the same integers)."""
+    untuned["serve_per_layer"] = run, tokens = phase_serve(
+        torch, "serve_per_layer", launches, calls)
+    profiles = run["profiles"]
+    if len(profiles) != 1 or "rns9" in profiles:
+        raise AssertionError(f"per-layer profiles {profiles}: want one "
+                             "profile narrower than rns9")
+    if "serve_fused" not in untuned:
+        raise AssertionError("[serve_fused] did not run: nothing to "
+                             "compare with")
+    if tokens != untuned["serve_fused"][1]:
+        raise AssertionError("per-layer greedy tokens differ from "
+                             "[serve_fused]'s")
+    print(f"  serve_per_layer: profiles {profiles}; greedy tokens equal to "
+          "[serve_fused]'s")
 
 
 def phase_kernels(torch, dev, record, calls, launches):
-    """The six RNS kernels bit for bit on the inputs the two serves gave
+    """The six RNS kernels bit for bit on the inputs the serves gave
     them, at every candidate tiling and on boundary cases; flash_attention
     within tolerance on ragged and full-width shapes; times of the
     main-path inputs and of flash at full width.  Fills ``record``."""
@@ -627,13 +674,14 @@ def phase_kernels(torch, dev, record, calls, launches):
             "" if kernel == "rns_fused_encode_matmul"
             else " -> rns_normalize") + " in one graph"
 
-    # ---- the main paths' own inputs: every distinct call of both serves
+    # ---- the main paths' own inputs: every distinct call of the serves
     for entry in sorted(calls.values(),
                         key=lambda e: (e["kernel"], -e["calls"])):
         kernel, prof, args, kw = (entry["kernel"], entry["profile"],
                                   entry["args"], entry["kw"])
         K = get_profile(prof).n_digits
         label, nbytes, ops, rate = _cost(torch, kernel, K, args, kw)
+        label = f"{get_profile(prof).name} {label}"
         library = None
         if kernel == "rns_matmul":
             a, b = args
@@ -654,7 +702,8 @@ def phase_kernels(torch, dev, record, calls, launches):
         heads.setdefault(entry["kernel"], entry)
     for kernel, entry in sorted(heads.items()):
         prof, args, kw = entry["profile"], entry["args"], entry["kw"]
-        label = _cost(torch, kernel, get_profile(prof).n_digits, args, kw)[0]
+        label = get_profile(prof).name + " " + _cost(
+            torch, kernel, get_profile(prof).n_digits, args, kw)[0]
         mod = mods[kernel]
         wrapper, plain = getattr(mod, kernel), getattr(mod, kernel + "_plain")
         want = plain(prof, *args, **kw)
@@ -869,19 +918,29 @@ def phase_kernels(torch, dev, record, calls, launches):
 
 
 @contextlib.contextmanager
-def _recording(torch, calls: dict, off_table: list | None = None):
+def _recording(torch, calls: dict, off_table: list | None = None,
+               in_step: dict | None = None):
     """Keep, for each distinct call the six RNS wrappers see (kernel,
     profile, input shapes and dtypes, options), its number of calls and
-    a copy of its first call's inputs: what [kernels] checks and times.
-    With ``off_table``, also hold every launch's blocks to the block
-    table in force -- its row for the launch's bucket, or the defaults
-    when the table is empty -- appending each launch that is not.  The
-    wrappers themselves, and their launch counts, are untouched."""
+    a copy of the inputs of its first call inside an engine step (of
+    its first call at all until then: the engine's build warms its
+    programs up on zero inputs): what [kernels] checks and times.
+    ``in_step["on"]`` says whether a step is running (``_step_launches``
+    sets it).  With ``off_table``, also hold every launch's blocks to
+    the block table in force -- its row for the launch's bucket, or the
+    defaults when the table is empty -- appending each launch that is
+    not.  The wrappers themselves, and their launch counts, are
+    untouched."""
     from repro_torch.kernels import autotune
 
     mods = _kernel_mods()
     saved = {name: getattr(mods[name], name) for name in RNS_KERNELS}
     table = autotune._load() if off_table is not None else None
+    in_step = in_step if in_step is not None else {}
+
+    def copies(tensors):
+        return tuple(t.detach().clone() if torch.is_tensor(t) else t
+                     for t in tensors)
 
     def recorder(name, fn):
         def call(profile, *tensors, **kw):
@@ -890,12 +949,14 @@ def _recording(torch, calls: dict, off_table: list | None = None):
                          else repr(t) for t in tensors),
                    tuple(sorted((k, repr(v)) for k, v in kw.items())))
             entry = calls.get(key)
+            stepping = in_step.get("on", False)
             if entry is None:
                 calls[key] = entry = {
                     "kernel": name, "profile": profile, "calls": 0,
-                    "args": tuple(t.detach().clone() if torch.is_tensor(t)
-                                  else t for t in tensors),
-                    "kw": dict(kw)}
+                    "args": copies(tensors), "kw": dict(kw),
+                    "from_step": stepping}
+            elif stepping and not entry["from_step"]:
+                entry["args"], entry["from_step"] = copies(tensors), True
             entry["calls"] += 1
             before = _launches()[name]
             out = fn(profile, *tensors, **kw)
@@ -919,16 +980,21 @@ def _recording(torch, calls: dict, off_table: list | None = None):
 
 
 @contextlib.contextmanager
-def _step_launches(log: list):
+def _step_launches(log: list, in_step: dict):
     """Append (step stats, kernel launches made inside that step) for
-    every ContinuousEngine.step run in the block."""
+    every ContinuousEngine.step run in the block; ``in_step["on"]`` is
+    True while one runs."""
     from repro_torch.serve.engine import ContinuousEngine
 
     step = ContinuousEngine.step
 
     def counted(self):
         before = _launches()
-        out = step(self)
+        in_step["on"] = True
+        try:
+            out = step(self)
+        finally:
+            in_step["on"] = False
         after = _launches()
         log.append((out, {k: after[k] - before[k] for k in after}))
         return out
@@ -940,45 +1006,131 @@ def _step_launches(log: list):
         ContinuousEngine.step = step
 
 
-def phase_serve(torch, path: str, launches: dict, calls: dict,
-                serve_kw: dict, per_layer_ops: dict, *, rerun: str = ""):
-    """Serve the SERVE traffic at full width on one path (``serve_kw``
-    for :func:`serve`), with counts from 0 and every distinct wrapper call
-    recorded and merged into ``calls``; ``launches[run label]`` gets the
-    run's launches; then re-serve it under torch.profiler.  ``rerun``: a
-    run of [serve_tuned], labelled ``<path>_<rerun>``, with every launch
-    held to the block table in force and no merge into ``calls``.
-    Returns (numbers, greedy tokens)."""
-    from repro_torch.launch.serve import serve
+def _kernel_kind(name: str) -> str | None:
+    """The wrapper whose kernel a profiler event names (its demangled or
+    mangled name), or None for a kernel of PyTorch's."""
+    if "rns_encode_residues_kernel" in name:
+        return "rns_fused_encode_matmul"
+    if "rns_fused_mma_kernel" in name:     # AT: float x (the dot) or residues
+        dot = "rns_fused_mma_kernel<float" in name or \
+            "rns_fused_mma_kernelIf" in name
+        return "rns_fused_dot" if dot else "rns_fused_matmul_normalize"
+    for kind in ("rns_convert", "rns_matmul", "rns_normalize",
+                 "flash_attention"):
+        if f"{kind}_kernel" in name:
+            return kind
+    return None
 
+
+def _replay_kernels(torch, engine) -> dict:
+    """Kernels torch.profiler sees in one replay of the engine's captured
+    decode step, by wrapper (and by kernel name), on the trash page: the
+    tables are zeroed first and no row is active."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prog = engine.programs["decode"]
+    if prog.graph is None:
+        raise AssertionError("the decode step was not captured")
+    engine.cache.block_table.zero_()
+    engine.cache.lengths.zero_()
+    R = engine.pcfg.max_seqs
+    token = torch.zeros((R, 1), dtype=torch.int64)
+    active = torch.zeros((R,), dtype=torch.bool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.run(token=token, active=active)
+        torch.cuda.synchronize()
+    by_kind, by_name, total = {}, {}, 0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
+            continue
+        total += ev.count
+        kind = _kernel_kind(ev.key)
+        if kind is not None:
+            by_kind[kind] = by_kind.get(kind, 0) + ev.count
+            by_name[ev.key[:120]] = by_name.get(ev.key[:120], 0) + ev.count
+    return {"by_kernel": by_kind, "rns_kernels": sum(by_kind.values()),
+            "all_kernels": total, "names": by_name}
+
+
+def _serve_numbers(engine, stats, wall, decode_launches) -> dict:
+    steps = stats["steps"]
+    decode_only = [s for s in steps if not s["admitted"] and s["decoded"]]
+    return {
+        "tokens_per_s": stats["tokens_per_s"],
+        "wall_s": stats["wall_s"], "setup_and_run_s": wall,
+        "steps": len(steps), "tokens": stats["total_new_tokens"],
+        "prompt_pad": engine.prompt_pad, "decode_rows": engine.pcfg.max_seqs,
+        "ttft_p50_s": stats["ttft_p50_s"],
+        "latency_p50_s": stats["latency_p50_s"],
+        "decode_step_ms_median": 1e3 * statistics.median(
+            s["step_time_s"] for s in decode_only) if decode_only else None,
+        "decode_step_rns_ops": (decode_only[0]["rns_ops"].as_dict()
+                                if decode_only else None),
+        "decode_step_launches": decode_launches,
+        "captures": stats["captures"],
+    }
+
+
+SIDE_BY_SIDE = ("tokens_per_s", "ttft_p50_s", "decode_step_ms_median",
+                "device_idle_share_vs_unprofiled_wall", "device_idle_share",
+                "device_busy_ms", "captures", "rns_kernels_per_decode_step")
+
+
+def phase_serve(torch, path: str, launches: dict, calls: dict, *,
+                rerun: str = ""):
+    """Serve the SERVE traffic at full width on one path of SERVE_PATHS,
+    eager then captured.  The eager serve runs with counts from 0 and
+    every distinct wrapper call recorded and merged into ``calls``;
+    ``launches[run label]`` gets its launches.  The captured serve must
+    give its tokens and rns_ops, capture each phase once, and replay
+    the eager decode step's kernels.  The captured serve, and the eager
+    serves of [serve] and [serve_fused], are re-served under
+    torch.profiler (the profiler's own processing of an eager serve
+    takes tens of seconds).  ``rerun``: a run of [serve_tuned],
+    labelled ``<path>_<rerun>``, with every launch held to the block
+    table in force and no merge into ``calls``.  Returns ({"eager":
+    numbers, "captured": numbers}, greedy tokens)."""
+    from collections import Counter
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.resident import resident_profiles
+
+    serve_kw, per_layer_ops = SERVE_PATHS[path]
     label = f"{path}_{rerun}" if rerun else path
     off_table: list | None = [] if rerun else None
+    profile_eager = not rerun and path in ("serve", "serve_fused")
+    clock = {"start": time.perf_counter()}
 
     # one short request first, so that first-use costs (kernel libraries
     # loaded, cuBLAS handles, the caching allocator) stay out of the
     # measured run: without it one call's TTFT p50 was 2.1 s, not 0.9 s
     serve("smollm-135m", full=True, rns="rns9", device="cuda", requests=1,
-          prompt_lens=(7,), new=2, max_seqs=SERVE["max_seqs"], **serve_kw)
+          prompt_lens=(7,), new=2, max_seqs=SERVE["max_seqs"],
+          graphs=False, **serve_kw)
     torch.cuda.synchronize()
     _reset_launches()
     steps_log: list = []
     path_calls: dict = {}
+    in_step: dict = {}
     t0 = time.perf_counter()
-    with _recording(torch, path_calls, off_table), \
-            _step_launches(steps_log):
+    with _recording(torch, path_calls, off_table, in_step), \
+            _step_launches(steps_log, in_step):
         engine, results, stats = serve("smollm-135m", full=True, rns="rns9",
-                                       device="cuda", **SERVE, **serve_kw)
+                                       device="cuda", graphs=False, **SERVE,
+                                       **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches[label] = run = _launches()
     cfg = engine.cfg
     assert cfg.n_layers == FULL_LAYERS and cfg.d_model == 576
     steps = stats["steps"]
-    decode_only = [s for s in steps if not s["admitted"] and s["decoded"]]
     per_step = {k: v * FULL_LAYERS for k, v in per_layer_ops.items()}
-    for s in steps:
-        phases = len(s["admitted"]) + int(s["decoded"])
-        want = {k: v * phases for k, v in per_step.items()}
+    for s in steps:                 # the JAX engine's rule: decode + prefills
+        want = {k: v * (1 + len(s["admitted"])) for k, v in per_step.items()}
         assert s["rns_ops"].as_dict() == want, (s["step"], s["rns_ops"])
     assert all(s["rns_ops"].fallbacks == 0 for s in steps)
     want_launch = DECODE_LAUNCHES[path]
@@ -1006,25 +1158,65 @@ def phase_serve(torch, path: str, launches: dict, calls: dict,
     for toks in results.values():
         assert len(toks) == SERVE["new"]
         assert ((toks >= 0) & (toks < cfg.vocab)).all()
-    out = {
-        "tokens_per_s": stats["tokens_per_s"],
-        "wall_s": stats["wall_s"], "setup_and_run_s": wall,
-        "steps": len(steps), "tokens": stats["total_new_tokens"],
-        "prompt_pad": engine.prompt_pad, "decode_rows": engine.pcfg.max_seqs,
-        "ttft_p50_s": stats["ttft_p50_s"],
-        "latency_p50_s": stats["latency_p50_s"],
-        "decode_step_ms_median": 1e3 * statistics.median(
-            s["step_time_s"] for s in decode_only) if decode_only else None,
-        "decode_step_rns_ops": (decode_only[0]["rns_ops"].as_dict()
-                                if decode_only else None),
-        "decode_step_launches": decode_launches[0],
-        "launches": dict(run),
-        "distinct_calls": len(path_calls),
-    }
+    eager = _serve_numbers(engine, stats, wall, decode_launches[0])
+    eager.update(launches=dict(run), distinct_calls=len(path_calls),
+                 rns_kernels_per_decode_step=sum(decode_launches[0].values()))
     if rerun:
-        out["launches_on_the_block_table"] = sum(run.values())
-    out.update(_profile_serve(torch, engine, results, stats["wall_s"]))
+        eager["launches_on_the_block_table"] = sum(run.values())
+    clock["eager_served"] = time.perf_counter()
+    if profile_eager:
+        eager.update(_profile_serve(torch, engine, results, stats["wall_s"]))
+    clock["eager_profiled"] = time.perf_counter()
+    profiles = Counter(resident_profiles(engine.model).values())
+    del engine
+
+    # the same traffic through the captured steps
+    t0 = time.perf_counter()
+    cengine, cresults, cstats = serve("smollm-135m", full=True, rns="rns9",
+                                      device="cuda", graphs=True, **SERVE,
+                                      **serve_kw)
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    if _tokens(cresults) != _tokens(results):
+        raise AssertionError(f"{label}: captured greedy tokens differ from "
+                             "the eager serve's")
+    if [s["rns_ops"].as_dict() for s in cstats["steps"]] != [
+            s["rns_ops"].as_dict() for s in steps]:
+        raise AssertionError(f"{label}: captured rns_ops differ from the "
+                             "eager serve's")
+    if cstats["captures"] != {"decode": 1, "prefill": 1}:
+        raise AssertionError(f"{label}: captures {cstats['captures']}")
+    cprofiles = Counter(resident_profiles(cengine.model).values())
+    if cprofiles != profiles:
+        raise AssertionError(f"{label}: profiles {cprofiles} vs {profiles}")
+    captured = _serve_numbers(cengine, cstats, cwall, None)
+    clock["captured_served"] = time.perf_counter()
+    captured.update(_profile_serve(torch, cengine, cresults,
+                                   cstats["wall_s"]))
+    clock["captured_profiled"] = time.perf_counter()
+    replay = _replay_kernels(torch, cengine)
+    captured["replayed_decode_step"] = replay
+    captured["rns_kernels_per_decode_step"] = replay["rns_kernels"]
+    if replay["all_kernels"] == 0:
+        raise AssertionError("torch.profiler sees no kernel in a replayed "
+                             "decode step")
+    want_rns = {k: n for k, n in want_launch.items() if n}
+    if replay["by_kernel"] != want_rns:
+        raise AssertionError(f"{label}: a replayed decode step ran "
+                             f"{replay['by_kernel']}, the eager step "
+                             f"launched {want_rns}")
+    del cengine
+    marks = list(clock.items())
+    out = {"eager": eager, "captured": captured,
+           "profiles": dict(profiles),
+           "phase_s": {k: t - t_prev for (_, t_prev), (k, t)
+                       in zip(marks, marks[1:] + [("replayed",
+                                                   time.perf_counter())])}}
     print(json.dumps({label: out}))
+    print(f"  {label} profiles: {dict(profiles) or 'none (re-encoded)'}")
+    for name in SIDE_BY_SIDE:
+        print(f"  {label} {name}: eager {eager.get(name, 'not measured')}, "
+              f"captured {captured.get(name, 'not measured')}")
     print(f"[{label}] ok")
     return out, _tokens(results)
 
@@ -1095,7 +1287,7 @@ def phase_identity(torch):
     from repro_torch.configs.base import get_config
     from repro_torch.core.rns_matmul import RnsDotConfig
     from repro_torch.models import model as M
-    from repro_torch.models.resident import encode_resident
+    from repro_torch.models.resident import encode_resident, resident_profiles
     from repro_torch.serve.engine import ContinuousEngine, ServeConfig
     import numpy as np
 
@@ -1210,6 +1402,39 @@ def phase_identity(torch):
     if d_match != d_total:
         raise AssertionError(f"deferred greedy tokens differ: "
                              f"{d_match}/{d_total}")
+
+    # the deferred fused path with per-layer profiles, card vs CPU: the
+    # same profiles selected from the same weights on both devices
+    pl_cpu = encode_resident(copy.deepcopy(cpu_model), def_cfg,
+                             per_layer_profiles=True)
+    pl_gpu = encode_resident(copy.deepcopy(gpu_model), def_cfg,
+                             per_layer_profiles=True)
+    prof_c, prof_g = resident_profiles(pl_cpu), resident_profiles(pl_gpu)
+    lpc = _first_logits(torch, M, pl_cpu, def_cfg, prompts, "cpu")
+    lpg = _first_logits(torch, M, pl_gpu, def_cfg, prompts, "cuda")
+    p_worst = gap(lpg, lpc)
+    pkw = dict(dkw, per_layer_profiles=True)
+    res_pg, _ = ContinuousEngine(copy.deepcopy(gpu_model), ServeConfig(
+        **pkw), device="cuda").run(prompts)
+    res_pc, _ = ContinuousEngine(copy.deepcopy(cpu_model), ServeConfig(
+        **pkw), device="cpu").run(prompts)
+    p_match = sum(int(a == b) for ta, tb in zip(_tokens(res_pc),
+                                                _tokens(res_pg))
+                  for a, b in zip(ta, tb))
+    p_total = sum(len(v) for v in res_pc.values())
+    print(f"  per-layer profiles {sorted(set(prof_g.values()))} (card) "
+          f"{sorted(set(prof_c.values()))} (cpu); first-step logits max "
+          f"|card - cpu| = {p_worst} (tolerance {LOGIT_TOL}); matching "
+          f"greedy tokens: {p_match}/{p_total}")
+    if prof_c != prof_g:
+        raise AssertionError(f"per-layer profiles differ: card {prof_g}, "
+                             f"cpu {prof_c}")
+    if not p_worst <= LOGIT_TOL:
+        raise AssertionError(f"per-layer first-step logits differ by "
+                             f"{p_worst}")
+    if p_match != p_total:
+        raise AssertionError(f"per-layer greedy tokens differ: "
+                             f"{p_match}/{p_total}")
     print("[identity] ok")
 
 
@@ -1251,7 +1476,7 @@ def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
             head = max(timed, key=lambda c: c.get("calls_in_serve", 0),
                        default={})
             by_path = {path: run.get(name, 0) for path, run in
-                       launches.items() if path != "kernels"}
+                       launches.items() if path.startswith("serve")}
             n = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src,
@@ -1298,11 +1523,12 @@ def main() -> int:
     for name, fn in [
             ("build", phase_build),
             ("serve", lambda: untuned.__setitem__("serve", phase_serve(
-                torch, "serve", launches, calls, {}, JAX_DECODE_RNS_OPS))),
+                torch, "serve", launches, calls))),
             ("serve_fused", lambda: untuned.__setitem__(
-                "serve_fused", phase_serve(
-                    torch, "serve_fused", launches, calls, FUSED_SERVE,
-                    JAX_FUSED_DECODE_RNS_OPS))),
+                "serve_fused", phase_serve(torch, "serve_fused", launches,
+                                           calls))),
+            ("serve_per_layer", lambda: phase_serve_per_layer(
+                torch, launches, calls, untuned)),
             ("tune", lambda: phase_tune(torch, dev, calls, launches, tuned)),
             ("serve_tuned", lambda: phase_serve_tuned(torch, launches, calls,
                                                       untuned)),

@@ -35,6 +35,13 @@ class ModelConfig:
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 1024
 
+    @property
+    def period(self) -> int:
+        """Layers in the smallest repeating pattern: 1, since every layer
+        of this slice's family is (attention, dense MLP).  The JAX package
+        stacks layer ``i`` as entry ``i // period`` of slot ``i % period``."""
+        return 1
+
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}

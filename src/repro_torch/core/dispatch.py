@@ -103,6 +103,11 @@ class OpCounts:
     def as_dict(self) -> dict:
         return {f: getattr(self, f) for f in self.FIELDS}
 
+    def add(self, other: "OpCounts", times: int = 1) -> "OpCounts":
+        """New OpCounts = self + times * other."""
+        return OpCounts(**{f: getattr(self, f) + times * getattr(other, f)
+                           for f in self.FIELDS})
+
 
 def _counters() -> list[OpCounts]:
     if not hasattr(_state, "counters"):

@@ -12,7 +12,8 @@ import dataclasses
 import functools
 import math
 
-__all__ = ["greedy_coprime_moduli", "RnsProfile", "PROFILES", "get_profile"]
+__all__ = ["greedy_coprime_moduli", "RnsProfile", "PROFILES", "get_profile",
+           "narrowest_profile", "required_digits"]
 
 
 def greedy_coprime_moduli(limit: int, count: int) -> tuple[int, ...]:
@@ -65,6 +66,11 @@ class RnsProfile:
     def M(self) -> int:
         """Full dynamic range (product of all moduli)."""
         return math.prod(self.moduli)
+
+    @functools.cached_property
+    def M_f(self) -> int:
+        """Fractional base: product of the first ``frac_digits`` moduli."""
+        return math.prod(self.moduli[: self.frac_digits])
 
     @property
     def range_bits(self) -> float:
@@ -122,3 +128,38 @@ def get_profile(profile: str | RnsProfile) -> RnsProfile:
         raise KeyError(
             f"unknown RNS profile {profile!r}; have {sorted(PROFILES)}"
         ) from None
+
+
+def narrowest_profile(min_signed_bits: float,
+                      cap: str | RnsProfile = "rns9") -> RnsProfile:
+    """Narrowest registered profile whose exact signed range covers
+    ``min_signed_bits``, never wider than ``cap``.
+
+    The resident-weight encoder (``models/resident.py``) picks per-layer
+    profiles with it.  Candidates are the registered :data:`PROFILES`
+    only (so a by-name lookup round-trips), ordered by ``range_bits``,
+    and keep ``cap``'s ``int8_safe`` property; ``cap`` itself is returned
+    when nothing narrower suffices.
+    """
+    cap = get_profile(cap)
+    cands = sorted(
+        (p for p in PROFILES.values()
+         if (p.int8_safe or not cap.int8_safe)
+         and p.range_bits <= cap.range_bits),
+        key=lambda p: p.range_bits)
+    for p in cands:
+        if p.signed_bits >= min_signed_bits:
+            return p
+    return cap
+
+
+def required_digits(n_terms: int, qa: int, qw: int, limit: int = 128) -> int:
+    """Digit slices an exact ``n_terms``-term ``qa`` x ``qw``-bit dot
+    needs, on the greedy coprime moduli <= ``limit``."""
+    need_bits = (qa + qw - 1) + math.log2(max(n_terms, 1))
+    bits = 0.0
+    for k, m in enumerate(greedy_coprime_moduli(limit, 24), start=1):
+        bits += math.log2(m)
+        if bits > need_bits:
+            return k
+    raise ValueError("need more than 24 digits")

@@ -9,8 +9,12 @@ smollm-135m, on the card:
 Without ``--full`` it serves the reduced smoke twin, as the JAX CLI
 does.  ``--device cpu`` runs the plain PyTorch path instead of the
 kernels.  ``--rns-backend cuda_fused --resident-weights`` serves through
-the fused kernels on MLP weights encoded once at build.  The bucketed
-engine is a later slice of the port.
+the fused kernels on MLP weights encoded once at build; add
+``--per-layer-profiles`` to encode each layer on the narrowest profile
+that holds it.  On the card the engine captures its prefill and its
+decode step once each in CUDA graphs (it prints ``captures decode=1
+prefill=1``); ``--eager`` runs them without graphs.  The bucketed engine
+is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -42,11 +46,14 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
           prompt_lens=(7, 33, 120), new: int = 16, page_size: int = 16,
           max_seqs: int = 8, n_pages: int | None = None,
           rns_backend: str | None = None, rns_defer: bool | None = None,
-          resident_weights: bool = False, device="cuda"):
+          resident_weights: bool = False, per_layer_profiles: bool = False,
+          device="cuda", graphs: bool = True):
     """Build the model (random weights from seed 0) and serve
     :func:`request_prompts` (seed 0).  Returns (engine, results, stats).
     ``rns_defer`` (no CLI flag, as in the JAX CLI) selects the deferred
-    MLP through ``ServeConfig``."""
+    MLP through ``ServeConfig``; ``graphs=False`` serves eagerly.  The
+    engine resolves its kernels' tiles when it captures its steps, so
+    the block table in force at this call is the one it serves with."""
     cfg = get_config(arch, smoke=not full)
     if rns:
         cfg = dataclasses.replace(cfg, rns=RnsDotConfig(profile=rns, qx=8,
@@ -58,7 +65,9 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
         max_cache=max(lens) + new + 8, max_new_tokens=new,
         page_size=page_size, max_seqs=max_seqs, n_pages=n_pages,
         rns_backend=rns_backend, rns_defer=rns_defer,
-        resident_weights=resident_weights), device=device)
+        resident_weights=resident_weights,
+        per_layer_profiles=per_layer_profiles), device=device,
+        graphs=graphs)
     results, stats = engine.run(request_prompts(cfg.vocab, requests, lens))
     return engine, results, stats
 
@@ -86,17 +95,36 @@ def main(argv=None):
                          "cuda_fused (the fused kernels)")
     ap.add_argument("--resident-weights", action="store_true",
                     help="encode the RNS MLP weights once at engine build")
+    ap.add_argument("--per-layer-profiles", action="store_true",
+                    help="encode each layer on the narrowest RNS profile "
+                         "that holds its chain (needs --resident-weights)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the prefill and decode steps without CUDA "
+                         "graphs")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.continuous:
         raise SystemExit("the bucketed Engine is a later slice of the port; "
                          "pass --continuous")
-    _, res, stats = serve(
+    if args.per_layer_profiles and not args.resident_weights:
+        ap.error("--per-layer-profiles requires --resident-weights")
+    engine, res, stats = serve(
         args.arch, full=args.full, rns=args.rns, requests=args.requests,
         prompt_lens=args.prompt_lens.split(","), new=args.new,
         page_size=args.page_size, max_seqs=args.max_seqs,
         n_pages=args.n_pages, rns_backend=args.rns_backend,
-        resident_weights=args.resident_weights, device=args.device)
+        resident_weights=args.resident_weights,
+        per_layer_profiles=args.per_layer_profiles, device=args.device,
+        graphs=not args.eager)
+    if args.per_layer_profiles:
+        from collections import Counter
+
+        from repro_torch.models.resident import resident_profiles
+
+        print("per-layer profiles:",
+              dict(Counter(resident_profiles(engine.model).values())))
+    print("captures " + " ".join(
+        f"{k}={v}" for k, v in sorted(stats["captures"].items())))
     print(f"served {stats['n_requests']} requests in {stats['n_steps']} "
           f"steps / {stats['wall_s']:.2f}s -> "
           f"{stats['tokens_per_s']:.1f} tok/s")

@@ -4,6 +4,8 @@ paths compute attention outside any Pallas kernel."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -17,11 +19,19 @@ __all__ = ["rope", "chunked_attention", "flash_attention", "decode_attention",
 NEG_INF = -1e30
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(d2: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The float32 rotation frequencies on ``device``, copied there once
+    (a copy from the host inside a captured step would break the
+    capture)."""
+    freqs = 1.0 / (theta ** (np.arange(d2, dtype=np.float32) / d2))
+    return torch.as_tensor(freqs, device=device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
     """x [B, T, H, D], positions [B, T] -> rotated x (half-split)."""
     d2 = x.shape[-1] // 2
-    freqs = 1.0 / (theta ** (np.arange(d2, dtype=np.float32) / d2))
-    freqs = torch.as_tensor(freqs, device=x.device)
+    freqs = _rope_freqs(d2, theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs        # [B, T, d2]
     sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
     x1, x2 = x[..., :d2], x[..., d2:]

@@ -22,7 +22,7 @@ __all__ = ["params_from_jax"]
 def params_from_jax(tree: dict, cfg, device="cuda") -> Model:
     """A :class:`Model` holding the JAX parameter ``tree`` (numpy leaves)."""
     model = Model(cfg, device)
-    p = 1       # every layer of this slice's family is (attn, dense)
+    p = cfg.period
 
     def put(param: torch.Tensor, value):
         value = np.array(value, np.float32)     # a writable copy

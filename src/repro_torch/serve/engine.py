@@ -8,18 +8,29 @@ padding inert), then runs ONE batched greedy decode step over every
 running row.  Finished rows free their pages the same step; when the
 pool runs dry the youngest row is preempted and re-prefilled later.
 
-Each step reports the RNS primitive calls it ran (``rns_ops``), one per
-call and layer: for smollm-135m, ``n_layers`` times what the JAX engine
-reports, whose trace-time tally sees its layer ``scan`` body once
-(ROADMAP C.3).
+The prefill (with the blit of its K/V planes into the pages) and the
+decode step (with its argmax) are two step programs
+(``serve/graphs.py``) over static buffers whose shapes depend only on
+the engine's geometry, as the JAX engine jits each once.  On the card
+each is captured once in a CUDA graph at engine build and replayed every
+step; ``graphs=False`` (or the CPU) runs them eagerly.
+
+Each step reports the RNS primitive calls of its phases (``rns_ops``),
+as the JAX engine does: the decode program's tallies plus the prefill
+program's once per admitted prompt, each taken once when the program is
+built.  The port tallies every call of every layer, so for smollm-135m
+that is ``n_layers`` times what the JAX engine reports, whose
+trace-time tally sees its layer ``scan`` body once (ROADMAP C.3).
 
 ``ServeConfig(rns_backend="cuda_fused", rns_defer=True,
 resident_weights=True)`` serves the fused path: MLP weights encoded once
-at engine build, the deferred MLP chain, the fused kernels.
+at engine build, the deferred MLP chain, the fused kernels; with
+``per_layer_profiles=True`` each layer's weights are encoded on the
+narrowest profile that holds its chain (``models/resident.py``).
 
-Chunked prefill, speculative decoding, prefix caching, sliding windows,
-per-layer profiles and digit sharding are later slices of the port:
-:class:`ServeConfig` refuses them.
+Chunked prefill, speculative decoding, prefix caching, sliding windows
+and digit sharding are later slices of the port: :class:`ServeConfig`
+refuses them.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 from repro_torch.core import dispatch
 from repro_torch.models import model as M
 from repro_torch.serve import kv_cache as kv
+from repro_torch.serve.graphs import StepProgram, build_programs
 from repro_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["ServeConfig", "ContinuousEngine"]
@@ -50,25 +62,31 @@ class ServeConfig:
     rns_defer: bool | None = None   # residue-domain MLP chaining
     # encode every RNS-target MLP weight once at engine build
     resident_weights: bool = False
+    # with resident_weights: each period slot of layers on the narrowest
+    # profile that holds its MLP chain
+    per_layer_profiles: bool = False
     page_size: int = 16
     max_seqs: int = 8
     n_pages: int | None = None
     # later slices of the port: setting any of these raises
-    per_layer_profiles: bool = False
     mesh: object | None = None
     prefix_cache: bool = False
     spec_decode: bool = False
     chunked_prefill: bool = False
     window_tokens: int | None = None
 
-    _LATER = ("per_layer_profiles", "mesh", "prefix_cache", "spec_decode",
-              "chunked_prefill", "window_tokens")
+    _LATER = ("mesh", "prefix_cache", "spec_decode", "chunked_prefill",
+              "window_tokens")
 
     def __post_init__(self):
         if self.eos_id < -1:
             raise ValueError(
                 f"eos_id={self.eos_id}: use a token id, or -1 to disable "
                 "early stopping")
+        if self.per_layer_profiles and not self.resident_weights:
+            raise ValueError(
+                "per_layer_profiles selects moduli at weight-encode time; "
+                "it requires resident_weights=True")
         on = [f for f in self._LATER if getattr(self, f) not in (None, False)]
         if on:
             raise NotImplementedError(
@@ -95,15 +113,20 @@ def _maybe_resident(model, cfg, scfg: ServeConfig):
     if scfg.resident_weights and cfg.rns is not None:
         from repro_torch.models.resident import encode_resident
 
-        encode_resident(model, cfg)
+        encode_resident(model, cfg,
+                        per_layer_profiles=scfg.per_layer_profiles)
 
 
 class ContinuousEngine:
     """In-flight batching over a paged KV cache, on ``device`` (``model``
     is moved there in place, as ``nn.Module.to`` does, and with
-    ``resident_weights`` its MLP weights are encoded onto it in place)."""
+    ``resident_weights`` its MLP weights are encoded onto it in place).
 
-    def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda"):
+    ``graphs=False`` runs the step programs eagerly on the card too: the
+    reference a captured engine is held to."""
+
+    def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda",
+                 graphs: bool = True):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = _apply_rns_policy(model.cfg, scfg)
@@ -127,6 +150,78 @@ class ContinuousEngine:
         self.results: dict[int, np.ndarray] = {}
         self.latencies: dict[int, float] = {}
         self.ttfts: dict[int, float] = {}
+        self._build_programs(graphs)
+
+    # ---------------------------------------------------- step programs --
+    def _build_programs(self, graphs: bool):
+        """The decode and prefill programs over static buffers, warmed up
+        and (on the card, with ``graphs``) captured on the trash page: the
+        zeroed block table and a zero ``block_row`` send every warm-up
+        write to page 0, and ``active`` all False advances no length."""
+        R = self.pcfg.max_seqs
+        nbp = self.prompt_pad // self.pcfg.page_size
+        dev = self.device
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        @torch.inference_mode()
+        def decode(token, active):
+            logits = M.decode_step(self.model, self.cfg, token, self.cache,
+                                   active)
+            # argmax on the device: the host pulls R ints, not R x vocab
+            return torch.argmax(logits, dim=-1)
+
+        @torch.inference_mode()
+        def prefill(tokens, length, block_row):
+            logits, ys = M.prefill_ragged(self.model, self.cfg, tokens,
+                                          length)
+            kv.write_prompt_pages(self.cache.k_pages, block_row,
+                                  torch.stack([k[0] for k, _ in ys]))
+            kv.write_prompt_pages(self.cache.v_pages, block_row,
+                                  torch.stack([v[0] for _, v in ys]))
+            return torch.argmax(logits, dim=-1)
+
+        self.programs = {
+            "decode": StepProgram("decode", decode, {
+                "token": zeros(R, 1), "active": zeros(R, dtype=torch.bool)}),
+            "prefill": StepProgram("prefill", prefill, {
+                "tokens": zeros(1, self.prompt_pad),
+                "length": torch.ones((1,), dtype=torch.int64, device=dev),
+                "block_row": zeros(nbp)}),
+        }
+        # host staging of each step's inputs, pinned on the card so the
+        # copies into the static buffers are asynchronous; every step
+        # ends in a pull of its argmax, so a buffer is free again by the
+        # next step
+        pin = dev.type == "cuda"
+        self._staging = {
+            name: torch.empty(buf.shape, dtype=buf.dtype, pin_memory=pin)
+            for prog in self.programs.values()
+            for name, buf in prog.inputs.items()}
+        self._capture_stream = build_programs(self.programs.values(), dev,
+                                              graphs=graphs)
+
+    def captures(self) -> dict[str, int]:
+        """Graphs captured per phase (0 everywhere when eager)."""
+        return {name: p.captures for name, p in self.programs.items()}
+
+    def _stage(self, **values) -> dict[str, torch.Tensor]:
+        """Write host arrays into the staging buffers; returns them."""
+        out = {}
+        for name, value in values.items():
+            buf = self._staging[name]
+            buf.numpy()[...] = np.asarray(value).reshape(buf.shape)
+            out[name] = buf
+        return out
+
+    def _rns_ops(self, n_prefills: int) -> dispatch.OpCounts:
+        """This step's RNS tallies: the decode program's plus the prefill
+        program's once per admitted prompt (the JAX engine's rule)."""
+        if self.cfg.rns is None:
+            return dispatch.OpCounts()
+        return self.programs["decode"].ops.add(self.programs["prefill"].ops,
+                                               times=n_prefills)
 
     # ------------------------------------------------------------ intake --
     def submit(self, prompt, max_new: int | None = None) -> int:
@@ -145,19 +240,13 @@ class ContinuousEngine:
     # ----------------------------------------------------------- stepping --
     def _do_prefill(self, seq):
         T = len(seq.req.tokens)
-        tokens = np.zeros((1, self.prompt_pad), np.int64)
-        tokens[0, :T] = seq.req.tokens
-        logits, ys = M.prefill_ragged(
-            self.model, self.cfg, torch.as_tensor(tokens, device=self.device),
-            torch.tensor([T], device=self.device))
-        tok0 = int(torch.argmax(logits, dim=-1)[0])
+        tokens = np.zeros((self.prompt_pad,), np.int64)
+        tokens[:T] = seq.req.tokens
         nbp = self.prompt_pad // self.pcfg.page_size
-        block_row = torch.as_tensor(self.sched.block_row(seq, nbp),
-                                    dtype=torch.int64, device=self.device)
-        kv.write_prompt_pages(self.cache.k_pages, block_row,
-                              torch.stack([k[0] for k, _ in ys]))
-        kv.write_prompt_pages(self.cache.v_pages, block_row,
-                              torch.stack([v[0] for _, v in ys]))
+        tok0 = self.programs["prefill"].run(**self._stage(
+            tokens=tokens, length=T,
+            block_row=self.sched.block_row(seq, nbp)))
+        tok0 = int(tok0.cpu()[0])
         seq.emitted = [tok0]
         seq.last_token = tok0
         ttft = time.perf_counter() - seq.req.submit_time
@@ -173,13 +262,9 @@ class ContinuousEngine:
 
     def _decode_vanilla(self, last) -> int:
         """One [R, 1] decode for every running row; returns #new tokens."""
-        token = torch.as_tensor(last[:, None], dtype=torch.int64,
-                                device=self.device)
-        logits = M.decode_step(
-            self.model, self.cfg, token, self.cache,
-            torch.as_tensor(self._active, device=self.device))
-        # argmax on the device: the host pulls R ints, not R x vocab logits
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = self.programs["decode"].run(**self._stage(
+            token=last, active=self._active))
+        nxt = nxt.cpu().numpy()
         n_tokens = 0
         for seq in list(self.sched.running.values()):
             tok = int(nxt[seq.slot])
@@ -197,34 +282,33 @@ class ContinuousEngine:
     def step(self) -> dict:
         """One scheduler step: admit/evict, prefill admits, then decode
         every running row.  Returns the step's stats, with ``rns_ops``
-        the primitive tallies this step ran."""
+        the primitive tallies of its phases."""
         t0 = time.perf_counter()
         self._step_finished: list[int] = []
         self._step_ttfts: list[float] = []
-        with dispatch.count_ops() as ops:
-            plan = self.sched.schedule()
-            if plan.admitted or plan.preempted or plan.grew:
-                self._tables_dirty = True
-            for seq in plan.admitted:
-                self._do_prefill(seq)
-            # admission produced one token per new row: it may be done
-            for seq in list(self.sched.running.values()):
-                if seq.emitted and (len(seq.emitted) >= seq.req.max_new
-                                    or seq.emitted[-1] == self.scfg.eos_id):
-                    self._step_finished.append(seq.rid)
-                    self._finish(seq)
-            n_tokens = 0
-            decode_rows = len(self.sched.running)
-            if self.sched.running:
-                bt, lengths, active, last = self.sched.tables()
-                if self._tables_dirty or not np.array_equal(active,
-                                                            self._active):
-                    # topology changed: push fresh tables; otherwise the
-                    # decode step's own length bump matches the host
-                    kv.set_tables(self.cache, bt, lengths)
-                    self._active = active
-                    self._tables_dirty = False
-                n_tokens = self._decode_vanilla(last)
+        plan = self.sched.schedule()
+        if plan.admitted or plan.preempted or plan.grew:
+            self._tables_dirty = True
+        for seq in plan.admitted:
+            self._do_prefill(seq)
+        # admission produced one token per new row: it may be done
+        for seq in list(self.sched.running.values()):
+            if seq.emitted and (len(seq.emitted) >= seq.req.max_new
+                                or seq.emitted[-1] == self.scfg.eos_id):
+                self._step_finished.append(seq.rid)
+                self._finish(seq)
+        n_tokens = 0
+        decode_rows = len(self.sched.running)
+        if self.sched.running:
+            bt, lengths, active, last = self.sched.tables()
+            if self._tables_dirty or not np.array_equal(active,
+                                                        self._active):
+                # topology changed: push fresh tables; otherwise the
+                # decode step's own length bump matches the host
+                kv.set_tables(self.cache, bt, lengths)
+                self._active = active
+                self._tables_dirty = False
+            n_tokens = self._decode_vanilla(last)
         self._step_idx += 1
         return {
             "step": self._step_idx,
@@ -237,7 +321,7 @@ class ContinuousEngine:
             "decoded": decode_rows > 0,
             "decode_rows": decode_rows,
             "page_utilization": self.sched.alloc.utilization,
-            "rns_ops": ops,
+            "rns_ops": self._rns_ops(len(plan.admitted)),
             "prefill_tokens": sum(len(s.req.tokens) for s in plan.admitted),
             "decode_tokens": n_tokens,
             "ttft_ms": (1e3 * float(np.mean(self._step_ttfts))
@@ -272,6 +356,7 @@ class ContinuousEngine:
                 np.mean([s["page_utilization"] for s in steps]))
             if steps else 0.0,
             "n_preemptions": sum(len(s["preempted"]) for s in steps),
+            "captures": self.captures(),
             "steps": steps,
         }
         return out, stats
