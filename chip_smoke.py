@@ -88,7 +88,27 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 the card vs the CPU -- logits within LOGIT_TOL, every
                 greedy token equal; and the same with per-layer profiles
                 -- the same profiles selected on both devices.  The card's
-                engines here are captured.
+                engines here are captured;
+  [fractional]  Olsen fractional RNS (core/fractional.py) and fractional
+                residue tensors (frac_exp != 0).  With every launch count
+                set to 0: rns9 fractional weights at smollm-135m's MLP
+                widths through rt_dot (B.4), rt_matmul_decode (B.6) and
+                rt_decode of rt_matmul (B.2, B.3) on the decode and
+                prefill rows, each of B.3, B.4 and B.6 launched at least
+                once with M_f**-frac_exp in its weight table, the floats
+                bit-equal to the same calls on the CPU; then the
+                Mandelbrot demo (launch/mandelbrot.py) at 1920 x 1080, 256
+                iterations on rns12, captured and eager (equal escape
+                counts, one capture, pixel-iterations per second,
+                agreement with float64); a 256 x 256 crop of that view
+                captured, eager and on the CPU (equal escape counts, and
+                equal to the full render's window); the rns24_deep proof
+                (two c values one float64 apart, orbits that differ, as
+                on the CPU); and B.3, B.4 and B.6 with a scaled table
+                (rns9 at M_f**-1, M_f**-2 and M_f**-10, the last outside
+                float32) bit for bit against their plain versions at the
+                main path's decode and prefill inputs, one timed row of
+                each beside the same inputs unscaled.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -101,6 +121,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -1438,6 +1459,228 @@ def phase_identity(torch):
     print("[identity] ok")
 
 
+def _bit_equal(torch, got, want) -> bool:
+    """float32 results equal bit for bit (-0.0 is not 0.0; NaN == NaN)."""
+    return (got.shape == want.shape and got.dtype == want.dtype and
+            torch.equal(got.contiguous().view(torch.int32),
+                        want.contiguous().view(torch.int32)))
+
+
+def _traffic(torch, fn) -> tuple[int, int]:
+    """(ops, bytes) of one call of ``fn``, op by op at the aten level:
+    each tensor an op reads counted once, each tensor it writes once
+    (an in-place op's first argument as written only); views move
+    nothing.  The least traffic of running the same ops one kernel each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    tally = [0, 0]
+
+    def nbytes(t):
+        return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            if any(torch.is_tensor(o) and o._is_view() for o in outs):
+                return out
+            ins = [a for a in list(args) + list(kwargs.values())
+                   if torch.is_tensor(a)]
+            inplace = func._schema.name.endswith("_")
+            tally[0] += 1
+            tally[1] += sum(nbytes(t) for t in ins[int(inplace):]) + sum(
+                nbytes(o) for o in outs)
+            return out
+
+    with Count():
+        fn()
+    return tally[0], tally[1]
+
+
+def phase_fractional(torch, dev, record, launches):
+    """Fractional residue tensors through B.3/B.4/B.6 (counted), the
+    Mandelbrot demo full size and cropped (card captured / eager / CPU),
+    the deep proof, and the scaled kernels against their plain versions.
+    Adds its timed rows to ``record`` and its launches to ``launches``."""
+    import numpy as np
+
+    from repro_torch.core import fractional as fr
+    from repro_torch.core import tensor as rt
+    from repro_torch.core.moduli import get_profile
+    from repro_torch.launch import mandelbrot as mb
+
+    bad = []
+    p = get_profile("rns9")
+    D, N = 576, 1536                # smollm-135m's MLP widths
+    g = torch.Generator().manual_seed(5)
+
+    def frac(v, device, dtype):
+        """A fractional residue tensor (frac_exp 1) of the float ``v``."""
+        return rt.RnsTensor(fr.fr_encode(p, v.to(device)).to(dtype),
+                            torch.ones((), device=device), p.name,
+                            math.log2(float(v.abs().max()) * p.M_f + 1), 1)
+
+    w_i = torch.randn((D, N), generator=g) * 0.05      # wi / wg: D -> N
+    w_o = torch.randn((N, D), generator=g) * 0.05      # wo: N -> D
+    rows = {"decode": torch.randn((8, 1, D), generator=g),
+            "prefill": torch.randn((1, 144, D), generator=g)}
+    hs = {k: torch.randn(v.shape[:-1] + (N,), generator=g) * 0.5
+          for k, v in rows.items()}
+
+    def chain(device):
+        """rt_dot (B.4, frac_exp 1), rt_matmul_decode (B.6, frac_exp 2),
+        rt_decode(rt_matmul) (B.2 then B.3, frac_exp 2) on each row."""
+        Wi = frac(w_i, device, torch.int8)
+        Wo = frac(w_o, device, torch.int8)
+        out = {}
+        for k, x in rows.items():
+            A = frac(hs[k], device, torch.int32)
+            out[k + " dot"] = rt.rt_dot(x.to(device), Wi, bits=8,
+                                        backend="cuda_fused")
+            out[k + " matmul_decode"] = rt.rt_matmul_decode(
+                A, Wo, backend="cuda_fused")
+            out[k + " decode"] = rt.rt_decode(rt.rt_matmul(
+                A.astype_digits(torch.int8), Wo, backend="cuda"),
+                backend="cuda")
+        return out
+
+    _reset_launches()
+    got = chain(dev)
+    torch.cuda.synchronize()
+    launches["fractional"] = run = _launches()
+    want = chain("cpu")
+    for k, y in got.items():
+        x = rows[k.split()[0]].double()
+        ref = (x @ w_i.double() if k.endswith("dot")
+               else hs[k.split()[0]].double() @ w_o.double())
+        err = float((y.cpu().double() - ref).abs().max())
+        same = _bit_equal(torch, y.cpu(), want[k])
+        print(f"  frac_exp {1 if k.endswith('dot') else 2} {k}: "
+              f"{list(y.shape)} card == cpu bit for bit {same}, max |y - "
+              f"float64| = {err:.3g} (|ref| max "
+              f"{float(ref.abs().max()):.3g})")
+        if not same or not err <= 0.02 * float(ref.abs().max()):
+            bad.append(f"fractional chain {k}")
+    print(f"  launches on the fractional path: {run}")
+    for name in ("rns_normalize", "rns_fused_dot",
+                 "rns_fused_matmul_normalize"):
+        if not run[name]:
+            bad.append(f"{name} not launched on the fractional path")
+
+    # ---- the Mandelbrot demo, full size: captured, then eager
+    iters, (W, H) = 256, (1920, 1080)
+    cr, ci = mb.view(W, H)
+    probe = mb.MandelbrotRender("rns12", cr, ci, iters, device=dev,
+                                graphs=False)
+    n_ops, step_bytes = _traffic(torch, lambda: mb.mandelbrot_step(
+        probe.profile, iters, **probe.inputs))
+    del probe
+    bound_s = step_bytes * iters / HBM_BYTES_PER_S
+    print(f"  mandelbrot step: {n_ops} aten ops moving {step_bytes} bytes "
+          f"({step_bytes / (W * H):.1f} a pixel); bound of the render "
+          f"{bound_s:.4f} s (bytes)")
+    full, st = mb.render("rns12", cr, ci, iters, device=dev)
+    torch.cuda.empty_cache()
+    eager, st_e = mb.render("rns12", cr, ci, iters, device=dev,
+                            graphs=False)
+    torch.cuda.empty_cache()
+    agree = float(np.mean(mb.escape_f64(cr, ci, iters, device=dev) == full))
+    print(f"  mandelbrot rns12 {W}x{H} x {iters} iterations: captured "
+          f"{st['seconds']:.4f} s ({st['pixel_iters_per_s']:.6g} "
+          f"pixel-iterations/s, build {st['build_s']:.3f} s, captures "
+          f"{st['captures']}), eager {st_e['seconds']:.4f} s "
+          f"({st_e['pixel_iters_per_s']:.6g}/s); escape counts equal "
+          f"{np.array_equal(full, eager)}; agreement with float64 "
+          f"{agree:.6f}; captured / bound {st['seconds'] / bound_s:.3f}")
+    if not (np.array_equal(full, eager) and st["captures"] == 1
+            and st_e["captures"] == 0 and agree > 0.9):
+        bad.append("mandelbrot full render")
+
+    # ---- a 256 x 256 crop: captured, eager, on the CPU
+    r0, c0 = (H - 256) // 2, (W - 256) // 2
+    crop = (slice(r0, r0 + 256), slice(c0, c0 + 256))
+    runs = {"captured": mb.render("rns12", cr[crop], ci[crop], iters,
+                                  device=dev),
+            "eager": mb.render("rns12", cr[crop], ci[crop], iters,
+                               device=dev, graphs=False),
+            "cpu": mb.render("rns12", cr[crop], ci[crop], iters,
+                             device="cpu")}
+    same = all(np.array_equal(e, full[crop]) for e, _ in runs.values())
+    print("  mandelbrot crop 256x256 x 256: " + ", ".join(
+        f"{k} {v[1]['seconds']:.4f} s ({v[1]['pixel_iters_per_s']:.6g}/s)"
+        for k, v in runs.items())
+        + f"; escape counts equal (and equal to the full render's "
+        f"window) {same}")
+    if not same:
+        bad.append("mandelbrot crop: card captured / eager / cpu differ")
+
+    # ---- the deep proof
+    deep = mb.deep_precision_proof(dev)
+    deep_cpu = mb.deep_precision_proof("cpu")
+    print(f"  rns24_deep ({deep['frac_bits']:.1f} fractional bits): "
+          f"float64(c1) == float64(c0) {deep['f64_equal']}; orbits differ "
+          f"by {float(deep['diff']):.6e} after 30 iterations; card == cpu "
+          f"{deep['diff'] == deep_cpu['diff']}")
+    if not (deep["f64_equal"] and deep["diff"] != 0
+            and deep["diff"] == deep_cpu["diff"]):
+        bad.append("deep proof")
+
+    # ---- B.3, B.4, B.6 with a scaled table vs their plain versions
+    mods = _kernel_mods()
+    gd = torch.Generator(device=dev).manual_seed(6)
+    b_i = _residues(torch, p, (D, N), gd, dev).to(torch.int8)
+    b_o = _residues(torch, p, (N, D), gd, dev).to(torch.int8)
+    inputs = {}
+    for k, shape in (("decode", (8, 1)), ("prefill", (1, 144))):
+        x = torch.randn(shape + (D,), generator=gd, device=dev)
+        s = 127.0 / x.abs().amax(dim=-1, keepdim=True)
+        a = _residues(torch, p, shape + (N,), gd, dev)
+        inputs[k] = {"rns_normalize": (a,),
+                     "rns_fused_dot": (x, s, b_i),
+                     "rns_fused_matmul_normalize": (a, b_o)}
+    scales = {"M_f^-1": 1.0 / p.M_f, "M_f^-2": 1.0 / float(p.M_f) ** 2,
+              "M_f^-10": 1.0 / float(p.M_f) ** 10}
+    for kernel in ("rns_normalize", "rns_fused_dot",
+                   "rns_fused_matmul_normalize"):
+        wrapper = getattr(mods[kernel], kernel)
+        plain = getattr(mods[kernel], kernel + "_plain")
+        kw = {"bits": 8} if kernel == "rns_fused_dot" else {}
+        for row, ins in inputs.items():
+            args = ins[kernel]
+            label, nbytes, ops, rate = _cost(torch, kernel, p.n_digits, args,
+                                             kw)
+            for sname, inv in scales.items():
+                def fn(a=args, i=inv):
+                    return wrapper(p, *a, inv_scale=i, **kw)
+
+                def pl(a=args, i=inv):
+                    return plain(p, *a, inv_scale=i, **kw)
+
+                y, yp = fn(), pl()
+                ok = _bit_equal(torch, y, yp)
+                entry = {"case": f"rns9 {row} {label} inv_scale {sname}",
+                         "max_abs_err": _max_abs_err(torch, y, yp),
+                         "bit_equal": ok, "subnormal_weights": bool(
+                             inv * 1.0 < 2.0 ** -126)}
+                if row == "decode" and sname == "M_f^-2":
+                    b, by = _bound(nbytes, ops, rate)
+                    entry.update(
+                        ms=_time_ms(torch, fn, 20),
+                        unscaled_ms=_time_ms(
+                            torch, lambda a=args: wrapper(p, *a, **kw), 20),
+                        plain_ms=_time_ms(torch, pl, 5), bound_ms=b,
+                        bound_by=by, library_ms=None)
+                record.setdefault(kernel, []).append(entry)
+                print(f"  {kernel:26s} {entry['case']:60s} " + " ".join(
+                    f"{k}={v}" for k, v in entry.items() if k != "case"))
+                if not ok:
+                    bad.append(f"{kernel} {entry['case']}")
+    if bad:
+        raise AssertionError(f"[fractional] failed: {bad}")
+    print("[fractional] ok")
+
+
 def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
     matmul_src = "src/repro_torch/kernels/rns_matmul/csrc/rns_matmul.cu"
     mma_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused_mma.cu"
@@ -1476,7 +1719,8 @@ def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
             head = max(timed, key=lambda c: c.get("calls_in_serve", 0),
                        default={})
             by_path = {path: run.get(name, 0) for path, run in
-                       launches.items() if path.startswith("serve")}
+                       launches.items()
+                       if path.startswith("serve") or path == "fractional"}
             n = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src,
@@ -1534,7 +1778,9 @@ def main() -> int:
                                                       untuned)),
             ("kernels", lambda: phase_kernels(torch, dev, record, calls,
                                               launches)),
-            ("identity", lambda: phase_identity(torch))]:
+            ("identity", lambda: phase_identity(torch)),
+            ("fractional", lambda: phase_fractional(torch, dev, record,
+                                                    launches))]:
         print(f"[{name}]", flush=True)
         t0 = time.perf_counter()
         try:

@@ -24,6 +24,16 @@ that is not fused, or for a scale that cannot fold into one scale per
 activation row, they decompose into the primitives; the latter
 downgrade tallies ``fallbacks``.  Digit sharding is a later slice.
 
+``inv_scale`` (a static python float, e.g. ``M_f**-frac_exp`` of a
+fractional residue tensor) is folded into the float64 reconstruction
+weights on the host and rounded once to float32, on every backend: the
+kernels take the scaled weight table (``build.rns_tables_c``) and give
+the floats of ``mrc.decode_float(inv_scale=)``.  So no scale, inside
+float32's range or not, sends a decode to the plain path; the JAX
+package's Pallas path multiplies afterwards and, for a scale outside
+float32, decodes on its reference path and tallies a fallback (ROADMAP
+C.8).
+
 ``count_ops()`` tallies primitive calls; the port runs eagerly, so the
 tally is of calls made (the JAX package tallies at trace time, once per
 call site reached, which gives the same numbers per layer and step).
@@ -167,23 +177,19 @@ def matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
     return rns_matmul(profile, a_res, b_res)
 
 
-def normalize(profile, res: torch.Tensor, *,
+def normalize(profile, res: torch.Tensor, *, inv_scale: float = 1.0,
               backend: str | None = None) -> torch.Tensor:
-    """MRC-normalize residues [K, ...] to signed float32 values.
-
-    The scaled form of ``repro.core.dispatch.normalize`` (its
-    ``inv_scale``) serves only fractional residue tensors (``frac_exp``
-    != 0, ROADMAP A.10), which the port does not have yet.
-    """
+    """MRC-normalize residues [K, ...] to signed float32 values times
+    ``inv_scale`` (folded into the weights, see the module docstring)."""
     _tally("normalizes")
     be = _unfused(backend, res)
     if be == "reference":
         from repro_torch.core import mrc
 
-        return mrc.decode_float(profile, res)
+        return mrc.decode_float(profile, res, inv_scale=inv_scale)
     from repro_torch.kernels.rns_normalize.ops import rns_normalize
 
-    return rns_normalize(profile, res)
+    return rns_normalize(profile, res, inv_scale=inv_scale)
 
 
 # ------------------------------------------------- fused composites ----
@@ -227,25 +233,28 @@ def fused_encode_matmul(profile, x: torch.Tensor, scale, w_res, *,
 
 
 def fused_matmul_normalize(profile, a_res: torch.Tensor, b_res, *,
+                           inv_scale: float = 1.0,
                            backend: str | None = None):
-    """matmul -> normalize as one kernel: [..., N] float32, unscaled.
-    Tallies a matmul, a normalize and a ``fused``."""
+    """matmul -> normalize as one kernel: [..., N] float32 times
+    ``inv_scale``.  Tallies a matmul, a normalize and a ``fused``."""
     p = get_profile(profile)
     if not fusion_active(p, backend):
         ub = _unfused(backend, a_res)
-        return normalize(p, matmul(p, a_res, b_res, backend=ub), backend=ub)
+        return normalize(p, matmul(p, a_res, b_res, backend=ub),
+                         inv_scale=inv_scale, backend=ub)
     _tally("matmuls")
     _tally("normalizes")
     _tally("fused")
     from repro_torch.kernels.rns_fused.ops import rns_fused_matmul_normalize
 
-    return rns_fused_matmul_normalize(p, a_res, b_res)
+    return rns_fused_matmul_normalize(p, a_res, b_res, inv_scale=inv_scale)
 
 
 def fused_dot(profile, x: torch.Tensor, scale, w_res, *, bits: int = 16,
-              backend: str | None = None, shared_encode: bool = False):
+              inv_scale: float = 1.0, backend: str | None = None,
+              shared_encode: bool = False):
     """convert -> matmul -> normalize as one kernel: floats in, [..., N]
-    float32 out, unscaled.  Tallies a convert (none with
+    float32 times ``inv_scale`` out.  Tallies a convert (none with
     ``shared_encode``: x's conversion was tallied by a sibling composite
     over the same x; the kernel still quantizes x itself), a matmul, a
     normalize and a ``fused``."""
@@ -253,7 +262,8 @@ def fused_dot(profile, x: torch.Tensor, scale, w_res, *, bits: int = 16,
     if not _fuse(p, x, scale, backend):
         ub = _unfused(backend, x)
         res = convert(p, x, scale, bits=bits, backend=ub)
-        return normalize(p, matmul(p, res, w_res, backend=ub), backend=ub)
+        return normalize(p, matmul(p, res, w_res, backend=ub),
+                         inv_scale=inv_scale, backend=ub)
     if not shared_encode:
         _tally("converts")
     _tally("matmuls")
@@ -261,4 +271,4 @@ def fused_dot(profile, x: torch.Tensor, scale, w_res, *, bits: int = 16,
     _tally("fused")
     from repro_torch.kernels.rns_fused.ops import rns_fused_dot
 
-    return rns_fused_dot(p, x, scale, w_res, bits=bits)
+    return rns_fused_dot(p, x, scale, w_res, bits=bits, inv_scale=inv_scale)

@@ -18,7 +18,7 @@ import threading
 import torch
 
 __all__ = ["token_mask", "current_token_mask", "absmax_scale",
-           "quantize_with_scale"]
+           "quantize_with_scale", "quantize", "dequantize"]
 
 _state = threading.local()          # per-thread token-mask stack
 
@@ -97,3 +97,14 @@ def quantize_with_scale(x: torch.Tensor, s, bits: int) -> torch.Tensor:
     qmax = 2 ** (bits - 1) - 1
     return torch.clamp(torch.round(x.to(torch.float32) * s),
                        -qmax, qmax).to(torch.int32)
+
+
+def quantize(x: torch.Tensor, bits: int, axis=None):
+    """(int32 values, scale) on the absmax grid: v = clip(round(x*s))."""
+    s = absmax_scale(x, bits, axis=axis)
+    return quantize_with_scale(x, s, bits), s
+
+
+def dequantize(v: torch.Tensor, s) -> torch.Tensor:
+    """v / s in float32 (a true division)."""
+    return v.to(torch.float32) / s

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from repro_torch.core.rns import tables
+from repro_torch.core.rns import f32_weights, tables
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "RNS_MAX_K", "RNS_PAIRS", "rns_pair",
            "RnsTablesC", "rns_tables_c", "mulhi_magic", "mulhi_offset",
@@ -94,11 +94,15 @@ def mrc_offset(m: int) -> int:
     return m * -(-256 // m)
 
 
-@functools.lru_cache(maxsize=None)
-def rns_tables_c(profile) -> RnsTablesC:
+@functools.lru_cache(maxsize=256)
+def rns_tables_c(profile, inv_scale: float = 1.0) -> RnsTablesC:
     """The profile's tables laid out as ``RnsTablesC``.  The float32
-    weights are copied as float32 bits (``Tables.W_f32``), never cast
-    through ``ctypes.c_float``."""
+    weights are copied as float32 bits, never cast through
+    ``ctypes.c_float``: ``Tables.W_f32``, or with ``inv_scale`` the
+    weights W_j * inv_scale taken in float64 and rounded once to float32
+    (``f32_weights``, the weights of ``mrc.decode_float(inv_scale=)``;
+    inf, subnormal or 0 past float32's range).  Only ``w`` depends on
+    the scale; the kernels read it nowhere else."""
     t = tables(profile)
     K = t.profile.n_digits
     if K > RNS_MAX_K:
@@ -108,7 +112,8 @@ def rns_tables_c(profile) -> RnsTablesC:
     buf[1:1 + K] = t.moduli
     buf[1 + RNS_MAX_K:1 + RNS_MAX_K + K] = t.half_digits
     o = 1 + 2 * RNS_MAX_K
-    buf[o:o + K] = t.W_f32.view(np.int32)
+    w = t.W_f32 if inv_scale == 1.0 else f32_weights(t.W_f64 * inv_scale)
+    buf[o:o + K] = w.view(np.int32)
     o += RNS_MAX_K
     ms = [int(m) for m in t.moduli]
     buf[o:o + K] = np.array([mulhi_magic(m) for m in ms],

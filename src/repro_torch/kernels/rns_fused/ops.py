@@ -46,7 +46,11 @@ measured slower in both main-path rows; it is the design candidate
 ``scripts/kernel_variants.py`` (PERF.md).
 
 The scale travels as one float per run of ``group`` activation rows (a
-scalar, per-row or per-token grid, never expanded to x's shape).  Output
+scalar, per-row or per-token grid, never expanded to x's shape).  The
+output scale ``inv_scale`` of the dot and the matmul + normalize (a
+fractional residue tensor's ``M_f**-frac_exp``) travels inside the
+epilogue's weight table (``build.rns_tables_c(p, inv_scale)``), as
+``rns_normalize`` takes it.  Output
 tiles are chosen per shape bucket through ``kernels/autotune.py`` among
 the compiled tiles (template instantiations, ``FUSED_MMA_TILES``).
 
@@ -152,18 +156,21 @@ def rns_fused_encode_matmul_plain(profile, x, scale, b_res, *,
     return rns_matmul_plain(p, res, b_res)
 
 
-def rns_fused_matmul_normalize_plain(profile, a_res,
-                                     b_res) -> torch.Tensor:
-    """``rns_matmul_res`` -> ``mrc.decode_float``: [..., N] float32."""
+def rns_fused_matmul_normalize_plain(profile, a_res, b_res, *,
+                                     inv_scale: float = 1.0) -> torch.Tensor:
+    """``rns_matmul_res`` -> ``mrc.decode_float(inv_scale=)``: [..., N]
+    float32."""
     return rns_normalize_plain(profile,
-                               rns_matmul_plain(profile, a_res, b_res))
+                               rns_matmul_plain(profile, a_res, b_res),
+                               inv_scale=inv_scale)
 
 
-def rns_fused_dot_plain(profile, x, scale, b_res, *,
-                        bits: int = 16) -> torch.Tensor:
-    """convert -> matmul -> normalize: [..., N] float32 (unscaled)."""
+def rns_fused_dot_plain(profile, x, scale, b_res, *, bits: int = 16,
+                        inv_scale: float = 1.0) -> torch.Tensor:
+    """convert -> matmul -> normalize: [..., N] float32 times
+    ``inv_scale``."""
     return rns_normalize_plain(profile, rns_fused_encode_matmul_plain(
-        profile, x, scale, b_res, bits=bits))
+        profile, x, scale, b_res, bits=bits), inv_scale=inv_scale)
 
 
 # ------------------------------------------------------------ wrappers ----
@@ -201,9 +208,10 @@ def _row_scales(name, x, scale):
     return _scale_runs(lead, scale.to(torch.float32))
 
 
-def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
+def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk,
+                    inv_scale=1.0):
     """Launch rns_fused_encode_matmul or rns_fused_dot (rns_fused_mma.cu)
-    into ``out``."""
+    into ``out``; ``inv_scale`` scales the dot's weight table."""
     D, N = x.shape[-1], b_res.shape[-1]
     b2 = _check_b(name, p, b_res, D, x.device)
     if p.n_digits not in SUPPORTED_K:
@@ -216,8 +224,8 @@ def _quantized_call(name, p, x, scale, b_res, bits, out, key, blk):
         args = [x2.data_ptr(), s.data_ptr(), group,
                 float(2 ** (bits - 1) - 1), b2.data_ptr(),
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
-                ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
-                blk["bm"], blk["bn"]]
+                ctypes.byref(build.rns_tables_c(p, float(inv_scale))),
+                out.data_ptr(), blk["bm"], blk["bn"]]
         lib = build.load("rns_fused_mma", SOURCE, _bind)
         args += _split_args(name, p, M, D, N, blk, dev)
         with torch.cuda.device(dev):
@@ -256,10 +264,12 @@ def rns_fused_encode_matmul(profile, x: torch.Tensor, scale,
 
 
 def rns_fused_dot(profile, x: torch.Tensor, scale, b_res: torch.Tensor, *,
-                  bits: int = 16, bm: int | None = None,
+                  bits: int = 16, inv_scale: float = 1.0,
+                  bm: int | None = None,
                   bn: int | None = None) -> torch.Tensor:
     """x [..., D] float + row scales, b_res [K, D, N] -> [..., N] float32
-    signed values (unscaled) of ``convert(x, scale) @ b_res``.
+    signed values of ``convert(x, scale) @ b_res`` times ``inv_scale``
+    (folded into the weight table).
 
     The (bm, bn) output tile resolves through ``autotune.resolve``, which
     gates it with ``check_wrapper_blocks``.  A CPU tensor takes the
@@ -271,20 +281,24 @@ def rns_fused_dot(profile, x: torch.Tensor, scale, b_res: torch.Tensor, *,
                                           x.shape[-1], b_res.shape[-1]),
                                 x.device, bm=bm, bn=bn)
     if x.device.type == "cpu" and b_res.device.type == "cpu":
-        return rns_fused_dot_plain(p, x, scale, b_res, bits=bits)
+        return rns_fused_dot_plain(p, x, scale, b_res, bits=bits,
+                                   inv_scale=inv_scale)
     if not x.is_cuda:
         raise ValueError(f"rns_fused_dot: x on {x.device}")
     lead, N = tuple(x.shape[:-1]), b_res.shape[-1]
     out = torch.empty(lead + (N,), dtype=torch.float32, device=x.device)
-    return _quantized_call(name, p, x, scale, b_res, bits, out, key, blk)
+    return _quantized_call(name, p, x, scale, b_res, bits, out, key, blk,
+                           inv_scale)
 
 
 def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
                                b_res: torch.Tensor, *,
+                               inv_scale: float = 1.0,
                                bm: int | None = None,
                                bn: int | None = None) -> torch.Tensor:
     """a_res [K, ..., D] (int8 or int32), b_res [K, D, N] -> [..., N]
-    float32 signed values (unscaled) of ``a_res @ b_res``.
+    float32 signed values of ``a_res @ b_res`` times ``inv_scale``
+    (folded into the weight table).
 
     The (bm, bn) output tile resolves through ``autotune.resolve``, which
     gates it with ``check_wrapper_blocks``.  A CPU tensor takes the
@@ -296,7 +310,8 @@ def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
                                           a_res.shape[-1], b_res.shape[-1]),
                                 a_res.device, bm=bm, bn=bn)
     if a_res.device.type == "cpu" and b_res.device.type == "cpu":
-        return rns_fused_matmul_normalize_plain(p, a_res, b_res)
+        return rns_fused_matmul_normalize_plain(p, a_res, b_res,
+                                                inv_scale=inv_scale)
     if not a_res.is_cuda:
         raise ValueError(f"{name}: a_res on {a_res.device}")
     K, D, N = p.n_digits, a_res.shape[-1], b_res.shape[-1]
@@ -319,8 +334,8 @@ def rns_fused_matmul_normalize(profile, a_res: torch.Tensor,
             err = lib.rns_fused_matmul_normalize(
                 a2.data_ptr(), int(a2.dtype == torch.int8), b2.data_ptr(),
                 int(b2.dtype == torch.int8), M, N, D, p.lazy_chunk - 1,
-                ctypes.byref(build.rns_tables_c(p)), out.data_ptr(),
-                blk["bm"], blk["bn"], splits, ws, cnt,
+                ctypes.byref(build.rns_tables_c(p, float(inv_scale))),
+                out.data_ptr(), blk["bm"], blk["bn"], splits, ws, cnt,
                 torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, name)
         launches[name] += 1

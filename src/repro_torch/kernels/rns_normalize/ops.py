@@ -27,7 +27,12 @@ instruction-bound.  The design has no division and one pass:
   bit to ``core/mrc.decode_float`` (ROADMAP C.1).
 
 Wide profiles whose W_j overflow float32 (rns21) get the same inf/NaN
-the float32 reference gives.  Tables travel by value as a kernel
+the float32 reference gives.  A scale (``inv_scale``, the
+``M_f**-frac_exp`` of a fractional residue tensor) travels inside the
+weights: W_j * inv_scale rounded once to float32 on the host, as
+``mrc.decode_float(inv_scale=)`` rounds them, so the kernel is the same
+at any scale (subnormal weights included: nvcc's default keeps
+denormals).  Tables travel by value as a kernel
 argument (``build.RnsTablesC``), so any number of profiles can be in
 use at once.  Threads per block (the tile ``bt``) are a launch
 parameter, chosen per shape bucket through ``kernels/autotune.py``;
@@ -62,16 +67,17 @@ def _bind(lib):
     lib.rns_normalize.restype = ctypes.c_int
 
 
-def rns_normalize_plain(profile, res: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``core/mrc.decode_float`` unscaled (MRC,
-    sign, magnitude MRC, float32 digit-ascending sum, one rounding per
-    op)."""
-    return mrc.decode_float(profile, res)
+def rns_normalize_plain(profile, res: torch.Tensor, *,
+                        inv_scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version: ``core/mrc.decode_float`` (MRC, sign,
+    magnitude MRC, float32 digit-ascending sum, one rounding per op)."""
+    return mrc.decode_float(profile, res, inv_scale=inv_scale)
 
 
-def rns_normalize(profile, res: torch.Tensor, *,
+def rns_normalize(profile, res: torch.Tensor, *, inv_scale: float = 1.0,
                   bt: int | None = None) -> torch.Tensor:
-    """res [K, ...] int residues -> [...] float32 signed values (unscaled).
+    """res [K, ...] int residues -> [...] float32 signed values times
+    ``inv_scale`` (folded into the weight table).
 
     Residues must be reduced: ``res[j]`` in ``[0, m_j)``, as every
     producer in the port leaves them (the kernel's multiply-high mods
@@ -89,7 +95,7 @@ def rns_normalize(profile, res: torch.Tensor, *,
                                 res.device, gate=p.n_digits in SUPPORTED_K,
                                 bt=bt)
     if res.device.type == "cpu":
-        return rns_normalize_plain(p, res)
+        return rns_normalize_plain(p, res, inv_scale=inv_scale)
     if not res.is_cuda:
         raise ValueError(f"rns_normalize: residues on {res.device}")
     K = p.n_digits
@@ -104,7 +110,8 @@ def rns_normalize(profile, res: torch.Tensor, *,
         lib = build.load("rns_normalize", SOURCE, _bind)
         with torch.cuda.device(res.device):
             err = lib.rns_normalize(
-                flat.data_ptr(), T, ctypes.byref(build.rns_tables_c(p)),
+                flat.data_ptr(), T,
+                ctypes.byref(build.rns_tables_c(p, float(inv_scale))),
                 out.data_ptr(), blk["bt"],
                 torch.cuda.current_stream(res.device).cuda_stream)
         build.check(err, "rns_normalize")

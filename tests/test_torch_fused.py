@@ -198,8 +198,14 @@ def test_rt_mul_add_and_frac_exp():
     js, jout = run(jt, jnp.asarray)
     np.testing.assert_array_equal(out.numpy(), _np(jout))
     assert s.mag_bits == js.mag_bits
-    with pytest.raises(NotImplementedError, match="A.10"):
-        rt.RnsTensor(s.digits, s.scale, "rns9", 20.0, frac_exp=1)
+    # a fractional residue tensor (frac_exp != 0) decodes as JAX's does
+    f = rt.rt_decode(rt.RnsTensor(s.digits, s.scale, "rns9", 20.0,
+                                  frac_exp=1))
+    jf = jt.rt_decode(jt.RnsTensor(js.digits, js.scale, "rns9", 20.0,
+                                   frac_exp=1))
+    np.testing.assert_array_equal(f.numpy(), _np(jf))
+    assert f.numpy().view(np.int32).tolist() == _np(jf).view(
+        np.int32).tolist()
 
 
 # ------------------------------------------- plain fused kernels vs ref ---
