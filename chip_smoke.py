@@ -29,9 +29,10 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 replayed from CUDA graphs): the same greedy tokens and
                 rns_ops as the eager serve, each phase captured once,
                 and torch.profiler's count of the kernels in one
-                replayed decode step equal to the eager launches.  Each
-                serve is re-served under torch.profiler for the device's
-                idle share, and the two are printed side by side;
+                replayed decode step equal to the eager launches.  The
+                captured serve is re-served under torch.profiler for the
+                device's idle share, and the two are printed side by
+                side;
   [serve_fused] the same on the fused path: resident weights (encoded
                 once at engine build), the deferred MLP and the fused
                 kernels (``rns_backend="cuda_fused"``), with the
@@ -42,9 +43,28 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 (``per_layer_profiles=True``): every layer on the
                 profile its weights select (rns7 for these weights), 120
                 launches a decode step, tokens equal to [serve_fused]'s;
+  [serve_chunked] the [serve] traffic with chunked prefill (every step
+                one packed mixed step over 64 lanes, prefill chunks of at
+                most 32 tokens) on the per-op path and on the fused path,
+                eager (counts from 0, every distinct wrapper call
+                recorded: the packed shapes [tune] and [kernels] take up;
+                each step's launches the path's decode step's) then
+                captured (one mixed program captured once across every
+                phase mix, the eager serve's tokens and rns_ops); greedy
+                tokens equal to [serve]'s and [serve_fused]'s; one
+                replayed mixed step, and one replayed decode step of
+                each untuned serve, listed by kernel name, top 20 by
+                device time (torch.profiler);
+  [serve_prefix] a chat service's traffic -- a 96-token system prompt, a
+                user turn of 7-40 tokens a request, the first request
+                sent again -- on the per-op path, captured: without the
+                prefix cache, with it (prompt_pad 144) and with it
+                chunked; tokens equal to the uncached serve's, pages
+                shared, cached tokens served, the regenerate's partial
+                tail split copy-on-write (the copy captured once);
   [tune]        with the block table pointed at a fresh file under
                 build/, tune every kernel kind at every shape bucket the
-                three serves gave the wrappers (on the recorded inputs),
+                serves gave the wrappers (on the recorded inputs),
                 and flash_attention at smollm-135m's attention geometry
                 (Tq = Tk = 120 and 2048, causal): every legal candidate
                 is held against the plain version and timed, and every
@@ -194,6 +214,18 @@ SASS_MMA = {"rns_matmul": "IMMA", "rns_fused_mma": "IMMA",
             "flash_attention": "HMMA"}
 
 SERVE = dict(requests=6, prompt_lens=(7, 33, 120), new=16, max_seqs=8)
+# [serve_chunked]: the SERVE traffic through one packed mixed step of 64
+# lanes with prefill chunks of at most 32 tokens, on each path; its
+# tokens are held to the whole-prompt serve of the path named
+CHUNKED_SERVE = dict(chunked_prefill=True, token_budget=64, chunk_size=32)
+CHUNKED_PATHS = {"serve_chunked": ("serve", {}),
+                 "serve_chunked_fused": ("serve_fused", FUSED_SERVE)}
+# [serve_prefix]: a chat service with one system prompt -- 96 shared
+# tokens (six pages), a user turn of 7-40 tokens a request, and the
+# first request sent again (a regenerate); three rows at a time, so
+# later requests find the prefix cached
+PREFIX_SERVE = dict(seed=7, shared=96, tails=(7, 19, 40, 12, 33),
+                    max_seqs=3, prompt_pad=144)
 IDENTITY_LAYERS = 4
 # Card vs CPU first-step logits (|logit| <= ~2 at this config).  The two
 # devices' float32 ops (attention, norms) differ in the last bits; the
@@ -583,6 +615,196 @@ def phase_serve_per_layer(torch, launches, calls, untuned):
                              "[serve_fused]'s")
     print(f"  serve_per_layer: profiles {profiles}; greedy tokens equal to "
           "[serve_fused]'s")
+
+
+def _mixed_numbers(stats) -> dict:
+    steps = stats["steps"]
+    mixed = [s for s in steps if s["prefill_tokens"] and s["decode_tokens"]]
+    return {
+        "mixed_steps": len(mixed),
+        "step_ms_median": 1e3 * statistics.median(
+            s["step_time_s"] for s in steps),
+        "mixed_step_ms_median": (1e3 * statistics.median(
+            s["step_time_s"] for s in mixed) if mixed else None),
+        "ttft_p95_s": stats["ttft_p95_s"],
+        "prefill_tokens": sum(s["prefill_tokens"] for s in steps)}
+
+
+def phase_serve_chunked(torch, launches, calls, untuned):
+    """The [serve] traffic through chunked prefill (CHUNKED_SERVE: every
+    step one packed mixed step of 64 lanes, chunks of 32), on the
+    per-op and the fused path, eager then captured.  The eager serve
+    runs with counts from 0 and every distinct wrapper call recorded and
+    merged into ``calls`` (the packed shapes [kernels] checks and
+    times); every step runs the mixed program once, so each step's
+    launches are the path's decode step's.  The captured serve captures
+    one mixed program across every phase mix.  Greedy tokens equal the
+    whole-prompt serve's ([serve], [serve_fused])."""
+    from repro_torch.launch.serve import serve
+
+    out = {}
+    for label, (base, serve_kw) in CHUNKED_PATHS.items():
+        if base not in untuned:
+            raise AssertionError(f"[{base}] did not run: nothing to compare "
+                                 "with")
+        per_step = {k: v * FULL_LAYERS
+                    for k, v in SERVE_PATHS[base][1].items()}
+        want_launch = DECODE_LAUNCHES[base]
+        _reset_launches()
+        steps_log: list = []
+        path_calls: dict = {}
+        in_step: dict = {}
+        t0 = time.perf_counter()
+        with _recording(torch, path_calls, None, in_step), \
+                _step_launches(steps_log, in_step):
+            engine, results, stats = serve(
+                "smollm-135m", full=True, rns="rns9", device="cuda",
+                graphs=False, **SERVE, **CHUNKED_SERVE, **serve_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = run = _launches()
+        steps = stats["steps"]
+        if set(engine.programs) != {"mixed"}:
+            raise AssertionError(f"{label}: programs {sorted(engine.programs)}")
+        for st in steps:            # the JAX engine's rule: mixed each step
+            if st["rns_ops"].as_dict() != per_step:
+                raise AssertionError((label, st["step"], st["rns_ops"]))
+        for st, lc in steps_log:
+            if lc != want_launch:
+                raise AssertionError((label, st["step"], lc))
+        for k, n in run.items():
+            if (n > 0) != (want_launch[k] > 0):
+                raise AssertionError((label, k, n))
+        if not any(st["prefill_tokens"] and st["decode_tokens"]
+                   for st in steps):
+            raise AssertionError(f"{label}: no step mixed both phases")
+        for key, entry in path_calls.items():
+            if key in calls:
+                calls[key]["calls"] += entry["calls"]
+            else:
+                calls[key] = entry
+        tokens = _tokens(results)
+        if tokens != untuned[base][1]:
+            raise AssertionError(f"{label}: eager greedy tokens differ from "
+                                 f"[{base}]'s (whole-prompt prefill)")
+        eager = _serve_numbers(engine, stats, wall, steps_log[-1][1])
+        eager.update(_mixed_numbers(stats), launches=dict(run),
+                     distinct_calls=len(path_calls),
+                     rns_kernels_per_step=sum(want_launch.values()))
+        del engine
+
+        t0 = time.perf_counter()
+        cengine, cresults, cstats = serve(
+            "smollm-135m", full=True, rns="rns9", device="cuda", graphs=True,
+            **SERVE, **CHUNKED_SERVE, **serve_kw)
+        torch.cuda.synchronize()
+        cwall = time.perf_counter() - t0
+        if _tokens(cresults) != tokens:
+            raise AssertionError(f"{label}: captured greedy tokens differ "
+                                 "from the eager serve's")
+        if [st["rns_ops"].as_dict() for st in cstats["steps"]] != [
+                st["rns_ops"].as_dict() for st in steps]:
+            raise AssertionError(f"{label}: captured rns_ops differ")
+        if cstats["captures"] != {"mixed": 1}:
+            raise AssertionError(f"{label}: captures {cstats['captures']}")
+        captured = _serve_numbers(cengine, cstats, cwall, None)
+        captured.update(_mixed_numbers(cstats))
+        captured.update(_profile_serve(torch, cengine, cresults,
+                                       cstats["wall_s"]))
+        if cengine.captures() != {"mixed": 1}:
+            raise AssertionError(f"{label}: re-serve recaptured: "
+                                 f"{cengine.captures()}")
+        replay = _replay_kernels(torch, cengine, "mixed")
+        captured["replayed_mixed_step"] = replay
+        captured["rns_kernels_per_step"] = replay["rns_kernels"]
+        want_rns = {k: n for k, n in want_launch.items() if n}
+        if replay["by_kernel"] != want_rns:
+            raise AssertionError(f"{label}: a replayed mixed step ran "
+                                 f"{replay['by_kernel']}, want {want_rns}")
+        _print_top(f"{label} mixed", replay)
+        del cengine
+        out[label] = {"eager": eager, "captured": captured}
+        print(json.dumps({label: out[label]}))
+        for name in SIDE_BY_SIDE + ("mixed_step_ms_median", "step_ms_median",
+                                    "mixed_steps"):
+            print(f"  {label} {name}: eager {eager.get(name, 'not measured')}"
+                  f", captured {captured.get(name, 'not measured')}")
+        print(f"  {label}: greedy tokens equal to [{base}]'s, captures "
+              f"{cstats['captures']}")
+    return out
+
+
+def _prefix_prompts(vocab: int):
+    """PREFIX_SERVE's traffic: one system prompt, a user turn a request,
+    and a regenerate of the first request as the last."""
+    import numpy as np
+
+    rng = np.random.default_rng(PREFIX_SERVE["seed"])
+    system = rng.integers(0, vocab, (PREFIX_SERVE["shared"],))
+    prompts = [np.concatenate([system, rng.integers(0, vocab, (n,))]).astype(
+        np.int32) for n in PREFIX_SERVE["tails"]]
+    return prompts + [prompts[0].copy()]
+
+
+def phase_serve_prefix(torch, launches):
+    """Shared-prefix traffic (PREFIX_SERVE) on the per-op path, captured:
+    without the prefix cache (the reference), with it phase-barrier
+    (prompt_pad 144), and with it chunked.  Greedy tokens equal the
+    uncached serve's; the cached serves share pages, serve cached
+    tokens and split the regenerate's partial tail copy-on-write."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+
+    prompts = _prefix_prompts(get_config("smollm-135m").vocab)
+    common = dict(full=True, rns="rns9", device="cuda", graphs=True,
+                  prompts=prompts, new=SERVE["new"],
+                  max_seqs=PREFIX_SERVE["max_seqs"])
+    runs = {
+        "uncached": dict(prompt_pad=PREFIX_SERVE["prompt_pad"]),
+        "cached": dict(prompt_pad=PREFIX_SERVE["prompt_pad"],
+                       prefix_cache=True),
+        "cached_chunked": dict(prefix_cache=True, **CHUNKED_SERVE),
+    }
+    want_captures = {"uncached": {"decode": 1, "prefill": 1},
+                     "cached": {"decode": 1, "prefill": 1, "cow": 1},
+                     "cached_chunked": {"mixed": 1, "cow": 1}}
+    _reset_launches()
+    out, ref = {}, None
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        engine, results, stats = serve("smollm-135m", **common, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = _tokens(results)
+        ref = tokens if ref is None else ref
+        row = {k: stats[k] for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p95_s", "wall_s", "n_steps",
+            "cache_hit_tokens", "pages_shared", "pages_allocated",
+            "cow_splits", "captures")}
+        row.update(setup_and_run_s=wall, prompt_pad=engine.prompt_pad,
+                   prefill_tokens=sum(s["prefill_tokens"]
+                                      for s in stats["steps"]))
+        out[name] = row
+        print(f"  serve_prefix {name}: " + " ".join(
+            f"{k}={v}" for k, v in row.items()))
+        if stats["captures"] != want_captures[name]:
+            raise AssertionError(f"serve_prefix {name}: captures "
+                                 f"{stats['captures']}")
+        if tokens != ref:
+            raise AssertionError(f"serve_prefix {name}: greedy tokens differ "
+                                 "from the uncached serve's")
+        if name != "uncached" and min(row["cache_hit_tokens"],
+                                      row["pages_shared"],
+                                      row["cow_splits"]) <= 0:
+            raise AssertionError(f"serve_prefix {name}: no sharing: {row}")
+        if tokens[len(prompts) - 1] != tokens[0]:
+            raise AssertionError("serve_prefix: the regenerate differs")
+        del engine
+    launches["prefix"] = _launches()
+    print(json.dumps({"serve_prefix": out}))
+    print("  serve_prefix: greedy tokens equal to the uncached serve's, "
+          "phase-barrier and chunked")
+    return out
 
 
 def phase_kernels(torch, dev, record, calls, launches):
@@ -1043,38 +1265,66 @@ def _kernel_kind(name: str) -> str | None:
     return None
 
 
-def _replay_kernels(torch, engine) -> dict:
+def _replay_kernels(torch, engine, program: str = "decode") -> dict:
     """Kernels torch.profiler sees in one replay of the engine's captured
-    decode step, by wrapper (and by kernel name), on the trash page: the
-    tables are zeroed first and no row is active."""
+    ``program`` ("decode" or "mixed"), by wrapper, by kernel name, and
+    the top 20 kernel names by device time, on the trash page: the
+    tables are zeroed first, no row is active and every lane is a pad
+    lane."""
     from torch.profiler import ProfilerActivity, profile
 
-    prog = engine.programs["decode"]
+    prog = engine.programs[program]
     if prog.graph is None:
-        raise AssertionError("the decode step was not captured")
+        raise AssertionError(f"the {program} step was not captured")
     engine.cache.block_table.zero_()
     engine.cache.lengths.zero_()
-    R = engine.pcfg.max_seqs
-    token = torch.zeros((R, 1), dtype=torch.int64)
-    active = torch.zeros((R,), dtype=torch.bool)
+    if program == "decode":
+        R = engine.pcfg.max_seqs
+        inputs = {"token": torch.zeros((R, 1), dtype=torch.int64),
+                  "active": torch.zeros((R,), dtype=torch.bool)}
+    else:
+        N = engine.scfg.token_budget
+        inputs = {"tokens": torch.zeros((N,), dtype=torch.int64),
+                  "seg": torch.full((N,), -1, dtype=torch.int64),
+                  "pos": torch.zeros((N,), dtype=torch.int64),
+                  "dec": torch.zeros((N,), dtype=torch.bool),
+                  "valid": torch.zeros((N,), dtype=torch.bool)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prog.run(token=token, active=active)
+        prog.run(**inputs)
         torch.cuda.synchronize()
-    by_kind, by_name, total = {}, {}, 0
+    by_kind, by_name, total, device_us, timed = {}, {}, 0, 0.0, []
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
             continue
         total += ev.count
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        device_us += dt
+        timed.append((dt, ev.count, ev.key[:120]))
         kind = _kernel_kind(ev.key)
         if kind is not None:
             by_kind[kind] = by_kind.get(kind, 0) + ev.count
             by_name[ev.key[:120]] = by_name.get(ev.key[:120], 0) + ev.count
+    top = [{"kernel": name, "calls": n, "device_us": dt,
+            "share": dt / device_us if device_us else None}
+           for dt, n, name in sorted(timed, reverse=True)[:20]]
     return {"by_kernel": by_kind, "rns_kernels": sum(by_kind.values()),
-            "all_kernels": total, "names": by_name}
+            "all_kernels": total, "names": by_name,
+            "device_ms": device_us / 1e3, "top20_by_device_time": top}
+
+
+def _print_top(label: str, replay: dict):
+    print(f"  {label}: one replayed step, {replay['all_kernels']} kernels, "
+          f"{replay['device_ms']:.4f} ms of device time; top 20 by time:")
+    for row in replay["top20_by_device_time"]:
+        share = row["share"] if row["share"] is not None else float("nan")
+        print(f"    {row['device_us']:10.2f} us {share:6.1%} "
+              f"x{row['calls']:<4d} {row['kernel']}")
 
 
 def _serve_numbers(engine, stats, wall, decode_launches) -> dict:
@@ -1108,10 +1358,9 @@ def phase_serve(torch, path: str, launches: dict, calls: dict, *,
     every distinct wrapper call recorded and merged into ``calls``;
     ``launches[run label]`` gets its launches.  The captured serve must
     give its tokens and rns_ops, capture each phase once, and replay
-    the eager decode step's kernels.  The captured serve, and the eager
-    serves of [serve] and [serve_fused], are re-served under
-    torch.profiler (the profiler's own processing of an eager serve
-    takes tens of seconds).  ``rerun``: a run of [serve_tuned],
+    the eager decode step's kernels.  The captured serve is re-served
+    under torch.profiler (an eager serve is not: the profiler's own
+    processing of one takes two minutes).  ``rerun``: a run of [serve_tuned],
     labelled ``<path>_<rerun>``, with every launch held to the block
     table in force and no merge into ``calls``.  Returns ({"eager":
     numbers, "captured": numbers}, greedy tokens)."""
@@ -1123,7 +1372,6 @@ def phase_serve(torch, path: str, launches: dict, calls: dict, *,
     serve_kw, per_layer_ops = SERVE_PATHS[path]
     label = f"{path}_{rerun}" if rerun else path
     off_table: list | None = [] if rerun else None
-    profile_eager = not rerun and path in ("serve", "serve_fused")
     clock = {"start": time.perf_counter()}
 
     # one short request first, so that first-use costs (kernel libraries
@@ -1185,9 +1433,6 @@ def phase_serve(torch, path: str, launches: dict, calls: dict, *,
     if rerun:
         eager["launches_on_the_block_table"] = sum(run.values())
     clock["eager_served"] = time.perf_counter()
-    if profile_eager:
-        eager.update(_profile_serve(torch, engine, results, stats["wall_s"]))
-    clock["eager_profiled"] = time.perf_counter()
     profiles = Counter(resident_profiles(engine.model).values())
     del engine
 
@@ -1217,6 +1462,8 @@ def phase_serve(torch, path: str, launches: dict, calls: dict, *,
     clock["captured_profiled"] = time.perf_counter()
     replay = _replay_kernels(torch, cengine)
     captured["replayed_decode_step"] = replay
+    if not rerun:
+        _print_top(f"{label} decode", replay)
     captured["rns_kernels_per_decode_step"] = replay["rns_kernels"]
     if replay["all_kernels"] == 0:
         raise AssertionError("torch.profiler sees no kernel in a replayed "
@@ -1773,6 +2020,9 @@ def main() -> int:
                                            calls))),
             ("serve_per_layer", lambda: phase_serve_per_layer(
                 torch, launches, calls, untuned)),
+            ("serve_chunked", lambda: phase_serve_chunked(
+                torch, launches, calls, untuned)),
+            ("serve_prefix", lambda: phase_serve_prefix(torch, launches)),
             ("tune", lambda: phase_tune(torch, dev, calls, launches, tuned)),
             ("serve_tuned", lambda: phase_serve_tuned(torch, launches, calls,
                                                       untuned)),

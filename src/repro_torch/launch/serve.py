@@ -13,8 +13,12 @@ the fused kernels on MLP weights encoded once at build; add
 ``--per-layer-profiles`` to encode each layer on the narrowest profile
 that holds it.  On the card the engine captures its prefill and its
 decode step once each in CUDA graphs (it prints ``captures decode=1
-prefill=1``); ``--eager`` runs them without graphs.  The bucketed engine
-is a later slice of the port.
+prefill=1``); ``--eager`` runs them without graphs.
+``--chunked-prefill [--token-budget N] [--chunk-size N]`` serves every
+step as one packed mixed-phase step (captured once: ``captures
+mixed=1``); ``--prefix-cache`` shares KV pages among prompts with a
+common prefix (copy-on-write).  The bucketed engine is a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -47,28 +51,37 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
           max_seqs: int = 8, n_pages: int | None = None,
           rns_backend: str | None = None, rns_defer: bool | None = None,
           resident_weights: bool = False, per_layer_profiles: bool = False,
-          device="cuda", graphs: bool = True):
+          prefix_cache: bool = False, chunked_prefill: bool = False,
+          token_budget: int = 64, chunk_size: int | None = None,
+          prompt_pad: int | None = None, prompts=None, device="cuda",
+          graphs: bool = True):
     """Build the model (random weights from seed 0) and serve
-    :func:`request_prompts` (seed 0).  Returns (engine, results, stats).
-    ``rns_defer`` (no CLI flag, as in the JAX CLI) selects the deferred
-    MLP through ``ServeConfig``; ``graphs=False`` serves eagerly.  The
-    engine resolves its kernels' tiles when it captures its steps, so
-    the block table in force at this call is the one it serves with."""
+    :func:`request_prompts` (seed 0), or ``prompts`` when given (then
+    ``prompt_lens`` is not read).  Returns (engine, results, stats).
+    ``rns_defer`` and ``prompt_pad`` (no CLI flags, as in the JAX CLI)
+    go to ``ServeConfig``; ``graphs=False`` serves eagerly.  The engine
+    resolves its kernels' tiles when it captures its steps, so the block
+    table in force at this call is the one it serves with."""
     cfg = get_config(arch, smoke=not full)
     if rns:
         cfg = dataclasses.replace(cfg, rns=RnsDotConfig(profile=rns, qx=8,
                                                         qw=8),
                                   rns_targets="mlp")
     model = init_model(cfg, seed=0, device=device)
-    lens = [int(x) for x in prompt_lens]
+    if prompts is None:
+        prompts = request_prompts(cfg.vocab, requests, prompt_lens)
+        longest = max(int(x) for x in prompt_lens)
+    else:
+        longest = max(len(p) for p in prompts)
     engine = ContinuousEngine(model, ServeConfig(
-        max_cache=max(lens) + new + 8, max_new_tokens=new,
-        page_size=page_size, max_seqs=max_seqs, n_pages=n_pages,
-        rns_backend=rns_backend, rns_defer=rns_defer,
+        max_cache=longest + new + 8, max_new_tokens=new,
+        page_size=page_size, max_seqs=max_seqs, prompt_pad=prompt_pad,
+        n_pages=n_pages, rns_backend=rns_backend, rns_defer=rns_defer,
         resident_weights=resident_weights,
-        per_layer_profiles=per_layer_profiles), device=device,
-        graphs=graphs)
-    results, stats = engine.run(request_prompts(cfg.vocab, requests, lens))
+        per_layer_profiles=per_layer_profiles, prefix_cache=prefix_cache,
+        chunked_prefill=chunked_prefill, token_budget=token_budget,
+        chunk_size=chunk_size), device=device, graphs=graphs)
+    results, stats = engine.run(prompts)
     return engine, results, stats
 
 
@@ -87,6 +100,19 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--max-seqs", type=int, default=8)
     ap.add_argument("--n-pages", type=int, default=None)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="copy-on-write prefix caching: sequences sharing "
+                         "a prompt prefix share physical KV pages")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="packed mixed-phase batching: prefill chunks and "
+                         "decode rows share ONE captured step over a fixed "
+                         "token budget (tokens stay identical to "
+                         "whole-prompt prefill)")
+    ap.add_argument("--token-budget", type=int, default=64,
+                    help="packed lanes per mixed step (--chunked-prefill)")
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="max prefill tokens per row per mixed step; must "
+                         "be a multiple of --page-size")
     ap.add_argument("--rns", metavar="PROFILE", default=None,
                     help="run the MLP datapath in residues on PROFILE "
                          "(e.g. rns9)")
@@ -114,8 +140,11 @@ def main(argv=None):
         page_size=args.page_size, max_seqs=args.max_seqs,
         n_pages=args.n_pages, rns_backend=args.rns_backend,
         resident_weights=args.resident_weights,
-        per_layer_profiles=args.per_layer_profiles, device=args.device,
-        graphs=not args.eager)
+        per_layer_profiles=args.per_layer_profiles,
+        prefix_cache=args.prefix_cache,
+        chunked_prefill=args.chunked_prefill,
+        token_budget=args.token_budget, chunk_size=args.chunk_size,
+        device=args.device, graphs=not args.eager)
     if args.per_layer_profiles:
         from collections import Counter
 
@@ -123,6 +152,17 @@ def main(argv=None):
 
         print("per-layer profiles:",
               dict(Counter(resident_profiles(engine.model).values())))
+    if args.prefix_cache:
+        print(f"prefix cache: hit_tokens={stats['cache_hit_tokens']} "
+              f"pages_shared={stats['pages_shared']} "
+              f"pages_allocated={stats['pages_allocated']} "
+              f"cow_splits={stats['cow_splits']}")
+    if args.chunked_prefill:
+        mixed = sum(1 for s in stats["steps"]
+                    if s["prefill_tokens"] > 0 and s["decode_tokens"] > 0)
+        print(f"chunked prefill: budget={engine.scfg.token_budget} lanes "
+              f"ttft p50={stats['ttft_p50_s']:.3f}s "
+              f"p95={stats['ttft_p95_s']:.3f}s  mixed steps={mixed}")
     print("captures " + " ".join(
         f"{k}={v}" for k, v in sorted(stats["captures"].items())))
     print(f"served {stats['n_requests']} requests in {stats['n_steps']} "

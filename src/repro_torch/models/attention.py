@@ -1,6 +1,15 @@
-"""GQA attention with RoPE: prefill (online-softmax over KV chunks) and
-paged one-token decode.  Plain PyTorch, as in the JAX package, whose model
-paths compute attention outside any Pallas kernel."""
+"""GQA attention with RoPE: prefill, paged one-token decode and the packed
+mixed-phase step.  Plain PyTorch, as in the JAX package, whose model
+paths compute attention outside any Pallas kernel.
+
+Every serving path attends through :func:`lane_attention`: each query
+token (a *lane*) against its own keys, with its sums as fixed trees of
+elementwise adds (``layers.tree_sum``), so a token's attention is the
+same float ops whether it is prefilled with its whole prompt, in a
+packed chunk, or decoded in a batch of any size (ROADMAP C.10).  The
+JAX package's prefill computes the same function as an online softmax
+over KV chunks.
+"""
 
 from __future__ import annotations
 
@@ -8,13 +17,14 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.rns_matmul import rns_multi_dot
-from repro_torch.models.layers import _param, linear
+from repro_torch.models.layers import _param, linear, matmul_rows, tree_sum
 
-__all__ = ["rope", "chunked_attention", "flash_attention", "decode_attention",
-           "Attention", "gqa_qkv", "gqa_attend", "gqa_decode_paged"]
+__all__ = ["rope", "lane_attention", "Attention", "gqa_qkv", "gqa_attend", "gqa_decode_paged",
+           "gqa_decode_packed"]
 
 NEG_INF = -1e30
 
@@ -47,70 +57,67 @@ def _scale(D: int, device) -> torch.Tensor:
                       device=device)
 
 
-def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024,
-                      q_offset: int = 0):
-    """Online-softmax over KV chunks (prefill).  q [B,Tq,H,D], k/v
-    [B,Tk,Hk,D] -> [B,Tq,H,Dv]."""
-    B, Tq, H, D = q.shape
-    Tk, Hk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+#: lanes one pass of :func:`lane_attention` takes (bounds its memory;
+#: the result does not depend on it)
+LANE_BLOCK = 64
+#: keys summed as one tree in :func:`lane_attention` (a page's worth)
+KEY_BLOCK = 16
+
+
+def _key_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over the key axis ``dim`` (a multiple of KEY_BLOCK long): a
+    tree within each block of KEY_BLOCK keys, then the blocks added in
+    order.  Trailing all-masked blocks add exact zeros, so the sum does
+    not depend on how far the keys are padded."""
+    dim = dim % x.ndim
+    nblk = x.shape[dim] // KEY_BLOCK
+    x = tree_sum(x.unflatten(dim, (nblk, KEY_BLOCK)), dim + 1)
+    acc = x.select(dim, 0)
+    for j in range(1, nblk):
+        acc = acc + x.select(dim, j)
+    return acc
+
+
+def lane_attention(q, k, v, lengths):
+    """Each lane's query against its own keys: q [N, H, D], k/v [N or 1,
+    S, Hk, D] (1: every lane reads the same keys), ``lengths`` [N] valid
+    keys per lane.  Returns out [N, H, D] in q's dtype.
+
+    Scores are trees of elementwise products and adds over D
+    (``tree_sum``); the softmax sum and the weighted sum of values are
+    trees over blocks of KEY_BLOCK keys added block by block
+    (:func:`_key_sum`), the keys zero-padded to whole blocks; masked
+    keys weigh exactly 0 and the max is exact.  So a lane's result does
+    not depend on the other lanes, on ``LANE_BLOCK``, or on how many
+    masked keys follow its valid ones.
+    """
+    N, H, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
     G = H // Hk
-    dev = q.device
-    qf = q.to(torch.float32).reshape(B, Tq, Hk, G, D)
-    qpos = torch.arange(Tq, device=dev) + q_offset
-    m = torch.full((B, Hk, G, Tq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hk, G, Tq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hk, G, Tq, Dv), dtype=torch.float32, device=dev)
-    scale = _scale(D, dev)
-    for c in range(-(-Tk // chunk)):
-        kb = k[:, c * chunk:(c + 1) * chunk].to(torch.float32)
-        vb = v[:, c * chunk:(c + 1) * chunk].to(torch.float32)
-        n = kb.shape[1]
-        if n < chunk:               # zero-pad the ragged last chunk
-            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, chunk - n))
-            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, chunk - n))
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) / scale
-        kpos = c * chunk + torch.arange(chunk, device=dev)
-        valid = (kpos < Tk)[None, :].expand(Tq, chunk)
-        if causal:
-            valid = valid & (qpos[:, None] >= kpos[None, :])
+    Sp = -(-S // KEY_BLOCK) * KEY_BLOCK
+    pad = (0, 0, 0, 0, 0, Sp - S)
+    # [N or 1, Hk, 1, Sp, D]: keys and values per KV head, zero-padded
+    kt = F.pad(k.to(torch.float32), pad).permute(0, 2, 1, 3)[:, :, None]
+    vt = F.pad(v.to(torch.float32), pad).permute(0, 2, 1, 3)[:, :, None]
+    scale = _scale(D, q.device)
+    keys = torch.arange(Sp, device=q.device)
+    outs = []
+    for i in range(0, N, LANE_BLOCK):
+        qb = q[i:i + LANE_BLOCK].to(torch.float32)
+        n = qb.shape[0]
+        kb = kt if kt.shape[0] == 1 else kt[i:i + n]
+        vb = vt if vt.shape[0] == 1 else vt[i:i + n]
+        qg = qb.reshape(n, Hk, G, 1, D)
+        s = tree_sum(qg * kb, -1) / scale                    # [n, Hk, G, Sp]
+        valid = (keys < lengths[i:i + n, None])[:, None, None, :]
         s = torch.where(valid, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, Dv).to(q.dtype)
-
-
-def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
-                    kv_chunk: int = 1024):
-    """Q-tiled :func:`chunked_attention` for long prompts."""
-    outs = [chunked_attention(q[:, i:i + q_chunk], k, v, causal=causal,
-                              chunk=kv_chunk, q_offset=i)
-            for i in range(0, q.shape[1], q_chunk)]
-    return torch.cat(outs, dim=1)
-
-
-def decode_attention(q, k_cache, v_cache, lengths):
-    """q [B,Tq,H,D] against cache [B,S,Hk,D]; ``lengths`` [B] valid
-    prefix sizes.  Returns out [B,Tq,H,D]."""
-    B, Tq, H, D = q.shape
-    S, Hk = k_cache.shape[1], k_cache.shape[2]
-    G = H // Hk
-    mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])
-    mask = mask[:, None, None, None, :]
-    qg = q.to(torch.float32).reshape(B, Tq, Hk, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                     k_cache.to(torch.float32)) / _scale(D, q.device)
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.to(torch.float32))
-    out = out / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, D).to(q.dtype)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = _key_sum(p, -1)                                  # [n, Hk, G]
+        o = _key_sum(p[..., None] * vb, -2)                  # [n, Hk, G, D]
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.reshape(n, H, D))
+    return torch.cat(outs).to(q.dtype)
 
 
 class Attention(nn.Module):
@@ -129,7 +136,7 @@ def _multi_proj(x, ws, rns):
     """Several projections of ``x``; ONE shared forward conversion on the
     RNS path."""
     if rns is None:
-        return tuple(x @ w for w in ws)
+        return tuple(matmul_rows(x, w) for w in ws)
     ys = rns_multi_dot(x.to(torch.float32),
                        tuple(w.to(torch.float32) for w in ws), rns)
     return tuple(y.to(x.dtype) for y in ys)
@@ -146,17 +153,15 @@ def gqa_qkv(p: Attention, x, cfg, positions, rns=None):
 
 def gqa_attend(p: Attention, x, cfg, *, rns=None):
     """Causal self-attention over a whole (padded) prompt; returns
-    (y, (k, v)) so the caller can fill the KV cache."""
+    (y, (k, v)) so the caller can fill the KV cache.  Every prompt token
+    is a lane of :func:`lane_attention` over the prompt's own keys, as a
+    packed chunk's tokens are over their row's pages."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     q, k, v = gqa_qkv(p, x, cfg, positions, rns)
-    if T <= cfg.attn_dense_max:
-        out = chunked_attention(q, k, v, causal=cfg.causal,
-                                chunk=cfg.attn_kv_chunk)
-    else:
-        out = flash_attention(q, k, v, causal=cfg.causal,
-                              q_chunk=cfg.attn_q_chunk,
-                              kv_chunk=cfg.attn_kv_chunk)
+    lengths = torch.arange(1, T + 1, device=x.device)
+    out = torch.stack([lane_attention(q[b], k[b:b + 1], v[b:b + 1], lengths)
+                       for b in range(B)])
     return linear(p.wo, out.reshape(B, T, -1), rns), (k, v)
 
 
@@ -178,5 +183,32 @@ def gqa_decode_paged(p: Attention, x, cfg, cache, layer: int, *, rns=None):
                 v[:, 0])
     kd = gather_pages(cache.k_pages[layer], cache.block_table)
     vd = gather_pages(cache.v_pages[layer], cache.block_table)
-    out = decode_attention(q, kd, vd, cache.lengths + 1)
+    out = lane_attention(q[:, 0], kd, vd, cache.lengths + 1)
     return linear(p.wo, out.reshape(B, 1, -1), rns)
+
+
+def gqa_decode_packed(p: Attention, x, cfg, cache, layer: int, seg, pos, *,
+                      rns=None):
+    """Packed mixed-phase step against layer ``layer`` of a paged cache.
+
+    ``x`` [1, N, d]: token i belongs to row ``seg[i]`` at absolute
+    position ``pos[i]`` -- any mix of prefill-chunk tokens and decode
+    rows (pad lanes carry ``seg = -1`` and write to the trash page).
+    Every lane's K/V is written (in place) BEFORE the gather, so a chunk
+    token attends earlier chunks' pages and its own chunk predecessors;
+    each lane attends ``pos + 1`` keys of its own row through
+    :func:`lane_attention` over the row's gathered pages.
+    """
+    from repro_torch.serve.kv_cache import gather_pages, write_packed_tokens
+
+    N = x.shape[1]
+    q, k, v = gqa_qkv(p, x, cfg, pos[None], rns)
+    write_packed_tokens(cache.k_pages[layer], cache.block_table, seg, pos,
+                        k[0])
+    write_packed_tokens(cache.v_pages[layer], cache.block_table, seg, pos,
+                        v[0])
+    segc = seg.clamp(0, cache.block_table.shape[0] - 1)
+    kd = gather_pages(cache.k_pages[layer], cache.block_table)[segc]
+    vd = gather_pages(cache.v_pages[layer], cache.block_table)[segc]
+    out = lane_attention(q[0], kd, vd, pos + 1)
+    return linear(p.wo, out.reshape(1, N, -1), rns)

@@ -11,6 +11,12 @@ datapath (``RnsDotConfig.defer``) where wi -> gate multiply -> wo stays in
 residues, with one main-path normalize per block (plus one inside the
 float gate nonlinearity).
 
+Float matmuls (:func:`matmul_rows`) run as fixed-shape calls over
+blocks of ``ROW_BLOCK`` rows, and float sums (:func:`tree_sum`) as a
+fixed tree of elementwise adds, so a row's result is the same float ops
+whatever other rows share its call: a whole prompt, a packed step's
+lanes or a decode batch (ROADMAP C.10).
+
 Weight encoding: the JAX engine's steps run under ``jit``, where weights
 are tracers and bypass its encode cache, so every step re-encodes the
 MLP weights (3 weight converts per layer).  The port does the same, so
@@ -36,8 +42,58 @@ from repro_torch.core.tensor import (RnsTensor, rt_decode, rt_dot, rt_encode,
                                      rt_encode_matmul, rt_matmul,
                                      rt_matmul_decode, rt_mul)
 
-__all__ = ["linear", "RMSNorm", "rmsnorm", "embed", "unembed", "act_fn",
+__all__ = ["ROW_BLOCK", "matmul_rows", "tree_sum", "linear", "RMSNorm", "rmsnorm", "embed", "unembed", "act_fn",
            "MLP", "mlp", "mlp_rns_deferred", "mlp_rns_resident_perop"]
+
+
+#: rows of every fixed-shape float matmul call (:func:`matmul_rows`)
+ROW_BLOCK = 64
+
+
+def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` as one fixed-shape ``[ROW_BLOCK, K] @ [K,
+    N]`` call per block of rows (the last zero-padded).
+
+    cuBLAS (and the CPU's BLAS) pick their kernel, and with it the order
+    in which a row's products are summed, by the call's shape.  With one
+    shape for every call, a row's result no longer depends on how many
+    rows were batched with it, so a prompt prefilled in packed chunks
+    gets the same floats as prefilled whole, and a decode lane of a
+    packed step those of the decode step (ROADMAP C.10).
+    """
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    M = x2.shape[0]
+    Mp = -(-M // ROW_BLOCK) * ROW_BLOCK
+    if Mp != M:
+        x2 = F.pad(x2, (0, 0, 0, Mp - M))
+    out = x2.new_empty((Mp, w.shape[1]))
+    for i in range(0, Mp, ROW_BLOCK):
+        torch.mm(x2[i:i + ROW_BLOCK], w, out=out[i:i + ROW_BLOCK])
+    return out[:M].reshape(lead + (w.shape[1],))
+
+
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a tree of elementwise adds of halves over the
+    next power of two (zero-padded), ``dim`` dropped.
+
+    A reduction kernel splits a row among threads by the tensor's shape
+    (PyTorch's CUDA reduce gives a row more threads when there are fewer
+    rows), so its order of additions, and its rounding, depends on the
+    other rows.  Here the order is fixed by the code, and trailing zeros
+    change nothing (x + 0 = x): a row sums the same whatever rows share
+    the call and however far it is padded.
+    """
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    p2 = 1 << max(n - 1, 0).bit_length()
+    if p2 != n:
+        pad = [0, 0] * (x.ndim - 1 - dim) + [0, p2 - n]
+        x = F.pad(x, pad)
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -77,7 +133,7 @@ def linear(w: torch.Tensor, x, rns: RnsDotConfig | None = None, *,
         y = rns_dot(x.to(torch.float32), w.to(torch.float32),
                     rns).to(x.dtype)
     else:
-        y = x @ w
+        y = matmul_rows(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -85,7 +141,7 @@ def linear(w: torch.Tensor, x, rns: RnsDotConfig | None = None, *,
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    var = (tree_sum(torch.square(xf), -1) / xf.shape[-1])[..., None]
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32)).to(x.dtype)
 
@@ -105,7 +161,7 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: x @ table.T."""
-    return x @ table.T
+    return matmul_rows(x, table.T)
 
 
 def act_fn(name: str):

@@ -1,4 +1,5 @@
-"""Public model API of the slice: init, ragged prefill, paged decode."""
+"""Public model API of the slice: init, ragged prefill, paged decode and
+the packed mixed-phase step."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from repro_torch.core.quantize import token_mask
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import RMSNorm, _param, embed, unembed
 
-__all__ = ["Model", "init_model", "prefill_ragged", "decode_step"]
+__all__ = ["Model", "init_model", "prefill_ragged", "decode_step",
+           "mixed_step"]
 
 
 def _check_supported(cfg):
@@ -91,3 +93,31 @@ def decode_step(model: Model, cfg, token: torch.Tensor, cache, active=None):
     step = 1 if active is None else active.to(cache.lengths.dtype)
     cache.lengths += step
     return logits
+
+
+@torch.inference_mode()
+def mixed_step(model: Model, cfg, tokens, seg, pos, dec, valid, cache):
+    """ONE packed chunked-prefill + decode step (paged cache, in place).
+
+    ``tokens``/``seg``/``pos`` [N] int64, ``dec``/``valid`` [N] bool:
+    lane i carries the token of row ``seg[i]`` at absolute position
+    ``pos[i]`` -- a decode row's next token (``dec``) or one token of a
+    prefill chunk.  Pad lanes (``~valid``) carry ``seg = -1``: their KV
+    lands on the trash page and their logits are garbage the engine
+    drops.  N is the engine's fixed ``token_budget``, so one program
+    serves every prefill/decode mix.
+
+    Returns logits [N, V]: ``logits[i]`` is the next-token distribution
+    after lane i.  Cache ``lengths`` are not advanced; the engine owns
+    them on the host and pushes fresh tables before every step.
+
+    On the RNS path every lane quantizes on its own (lane) grid
+    (``token_mask(valid[None], per_token=True)``), so a chunk's
+    quantization does not depend on how the prompt is split.
+    """
+    mask = valid[None] if cfg.rns is not None else None
+    with token_mask(mask, per_token=True):
+        h = embed(model.embed, tokens[None])
+        h, _ = tf.apply_blocks(model.blocks, h, cfg, mode="decode",
+                               cache=cache, packed=(seg, pos, dec))
+        return _logits(model, h)[0]

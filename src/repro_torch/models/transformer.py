@@ -30,12 +30,17 @@ class Block(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, device)
 
 
-def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, layer: int):
+def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, layer: int,
+                 packed=None):
     """Returns (h, prefill (k, v) or None)."""
     rns_a, rns_m = _rns_for(cfg, "attn"), _rns_for(cfg, "mlp")
     hn = blk.ln1(h)
     kv = None
-    if mode == "decode":
+    if mode == "decode" and packed is not None:
+        seg, pos, _dec = packed
+        y = attn.gqa_decode_packed(blk.attn, hn, cfg, cache, layer, seg, pos,
+                                   rns=rns_a)
+    elif mode == "decode":
         y = attn.gqa_decode_paged(blk.attn, hn, cfg, cache, layer, rns=rns_a)
     else:
         y, kv = attn.gqa_attend(blk.attn, hn, cfg, rns=rns_a)
@@ -45,11 +50,15 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, layer: int):
     return h, kv
 
 
-def apply_blocks(blocks, h, cfg, *, mode: str, cache=None):
+def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None):
     """Run every layer.  ``mode``: "prefill" (returns the per-layer
-    (k, v) planes) or "decode" (against the paged ``cache``, in place)."""
+    (k, v) planes) or "decode" (against the paged ``cache``, in place).
+    ``packed`` (decode mode): a ``(seg, pos, dec)`` triple of [N] tensors
+    giving every token of the [1, N, d] stream its own row, absolute
+    position and phase -- the mixed chunked-prefill/decode layout."""
     ys = []
     for i, blk in enumerate(blocks):
-        h, kv = _apply_layer(blk, h, cfg, mode=mode, cache=cache, layer=i)
+        h, kv = _apply_layer(blk, h, cfg, mode=mode, cache=cache, layer=i,
+                             packed=packed)
         ys.append(kv)
     return h, ys

@@ -1,26 +1,39 @@
-"""Continuous batching over a paged KV cache (phase-barrier engine).
+"""Continuous batching over a paged KV cache.
 
 :class:`ContinuousEngine` is the port of ``repro.serve.engine``'s engine
-of the same name, on its phase-barrier path: each :meth:`step` admits
+of the same name.  On its phase-barrier path each :meth:`step` admits
 and evicts through the host-side scheduler, prefills every admitted
-prompt whole (right-padded to ``prompt_pad``; per-row lengths make the
-padding inert), then runs ONE batched greedy decode step over every
-running row.  Finished rows free their pages the same step; when the
-pool runs dry the youngest row is preempted and re-prefilled later.
+prompt whole (right-padded to ``prompt_pad``, a whole number of pages;
+per-row lengths make the padding inert), then runs ONE batched greedy
+decode step over every running row.  Finished rows free their pages the
+same step; when the pool runs dry the youngest row is preempted and
+re-prefilled later.
 
-The prefill (with the blit of its K/V planes into the pages) and the
-decode step (with its argmax) are two step programs
-(``serve/graphs.py``) over static buffers whose shapes depend only on
-the engine's geometry, as the JAX engine jits each once.  On the card
-each is captured once in a CUDA graph at engine build and replayed every
-step; ``graphs=False`` (or the CPU) runs them eagerly.
+With ``chunked_prefill`` every step is instead ONE packed mixed-phase
+step over a fixed ``token_budget`` of lanes, which carries decode rows
+and prefill chunks of at most ``chunk_size`` tokens together
+(``models/model.py::mixed_step``); prompts longer than ``prompt_pad``
+stream in chunk by chunk.  With ``prefix_cache`` rows whose prompts
+share a prefix share its KV pages (copy-on-write: a row splits a shared
+page before its first write into it).
+
+The prefill (with the blit of its K/V planes into the pages), the
+decode step (with its argmax), the mixed step (with its per-lane argmax)
+and the copy-on-write page copy are step programs (``serve/graphs.py``)
+over static buffers whose shapes depend only on the engine's geometry,
+as the JAX engine jits each once.  An engine builds the programs its
+config serves: decode and prefill, or mixed when chunked, and the copy
+with the prefix cache.  On the card each is captured once in a CUDA
+graph at engine build and replayed every step; ``graphs=False`` (or the
+CPU) runs them eagerly.
 
 Each step reports the RNS primitive calls of its phases (``rns_ops``),
 as the JAX engine does: the decode program's tallies plus the prefill
-program's once per admitted prompt, each taken once when the program is
-built.  The port tallies every call of every layer, so for smollm-135m
-that is ``n_layers`` times what the JAX engine reports, whose
-trace-time tally sees its layer ``scan`` body once (ROADMAP C.3).
+program's once per admitted prompt, or the mixed program's every step
+when chunked, each taken once when the program is built.  The port
+tallies every call of every layer, so for smollm-135m that is
+``n_layers`` times what the JAX engine reports, whose trace-time tally
+sees its layer ``scan`` body once (ROADMAP C.3).
 
 ``ServeConfig(rns_backend="cuda_fused", rns_defer=True,
 resident_weights=True)`` serves the fused path: MLP weights encoded once
@@ -28,9 +41,8 @@ at engine build, the deferred MLP chain, the fused kernels; with
 ``per_layer_profiles=True`` each layer's weights are encoded on the
 narrowest profile that holds its chain (``models/resident.py``).
 
-Chunked prefill, speculative decoding, prefix caching, sliding windows
-and digit sharding are later slices of the port: :class:`ServeConfig`
-refuses them.
+Speculative decoding, sliding windows and digit sharding are later
+slices of the port: :class:`ServeConfig` refuses them.
 """
 
 from __future__ import annotations
@@ -49,6 +61,13 @@ from repro_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["ServeConfig", "ContinuousEngine"]
 
+_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -57,6 +76,7 @@ class ServeConfig:
     max_cache: int = 512
     max_new_tokens: int = 32
     eos_id: int = -1
+    cache_dtype: str = "float32"    # KV page pool: float32|bfloat16|float16
     # RNS execution overrides (None: keep the model config's)
     rns_backend: str | None = None  # "auto"|"reference"|"cuda"|"cuda_fused"
     rns_defer: bool | None = None   # residue-domain MLP chaining
@@ -68,15 +88,26 @@ class ServeConfig:
     page_size: int = 16
     max_seqs: int = 8
     n_pages: int | None = None
+    prompt_pad: int | None = None   # prefill pad length (None: seq capacity)
+    # copy-on-write prefix caching: rows sharing a prompt prefix map their
+    # block tables onto shared pages; the prefill blit skips shared blocks
+    # and a row splits a shared page the first time it writes into one
+    prefix_cache: bool = False
+    # chunked prefill: ONE packed step a scheduler step over
+    # ``token_budget`` lanes of decode rows and prefill chunks of at most
+    # ``chunk_size`` tokens (None: no cap beyond the budget); while a row
+    # prefills, ``prefill_reserve`` lanes go to chunks (None: half the
+    # budget)
+    chunked_prefill: bool = False
+    token_budget: int = 64
+    chunk_size: int | None = None
+    prefill_reserve: int | None = None
     # later slices of the port: setting any of these raises
     mesh: object | None = None
-    prefix_cache: bool = False
     spec_decode: bool = False
-    chunked_prefill: bool = False
     window_tokens: int | None = None
 
-    _LATER = ("mesh", "prefix_cache", "spec_decode", "chunked_prefill",
-              "window_tokens")
+    _LATER = ("mesh", "spec_decode", "window_tokens")
 
     def __post_init__(self):
         if self.eos_id < -1:
@@ -87,11 +118,53 @@ class ServeConfig:
             raise ValueError(
                 "per_layer_profiles selects moduli at weight-encode time; "
                 "it requires resident_weights=True")
+        if self.chunked_prefill:
+            if self.token_budget < 1:
+                raise ValueError(
+                    f"token_budget={self.token_budget}: chunked_prefill "
+                    "needs at least one packed lane per step")
+            if self.cache_dtype != "float32":
+                raise ValueError(
+                    f"cache_dtype={self.cache_dtype!r}: chunked prefill "
+                    "re-reads earlier chunks' KV from the page pool, so "
+                    "the cache must be lossless (float32) to stay "
+                    "token-identical to whole-prompt prefill")
+        if self.chunk_size is not None:
+            if not self.chunked_prefill:
+                raise ValueError("chunk_size is only meaningful with "
+                                 "chunked_prefill=True")
+            if self.chunk_size < 1:
+                raise ValueError(f"chunk_size={self.chunk_size}: need >= 1")
+            if self.chunk_size % self.page_size:
+                raise ValueError(
+                    f"chunk_size={self.chunk_size} is not a multiple of "
+                    f"page_size={self.page_size}: chunk boundaries must "
+                    "align with KV pages so completed blocks register "
+                    "with the prefix cache as chunks land")
+            if self.chunk_size > self.token_budget:
+                raise ValueError(
+                    f"chunk_size={self.chunk_size} > token_budget="
+                    f"{self.token_budget}: a chunk can never exceed the "
+                    "packed lanes available in one step")
+        if self.prefill_reserve is not None:
+            if not self.chunked_prefill:
+                raise ValueError("prefill_reserve is only meaningful with "
+                                 "chunked_prefill=True")
+            if not 0 <= self.prefill_reserve < self.token_budget:
+                raise ValueError(
+                    f"prefill_reserve={self.prefill_reserve}: must be in "
+                    f"[0, token_budget={self.token_budget}) so decode "
+                    "rows keep making progress")
+        if self.window_tokens is not None and self.window_tokens < 1:
+            raise ValueError(
+                f"window_tokens={self.window_tokens}: a sliding window "
+                "must retain at least the current token (use None for "
+                "full attention)")
         on = [f for f in self._LATER if getattr(self, f) not in (None, False)]
         if on:
             raise NotImplementedError(
                 f"ServeConfig({', '.join(on)}): later slices of the port; "
-                "this slice serves the phase-barrier path")
+                "this slice serves the phase-barrier and chunked paths")
 
 
 def _apply_rns_policy(model_cfg, scfg: ServeConfig):
@@ -127,6 +200,9 @@ class ContinuousEngine:
 
     def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda",
                  graphs: bool = True):
+        if scfg.cache_dtype not in _CACHE_DTYPES:
+            raise ValueError(f"cache_dtype={scfg.cache_dtype!r}: one of "
+                             f"{sorted(_CACHE_DTYPES)}")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = _apply_rns_policy(model.cfg, scfg)
@@ -138,11 +214,26 @@ class ContinuousEngine:
         self.pcfg = kv.PagedCacheConfig(page_size=bs, n_pages=n_pages,
                                         max_seqs=scfg.max_seqs,
                                         max_blocks=max_blocks)
-        # one prefill shape: every prompt is right-padded to a row's capacity
-        self.prompt_pad = self.pcfg.tokens_per_seq
-        self.sched = Scheduler(self.pcfg)
-        self.cache = kv.make_paged_cache(self.cfg, self.pcfg,
-                                         device=self.device)
+        # one prefill shape: every prompt is right-padded to prompt_pad,
+        # a whole number of pages
+        self.prompt_pad = _round_up(
+            scfg.prompt_pad or self.pcfg.tokens_per_seq, bs)
+        if self.prompt_pad > self.pcfg.tokens_per_seq:
+            raise ValueError(
+                f"prompt_pad {self.prompt_pad} exceeds per-seq cache "
+                f"capacity {self.pcfg.tokens_per_seq}")
+        self.chunked = scfg.chunked_prefill
+        reserve = scfg.prefill_reserve
+        if reserve is None:
+            reserve = max(1, scfg.token_budget // 2)
+        self.sched = Scheduler(self.pcfg, prefix_cache=scfg.prefix_cache,
+                               chunked=self.chunked,
+                               token_budget=scfg.token_budget,
+                               chunk_size=scfg.chunk_size,
+                               prefill_reserve=reserve if self.chunked else 0)
+        self.cache = kv.make_paged_cache(
+            self.cfg, self.pcfg, device=self.device,
+            dtype=_CACHE_DTYPES[scfg.cache_dtype])
         self._tables_dirty = True
         self._active = np.zeros((self.pcfg.max_seqs,), bool)
         self._next_rid = 0
@@ -154,12 +245,14 @@ class ContinuousEngine:
 
     # ---------------------------------------------------- step programs --
     def _build_programs(self, graphs: bool):
-        """The decode and prefill programs over static buffers, warmed up
-        and (on the card, with ``graphs``) captured on the trash page: the
-        zeroed block table and a zero ``block_row`` send every warm-up
-        write to page 0, and ``active`` all False advances no length."""
+        """The config's step programs over static buffers, warmed up and
+        (on the card, with ``graphs``) captured on the trash page: the
+        zeroed block table, a zero ``block_row``, pad lanes (``seg =
+        -1``) and trash-onto-trash copies send every warm-up write to
+        page 0, and ``active`` all False advances no length."""
         R = self.pcfg.max_seqs
         nbp = self.prompt_pad // self.pcfg.page_size
+        N = self.scfg.token_budget
         dev = self.device
 
         def zeros(*shape, dtype=torch.int64):
@@ -182,21 +275,42 @@ class ContinuousEngine:
                                   torch.stack([v[0] for _, v in ys]))
             return torch.argmax(logits, dim=-1)
 
-        self.programs = {
-            "decode": StepProgram("decode", decode, {
-                "token": zeros(R, 1), "active": zeros(R, dtype=torch.bool)}),
-            "prefill": StepProgram("prefill", prefill, {
+        @torch.inference_mode()
+        def mixed(tokens, seg, pos, dec, valid):
+            logits = M.mixed_step(self.model, self.cfg, tokens, seg, pos,
+                                  dec, valid, self.cache)
+            return torch.argmax(logits, dim=-1)
+
+        @torch.inference_mode()
+        def cow(src, dst):
+            kv.copy_pages(self.cache.k_pages, src, dst)
+            kv.copy_pages(self.cache.v_pages, src, dst)
+
+        self.programs: dict[str, StepProgram] = {}
+        if self.chunked:
+            self.programs["mixed"] = StepProgram("mixed", mixed, {
+                "tokens": zeros(N), "seg": torch.full((N,), -1, device=dev),
+                "pos": zeros(N), "dec": zeros(N, dtype=torch.bool),
+                "valid": zeros(N, dtype=torch.bool)})
+        else:
+            self.programs["decode"] = StepProgram("decode", decode, {
+                "token": zeros(R, 1), "active": zeros(R, dtype=torch.bool)})
+            self.programs["prefill"] = StepProgram("prefill", prefill, {
                 "tokens": zeros(1, self.prompt_pad),
                 "length": torch.ones((1,), dtype=torch.int64, device=dev),
-                "block_row": zeros(nbp)}),
-        }
+                "block_row": zeros(nbp)})
+        if self.scfg.prefix_cache:
+            self.programs["cow"] = StepProgram("cow", cow, {
+                "src": zeros(R), "dst": zeros(R)})
         # host staging of each step's inputs, pinned on the card so the
         # copies into the static buffers are asynchronous; every step
-        # ends in a pull of its argmax, so a buffer is free again by the
-        # next step
+        # ends in a pull of its argmax (a COW copy is followed by the
+        # step's program on the same stream), so a buffer is free again
+        # by the next step
         pin = dev.type == "cuda"
         self._staging = {
-            name: torch.empty(buf.shape, dtype=buf.dtype, pin_memory=pin)
+            (prog.name, name): torch.empty(buf.shape, dtype=buf.dtype,
+                                           pin_memory=pin)
             for prog in self.programs.values()
             for name, buf in prog.inputs.items()}
         self._capture_stream = build_programs(self.programs.values(), dev,
@@ -206,31 +320,61 @@ class ContinuousEngine:
         """Graphs captured per phase (0 everywhere when eager)."""
         return {name: p.captures for name, p in self.programs.items()}
 
-    def _stage(self, **values) -> dict[str, torch.Tensor]:
-        """Write host arrays into the staging buffers; returns them."""
-        out = {}
+    def _run(self, prog: str, **values):
+        """Write host arrays into ``prog``'s staging buffers and run it
+        on them; returns its static outputs."""
+        staged = {}
         for name, value in values.items():
-            buf = self._staging[name]
+            buf = self._staging[(prog, name)]
             buf.numpy()[...] = np.asarray(value).reshape(buf.shape)
-            out[name] = buf
-        return out
+            staged[name] = buf
+        return self.programs[prog].run(**staged)
 
     def _rns_ops(self, n_prefills: int) -> dispatch.OpCounts:
-        """This step's RNS tallies: the decode program's plus the prefill
-        program's once per admitted prompt (the JAX engine's rule)."""
+        """This step's RNS tallies (the JAX engine's rule): the mixed
+        program's when chunked, else the decode program's plus the
+        prefill program's once per admitted prompt."""
         if self.cfg.rns is None:
             return dispatch.OpCounts()
+        if self.chunked:
+            return self.programs["mixed"].ops
         return self.programs["decode"].ops.add(self.programs["prefill"].ops,
                                                times=n_prefills)
+
+    def _apply_cow(self, cow):
+        """Run the scheduler's COW splits on the device (before any write
+        lands on them).  Fixed [R] ``src``/``dst`` (trash for no-op rows)
+        keep one program; rounds take one split a slot, so a real ``dst``
+        never repeats within one copy."""
+        R = self.pcfg.max_seqs
+        while cow:
+            this_round, rest, seen = [], [], set()
+            for e in cow:
+                if e[0] in seen:
+                    rest.append(e)
+                else:
+                    seen.add(e[0])
+                    this_round.append(e)
+            src = np.full((R,), kv.TRASH_PAGE, np.int64)
+            dst = np.full((R,), kv.TRASH_PAGE, np.int64)
+            for slot, _b, s, d in this_round:
+                src[slot], dst[slot] = s, d
+            self._run("cow", src=src, dst=dst)
+            cow = rest
+            if cow and self.device.type == "cuda":
+                # the next round rewrites the pinned staging buffers that
+                # this round's copy may still be reading
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ intake --
     def submit(self, prompt, max_new: int | None = None) -> int:
         """Queue one request; returns its request id."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_new = max_new or self.scfg.max_new_tokens
-        if len(prompt) > self.prompt_pad:
-            raise ValueError(f"prompt length {len(prompt)} > prompt_pad "
-                             f"{self.prompt_pad}")
+        if not self.chunked and len(prompt) > self.prompt_pad:
+            raise ValueError(
+                f"prompt length {len(prompt)} > prompt_pad {self.prompt_pad}; "
+                "raise ServeConfig.prompt_pad or turn on chunked_prefill")
         rid = self._next_rid
         self._next_rid += 1
         self.sched.submit(Request(rid=rid, tokens=prompt, max_new=max_new,
@@ -238,20 +382,24 @@ class ContinuousEngine:
         return rid
 
     # ----------------------------------------------------------- stepping --
+    def _first_token(self, seq, tok0: int, now: float):
+        seq.emitted = [tok0]
+        seq.last_token = tok0
+        ttft = now - seq.req.submit_time
+        self.ttfts[seq.rid] = ttft
+        self._step_ttfts.append(ttft)
+
     def _do_prefill(self, seq):
         T = len(seq.req.tokens)
         tokens = np.zeros((self.prompt_pad,), np.int64)
         tokens[:T] = seq.req.tokens
         nbp = self.prompt_pad // self.pcfg.page_size
-        tok0 = self.programs["prefill"].run(**self._stage(
-            tokens=tokens, length=T,
-            block_row=self.sched.block_row(seq, nbp)))
-        tok0 = int(tok0.cpu()[0])
-        seq.emitted = [tok0]
-        seq.last_token = tok0
-        ttft = time.perf_counter() - seq.req.submit_time
-        self.ttfts[seq.rid] = ttft
-        self._step_ttfts.append(ttft)
+        # blocks shared through the prefix cache map to the trash page:
+        # their KV is resident, the blit skips them
+        tok0 = self._run("prefill", tokens=tokens, length=T,
+                         block_row=self.sched.block_row(seq, nbp))
+        self.sched.register_prefix(seq)
+        self._first_token(seq, int(tok0.cpu()[0]), time.perf_counter())
         # length stays at T: the decode step writes tok0's KV at position T
 
     def _finish(self, seq):
@@ -260,10 +408,15 @@ class ContinuousEngine:
         self.sched.complete(seq)
         self._tables_dirty = True
 
+    def _done(self, seq) -> bool:
+        """Whether a row that just emitted is finished."""
+        return (len(seq.emitted) >= seq.req.max_new
+                or seq.emitted[-1] == self.scfg.eos_id
+                or seq.length + 1 > self.pcfg.tokens_per_seq)
+
     def _decode_vanilla(self, last) -> int:
         """One [R, 1] decode for every running row; returns #new tokens."""
-        nxt = self.programs["decode"].run(**self._stage(
-            token=last, active=self._active))
+        nxt = self._run("decode", token=last, active=self._active)
         nxt = nxt.cpu().numpy()
         n_tokens = 0
         for seq in list(self.sched.running.values()):
@@ -272,25 +425,131 @@ class ContinuousEngine:
             seq.last_token = tok
             seq.length += 1
             n_tokens += 1
-            if (len(seq.emitted) >= seq.req.max_new
-                    or tok == self.scfg.eos_id
-                    or seq.length + 1 > self.pcfg.tokens_per_seq):
+            if self._done(seq):
                 self._step_finished.append(seq.rid)
                 self._finish(seq)
         return n_tokens
 
-    def step(self) -> dict:
-        """One scheduler step: admit/evict, prefill admits, then decode
-        every running row.  Returns the step's stats, with ``rns_ops``
-        the primitive tallies of its phases."""
+    def _stats(self, t0, plan, *, n_tokens, decode_rows, prefill_tokens,
+               n_prefills) -> dict:
+        alloc = self.sched.alloc
+        return {
+            "step": self._step_idx,
+            "admitted": [s.rid for s in plan.admitted],
+            "preempted": plan.preempted,
+            "finished": self._step_finished,
+            "active": len(self.sched.running),
+            "waiting": len(self.sched.waiting),
+            "new_tokens": n_tokens,
+            "decoded": decode_rows > 0,
+            "decode_rows": decode_rows,
+            "page_utilization": alloc.utilization,
+            # prefix-cache accounting (this plan + cumulative counters)
+            "cow_splits": len(plan.cow),
+            "cache_hit_tokens": sum(s.cached_tokens for s in plan.admitted),
+            "pages_allocated_total": alloc.pages_allocated,
+            "pages_shared_total": alloc.pages_shared,
+            "rns_ops": self._rns_ops(n_prefills),
+            "prefill_tokens": prefill_tokens,
+            "decode_tokens": n_tokens,
+            "ttft_ms": (1e3 * float(np.mean(self._step_ttfts))
+                        if self._step_ttfts else 0.0),
+            "step_time_s": time.perf_counter() - t0,
+        }
+
+    def _step_mixed(self) -> dict:
+        """One packed mixed-phase step: admit, COW-split, then ONE run of
+        the mixed program over [token_budget] lanes of decode rows
+        (first, round-robin) and prefill chunks (FCFS).  The tail lane
+        of a prompt's last chunk gives its first token."""
         t0 = time.perf_counter()
         self._step_finished: list[int] = []
         self._step_ttfts: list[float] = []
         plan = self.sched.schedule()
-        if plan.admitted or plan.preempted or plan.grew:
+        if plan.cow:
+            # duplicate shared pages BEFORE any packed write lands on them
+            self._apply_cow(plan.cow)
+        segs = self.sched.plan_mixed()
+        N = self.scfg.token_budget
+        tok = np.zeros((N,), np.int64)
+        sg = np.full((N,), -1, np.int64)
+        ps = np.zeros((N,), np.int64)
+        dc = np.zeros((N,), bool)
+        vd = np.zeros((N,), bool)
+        off = prefill_tokens = decode_lanes = 0
+        for s in segs:
+            s.offset, n = off, s.n
+            sg[off:off + n] = s.seq.slot
+            ps[off:off + n] = s.positions
+            vd[off:off + n] = True
+            if s.kind == "decode":
+                dc[off] = True
+                tok[off] = s.seq.last_token
+                decode_lanes += n
+            else:
+                tok[off:off + n] = s.tokens
+                prefill_tokens += n
+            off += n
+        n_tokens = 0
+        if segs:
+            # tables go up every step: they shift under admission, growth
+            # and COW, and the packed step reads positions directly
+            bt, lengths, active, _last = self.sched.tables()
+            kv.set_tables(self.cache, bt, lengths)
+            self._active = active
+            self._tables_dirty = False
+            g = self._run("mixed", tokens=tok, seg=sg, pos=ps, dec=dc,
+                          valid=vd).cpu().numpy()
+            now = time.perf_counter()
+            for s in segs:
+                seq = s.seq
+                if s.kind == "chunk":
+                    if s.last:
+                        self._first_token(seq, int(g[s.offset + s.n - 1]),
+                                          now)
+                        n_tokens += 1
+                    # full blocks become prefix-cache hits as they land
+                    self.sched.register_chunks(seq)
+                    if seq.emitted and (
+                            len(seq.emitted) >= seq.req.max_new
+                            or seq.emitted[-1] == self.scfg.eos_id):
+                        self._step_finished.append(seq.rid)
+                        self._finish(seq)
+                else:
+                    t = int(g[s.offset])
+                    seq.emitted.append(t)
+                    seq.last_token = t
+                    seq.length += 1
+                    n_tokens += 1
+                    if self._done(seq):
+                        self._step_finished.append(seq.rid)
+                        self._finish(seq)
+        elif self.sched.running:
+            raise RuntimeError("mixed step planned no segments while rows "
+                               "are running: scheduler liveness bug")
+        self._step_idx += 1
+        return self._stats(t0, plan, n_tokens=n_tokens,
+                           decode_rows=decode_lanes,
+                           prefill_tokens=prefill_tokens, n_prefills=0)
+
+    def step(self) -> dict:
+        """One scheduler step: admit/evict, prefill admits, COW-split
+        shared pages, then decode every running row (or, chunked, one
+        packed mixed step).  Returns the step's stats, with ``rns_ops``
+        the primitive tallies of its phases."""
+        if self.chunked:
+            return self._step_mixed()
+        t0 = time.perf_counter()
+        self._step_finished: list[int] = []
+        self._step_ttfts: list[float] = []
+        plan = self.sched.schedule()
+        if plan.admitted or plan.preempted or plan.grew or plan.cow:
             self._tables_dirty = True
         for seq in plan.admitted:
             self._do_prefill(seq)
+        if plan.cow:
+            # duplicate shared pages BEFORE any decode write lands on them
+            self._apply_cow(plan.cow)
         # admission produced one token per new row: it may be done
         for seq in list(self.sched.running.values()):
             if seq.emitted and (len(seq.emitted) >= seq.req.max_new
@@ -310,24 +569,10 @@ class ContinuousEngine:
                 self._tables_dirty = False
             n_tokens = self._decode_vanilla(last)
         self._step_idx += 1
-        return {
-            "step": self._step_idx,
-            "admitted": [s.rid for s in plan.admitted],
-            "preempted": plan.preempted,
-            "finished": self._step_finished,
-            "active": len(self.sched.running),
-            "waiting": len(self.sched.waiting),
-            "new_tokens": n_tokens,
-            "decoded": decode_rows > 0,
-            "decode_rows": decode_rows,
-            "page_utilization": self.sched.alloc.utilization,
-            "rns_ops": self._rns_ops(len(plan.admitted)),
-            "prefill_tokens": sum(len(s.req.tokens) for s in plan.admitted),
-            "decode_tokens": n_tokens,
-            "ttft_ms": (1e3 * float(np.mean(self._step_ttfts))
-                        if self._step_ttfts else 0.0),
-            "step_time_s": time.perf_counter() - t0,
-        }
+        return self._stats(
+            t0, plan, n_tokens=n_tokens, decode_rows=decode_rows,
+            prefill_tokens=sum(len(s.req.tokens) for s in plan.admitted),
+            n_prefills=len(plan.admitted))
 
     def run(self, prompts=None, max_new: int | None = None):
         """Serve until drained.  Returns (results {rid: tokens}, stats)."""
@@ -356,6 +601,11 @@ class ContinuousEngine:
                 np.mean([s["page_utilization"] for s in steps]))
             if steps else 0.0,
             "n_preemptions": sum(len(s["preempted"]) for s in steps),
+            # prefix caching: cumulative allocator and COW traffic
+            "cache_hit_tokens": sum(s["cache_hit_tokens"] for s in steps),
+            "cow_splits": sum(s["cow_splits"] for s in steps),
+            "pages_allocated": self.sched.alloc.pages_allocated,
+            "pages_shared": self.sched.alloc.pages_shared,
             "captures": self.captures(),
             "steps": steps,
         }

@@ -5,13 +5,14 @@ and per-sequence **block tables** mapping logical block ``t // page_size``
 to a physical page, so mixed-length sequences share one decode step and a
 finished row's pages return to the pool at once.
 
-Host side (numpy, the phase-barrier subset of ``repro.serve.kv_cache``):
-the :class:`PageAllocator` that ``serve/scheduler.py`` drives.  Device
-side (PyTorch): the page pool :class:`PagedKV` -- ``k_pages``/``v_pages``
-``[n_layers, n_pages, page_size, Hk, D]`` plus one ``block_table``
-``[max_seqs, max_blocks]`` and ``lengths`` ``[max_seqs]`` shared by every
-layer -- and the gather/scatter helpers, which update the pool IN PLACE (the JAX package
-returns new arrays; in place saves a copy of the pool per token).
+Host side (numpy, as ``repro.serve.kv_cache``): the refcounted
+:class:`PageAllocator` and the content-addressed :class:`PrefixCache`
+that ``serve/scheduler.py`` drives.  Device side (PyTorch): the page pool
+:class:`PagedKV` -- ``k_pages``/``v_pages`` ``[n_layers, n_pages,
+page_size, Hk, D]`` plus one ``block_table`` ``[max_seqs, max_blocks]``
+and ``lengths`` ``[max_seqs]`` shared by every layer -- and the
+gather/scatter/copy helpers, which update the pool IN PLACE (the JAX
+package returns new arrays; in place saves a copy of the pool per token).
 
 Physical page 0 is the **trash page**: empty slots and blocks past a
 sequence's end point at it, so every gather/scatter stays in bounds;
@@ -20,6 +21,7 @@ reads through it are masked by ``lengths``, writes to it are garbage.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -29,12 +31,15 @@ __all__ = [
     "TRASH_PAGE",
     "PagedCacheConfig",
     "PageAllocator",
+    "PrefixCache",
     "PagedKV",
     "make_paged_cache",
     "set_tables",
     "gather_pages",
     "write_token",
+    "write_packed_tokens",
     "write_prompt_pages",
+    "copy_pages",
 ]
 
 #: physical page reserved as the write-target / read-source of inactive
@@ -72,15 +77,24 @@ class PagedCacheConfig:
 
 
 class PageAllocator:
-    """Host-side free list over pages 1..n_pages-1 (0 = trash).
+    """Refcounted host-side free list over pages 1..n_pages-1 (0 = trash).
 
-    ``free`` is IDEMPOTENT: a page already on the free list is skipped
-    rather than raised on.  The scheduler can preempt a sequence in the
-    same engine step that it finishes (growth runs before the finished
-    check), and the preemption path and the completion path both release
-    pages — releasing twice must not corrupt the free list or hand one
-    physical page to two sequences.  Out-of-range ids still raise: those
-    are real bugs, not benign races.
+    Prefix caching maps several sequences' block tables (and the prefix
+    index itself) onto one physical page, so every allocated page carries
+    a reference count: :meth:`alloc` hands out pages at refcount 1,
+    :meth:`incref` registers another holder, and :meth:`free` releases
+    ONE holder's reference -- the page returns to the free list only when
+    the last holder lets go.
+
+    ``free`` is IDEMPOTENT for fully released pages: a page already on
+    the free list is skipped rather than raised on.  The scheduler can
+    preempt a sequence in the same engine step that it finishes (growth
+    runs before the finished check), and the preemption path and the
+    completion path both release pages -- releasing twice must not
+    corrupt the free list, hand one physical page to two sequences, or
+    drive a shared page's count below its other holders' (the scheduler
+    clears a departing row's page list at its first release).
+    Out-of-range ids still raise: those are real bugs, not benign races.
     """
 
     def __init__(self, n_pages: int):
@@ -88,6 +102,9 @@ class PageAllocator:
         # LIFO reuse keeps the working set of hot pages small
         self._free = list(range(n_pages - 1, TRASH_PAGE, -1))
         self._free_set = set(self._free)    # O(1) idempotence check
+        self._ref: dict[int, int] = {}      # allocated page -> #holders
+        self.pages_allocated = 0            # fresh pages handed out
+        self.pages_shared = 0               # increfs (block-table reuse)
 
     @property
     def n_free(self) -> int:
@@ -98,22 +115,188 @@ class PageAllocator:
         usable = self.n_pages - 1
         return (usable - len(self._free)) / max(usable, 1)
 
+    def refcount(self, pg: int) -> int:
+        """Current holder count (0 for free pages)."""
+        return self._ref.get(pg, 0)
+
     def alloc(self, n: int) -> list[int] | None:
-        """Pop ``n`` pages, or None (no change) if short."""
+        """Pop ``n`` pages at refcount 1, or None (no change) if short."""
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
         self._free_set.difference_update(pages)
+        for pg in pages:
+            self._ref[pg] = 1
+        self.pages_allocated += n
         return pages
 
+    def incref(self, pages: list[int]) -> None:
+        """Register another holder of already-allocated pages."""
+        for pg in pages:
+            if self._ref.get(pg, 0) < 1:
+                raise ValueError(f"incref of unallocated page {pg}")
+            self._ref[pg] += 1
+        self.pages_shared += len(pages)
+
     def free(self, pages: list[int]) -> None:
+        """Release one holder's reference on each page."""
         for pg in pages:
             if not (TRASH_PAGE < pg < self.n_pages):
                 raise ValueError(f"bad page id {pg}")
             if pg in self._free_set:
                 continue                    # already free: idempotent
+            self._ref[pg] -= 1
+            if self._ref[pg] > 0:
+                continue                    # other holders keep it alive
+            del self._ref[pg]
             self._free.append(pg)
             self._free_set.add(pg)
+
+
+class PrefixCache:
+    """Content-addressed prefix -> physical-page index (host side).
+
+    Causal attention makes a page's KV a function of the token prefix
+    ending at that page, so a page is keyed by the exact bytes of that
+    prefix: ``tokens[:(i+1)*page_size]`` for full block i,
+    ``tokens[:T]`` for a prompt's partial last block.  Exact byte keys
+    never alias distinct prefixes.
+
+    Each entry holds one allocator reference (the index is a holder like
+    any sequence), so a cached page outlives its producer until
+    :meth:`evict` (LRU) reclaims it.  A partial entry exposes ``valid``
+    tokens; an adopter reads only positions below its length and splits
+    the page copy-on-write before its first write into it.
+
+    Every hit is re-checked against the allocator: an entry whose page
+    shows refcount 0 is stale (the page went back to the pool while the
+    index pointed at it) and is dropped on sight (``stale_drops``
+    counts them), never returned.
+    """
+
+    def __init__(self, alloc: PageAllocator, page_size: int):
+        self.alloc = alloc
+        self.bs = page_size
+        # key -> (page, valid_tokens); ordered = LRU (oldest first)
+        self._entries: collections.OrderedDict[bytes, tuple[int, int]] = (
+            collections.OrderedDict())
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.stale_drops = 0
+        #: bumped whenever the entry set changes: a peek result holds
+        #: only within one generation (the scheduler memoizes on it)
+        self.generation = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @staticmethod
+    def _bytes(tokens: np.ndarray, n: int) -> bytes:
+        return np.ascontiguousarray(tokens[:n], np.int32).tobytes()
+
+    def _ends(self, T: int) -> list[int]:
+        """Prefix lengths that key a prompt's blocks: every full block,
+        then the partial tail."""
+        ends = [(i + 1) * self.bs for i in range(T // self.bs)]
+        if T % self.bs:
+            ends.append(T)
+        return ends
+
+    def _live(self, key: bytes) -> bool:
+        e = self._entries.get(key)
+        return e is not None and self.alloc.refcount(e[0]) >= 1
+
+    def _get(self, key: bytes):
+        e = self._entries.get(key)
+        if e is None:
+            return None
+        if self.alloc.refcount(e[0]) < 1:
+            del self._entries[key]          # stale: self-heal
+            self.stale_drops += 1
+            self.generation += 1
+            return None
+        self._entries.move_to_end(key)      # LRU touch
+        return e
+
+    def lookup(self, tokens: np.ndarray):
+        """([page or None per block], n_cached_tokens) for a prompt.
+
+        Blocks are independent: block i's key holds the whole prefix, so
+        a later block can hit after an earlier one was evicted.  The
+        partial last block hits only on an exact whole-prompt match.
+        Pages come back WITHOUT a reference; the adopter increfs."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        shared: list[int | None] = []
+        n_cached = 0
+        prev = 0
+        for end in self._ends(len(tokens)):
+            e = self._get(self._bytes(tokens, end))
+            shared.append(e[0] if e is not None else None)
+            if e is not None:
+                n_cached += end - prev
+                self.hits += 1
+            else:
+                self.misses += 1
+            prev = end
+        return shared, n_cached
+
+    def peek_cached_tokens(self, tokens: np.ndarray) -> int:
+        """Cached-token count for a prompt, without touching the LRU
+        order or the hit/miss counters (the admission scan probes every
+        waiting request)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        n, prev = 0, 0
+        for end in self._ends(len(tokens)):
+            if self._live(self._bytes(tokens, end)):
+                n += end - prev
+            prev = end
+        return n
+
+    def insert(self, tokens: np.ndarray, pages: list[int]) -> int:
+        """Register a prefilled prompt's blocks (full blocks and the
+        partial tail); returns the number of new entries.  A key already
+        present is left alone: its page holds the same KV.  A trash or
+        unallocated page is never indexed."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        added = 0
+        for i, end in enumerate(self._ends(len(tokens))):
+            key = self._bytes(tokens, end)
+            if key in self._entries or i >= len(pages):
+                continue
+            if pages[i] == TRASH_PAGE or self.alloc.refcount(pages[i]) < 1:
+                continue
+            self.alloc.incref([pages[i]])
+            self._entries[key] = (pages[i], end)
+            added += 1
+        if added:
+            self.generation += 1
+        return added
+
+    def evict(self, n_pages: int) -> int:
+        """Release up to ``n_pages`` LRU entries whose page would return
+        to the pool (refcount 1: the index is the only holder); entries
+        still shared by running rows stay.  Returns pages freed."""
+        freed = dropped = 0
+        for key in list(self._entries):
+            if freed >= n_pages:
+                break
+            page, _ = self._entries[key]
+            rc = self.alloc.refcount(page)
+            if rc == 0:                     # stale: self-heal
+                del self._entries[key]
+                self.stale_drops += 1
+                dropped += 1
+                continue
+            if rc != 1:
+                continue
+            del self._entries[key]
+            self.alloc.free([page])
+            self.evictions += 1
+            freed += 1
+        if freed or dropped:
+            self.generation += 1
+        return freed
 
 
 # ------------------------------------------------------- device tensors ---
@@ -127,14 +310,16 @@ class PagedKV:
     lengths: torch.Tensor       # [max_seqs] int64
 
 
-def make_paged_cache(cfg, pcfg: PagedCacheConfig, *,
-                     device="cuda") -> PagedKV:
-    """Zero float32 paged decode cache for every attention layer."""
+def make_paged_cache(cfg, pcfg: PagedCacheConfig, *, device="cuda",
+                     dtype=torch.float32) -> PagedKV:
+    """Zero paged decode cache for every attention layer, its pages in
+    ``dtype`` (``ServeConfig.cache_dtype``; writes round to it, reads
+    upcast exactly to float32)."""
     shape = (cfg.n_layers, pcfg.n_pages, pcfg.page_size, cfg.n_kv_heads,
              cfg.d_head)
     return PagedKV(
-        k_pages=torch.zeros(shape, device=device),
-        v_pages=torch.zeros(shape, device=device),
+        k_pages=torch.zeros(shape, dtype=dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=dtype, device=device),
         block_table=torch.zeros((pcfg.max_seqs, pcfg.max_blocks),
                                 dtype=torch.int64, device=device),
         lengths=torch.zeros((pcfg.max_seqs,), dtype=torch.int64,
@@ -175,6 +360,25 @@ def write_token(pages: torch.Tensor, block_table: torch.Tensor,
     pages[page, lengths % bs] = vals.to(pages.dtype)
 
 
+def write_packed_tokens(pages: torch.Tensor, block_table: torch.Tensor,
+                        seg: torch.Tensor, pos: torch.Tensor,
+                        vals: torch.Tensor) -> None:
+    """Scatter N packed tokens at explicit (segment, position) coords,
+    in place (a mixed chunked-prefill/decode step).
+
+    ``vals`` [N, ...]: token i goes to logical position ``pos[i]`` of
+    row ``seg[i]``, i.e. page ``block_table[seg[i], pos[i] // bs]``
+    offset ``pos[i] % bs``.  Pad lanes carry ``seg = -1`` and go to the
+    trash page, as do positions past a row's table (block >= nb).
+    """
+    bs = pages.shape[1]
+    R, nb = block_table.shape
+    blk = pos // bs
+    page = block_table[seg.clamp(0, R - 1), blk.clamp(max=nb - 1)]
+    page = torch.where((seg >= 0) & (blk < nb), page, TRASH_PAGE)
+    pages[page, pos % bs] = vals.to(pages.dtype)
+
+
 def write_prompt_pages(pages: torch.Tensor, block_row: torch.Tensor,
                        planes: torch.Tensor) -> None:
     """Blit one prefilled prompt into its pages, in place.
@@ -190,3 +394,16 @@ def write_prompt_pages(pages: torch.Tensor, block_row: torch.Tensor,
     lead = tuple(planes.shape[:-3])
     v = planes.reshape(lead + (nbp, bs) + tuple(planes.shape[-2:]))
     pages[..., block_row, :, :, :] = v.to(pages.dtype)
+
+
+def copy_pages(pages: torch.Tensor, src: torch.Tensor,
+               dst: torch.Tensor) -> None:
+    """Copy page contents ``src[i] -> dst[i]`` in every layer, in place.
+
+    ``pages`` [n_layers, P, bs, ...]; ``src``/``dst`` [m].  The
+    copy-on-write split: a row about to write into a shared page first
+    duplicates it onto a fresh page.  No-op rows pass ``src = dst =
+    TRASH_PAGE`` (trash onto trash), which keeps the shapes fixed; the
+    engine never repeats a real ``dst`` within one call.
+    """
+    pages[:, dst] = pages[:, src]

@@ -1,32 +1,47 @@
 """Continuous-batching request scheduler (host-side policy, numpy only).
 
-The phase-barrier subset of ``repro.serve.scheduler``: under its default
-policy (no prefix cache, no sliding window, no chunked prefill, no
-speculative lookahead) both make the same plans on the same traffic
-(asserted in tests/test_torch_serve.py).  Prefix caching with
-copy-on-write splits, window eviction and packed mixed steps come with
-the slices that serve them.
+The port of ``repro.serve.scheduler`` without its speculative lookahead
+(``lookahead`` stays 1) and sliding-window eviction, which come with the
+slices that serve them: on the same traffic both make the same plans
+(asserted in tests/test_torch_serve.py, test_torch_chunked.py and
+test_torch_prefix.py).
 
 One :class:`Scheduler` owns the page pool and the slot map and makes the
 in-flight-batching decisions each engine step:
 
-  * **growth** — every running sequence gets the page its next token
+  * **growth** -- every running sequence gets the page its next token
     lands in.  Running rows always outrank new admissions for pages.
-  * **preemption** — when the pool is exhausted, the *youngest* running
+  * **copy-on-write** -- a row about to write into a *shared* page
+    (refcount > 1: the prefix index and/or other rows hold it) first
+    splits it: a fresh page is allocated, the engine copies the contents
+    on the device (``kv_cache.copy_pages``) and the row's block table is
+    repointed.  The shared original stays frozen for its other holders.
+  * **preemption** -- when the pool is exhausted, the *youngest* running
     sequence (LIFO, the vLLM recompute policy) is evicted: its pages are
     freed and the request returns to the *front* of the waiting queue.
     Re-admission re-prefills from the original prompt; greedy decoding
     makes the regenerated tokens identical to the uninterrupted run.  A
-    sequence preempted ``PREEMPT_SHIELD`` times (the JAX scheduler's
-    default) becomes immune: victim selection skips it while any
-    unshielded candidate exists, which bounds how often page-growth
-    priority can bounce the same request.
-  * **admission** — FCFS, while a slot is free and the pool can hold the
-    prompt plus one decode token.
+    sequence preempted ``preempt_shield`` times becomes immune: victim
+    selection skips it while any unshielded candidate exists.
+  * **admission** -- while a slot is free and the pool can hold the
+    prompt plus one decode token.  With the prefix cache on, the waiting
+    request with the longest cached prefix goes first; strict FCFS
+    resumes whenever the queue head was preempted before or has waited
+    ``starvation_limit`` steps.
+
+With ``prefix_cache=True`` the scheduler keeps the content-addressed
+:class:`~repro_torch.serve.kv_cache.PrefixCache`: admissions adopt cached
+pages block by block (the engine's prefill blit skips them), prefilled
+full-prompt blocks are registered at once, and a departing row stashes
+its partial last prompt block before releasing its pages.  With
+``chunked=True`` admitted rows carry the prompt positions still to run
+(``SeqState.todo``) and :meth:`Scheduler.plan_mixed` packs each step's
+decode rows and prefill chunks into ``token_budget`` lanes.
 
 The scheduler never touches device memory: it hands the engine numpy
-block tables / lengths / active masks (:meth:`tables`) and the list of
-sequences to prefill.  All device work lives in ``serve/engine.py``.
+block tables / lengths / active masks (:meth:`tables`), the sequences to
+prefill, packed segments and COW (slot, block, src, dst) splits.  All
+device work lives in ``serve/engine.py``.
 """
 
 from __future__ import annotations
@@ -40,11 +55,10 @@ from repro_torch.serve.kv_cache import (
     TRASH_PAGE,
     PageAllocator,
     PagedCacheConfig,
+    PrefixCache,
 )
 
-__all__ = ["Request", "SeqState", "StepPlan", "Scheduler"]
-
-PREEMPT_SHIELD = 2              # preemptions after which a row is immune
+__all__ = ["Request", "SeqState", "StepPlan", "PackedSegment", "Scheduler"]
 
 
 @dataclasses.dataclass
@@ -53,6 +67,7 @@ class Request:
     tokens: np.ndarray          # [T] int32 prompt
     max_new: int
     submit_time: float = 0.0
+    wait_steps: int = 0         # scheduler steps spent waiting (starvation)
     n_preempts: int = 0         # times evicted (preemption shield)
 
 
@@ -67,10 +82,31 @@ class SeqState:
     emitted: list[int]          # generated token ids (greedy)
     last_token: int = 0
     admit_seq: int = -1         # admission order (LIFO preemption key)
+    cached_tokens: int = 0      # prompt tokens served by the prefix cache
+    shared_blocks: set[int] = dataclasses.field(default_factory=set)
+    # chunked prefill: prompt positions still to run through the mixed
+    # step, ascending (None: not chunked, or prefill complete).  Adopted
+    # shared blocks' positions are left out -- their KV is resident --
+    # but the last prompt position always stays in (its logits are the
+    # first generated token).
+    todo: collections.deque[int] | None = None
 
     @property
     def rid(self) -> int:
         return self.req.rid
+
+    @property
+    def prefilling(self) -> bool:
+        return bool(self.todo)
+
+    @property
+    def resident(self) -> int:
+        """Prompt tokens whose KV is resident (a contiguous prefix:
+        ``todo`` is consumed in order, and earlier positions are either
+        consumed or adopted from the prefix cache)."""
+        if self.todo:
+            return self.todo[0]
+        return len(self.req.tokens)
 
 
 @dataclasses.dataclass
@@ -80,16 +116,59 @@ class StepPlan:
     admitted: list[SeqState]    # need a prefill + page blit
     preempted: list[int]        # rids evicted back to the queue
     grew: bool = False          # some running row got a new page
+    # copy-on-write splits the engine copies on the device BEFORE this
+    # step's writes (block tables already repointed)
+    cow: list[tuple[int, int, int, int]] = dataclasses.field(
+        default_factory=list)           # (slot, block, src, dst)
+
+
+@dataclasses.dataclass
+class PackedSegment:
+    """One contiguous run of lanes in a packed mixed step.
+
+    ``kind`` is ``"chunk"`` (prefill-chunk tokens, ``tokens`` taken from
+    the prompt) or ``"decode"`` (a decode row's next-token lane).
+    ``offset`` is the segment's first lane in the step's fixed
+    [token_budget] arrays, set by the engine when it packs.  ``last``
+    marks a chunk that completes its prompt: its final lane's logits
+    are the row's first generated token.
+    """
+
+    seq: SeqState
+    kind: str
+    positions: np.ndarray       # [n] absolute positions, ascending
+    tokens: np.ndarray | None   # [n] token ids (None for decode segments)
+    last: bool = False
+    offset: int = 0
+
+    @property
+    def n(self) -> int:
+        return len(self.positions)
 
 
 class Scheduler:
-    def __init__(self, pcfg: PagedCacheConfig):
+    def __init__(self, pcfg: PagedCacheConfig, *, prefix_cache: bool = False,
+                 starvation_limit: int = 8, preempt_shield: int = 2,
+                 chunked: bool = False, token_budget: int = 0,
+                 chunk_size: int | None = None, prefill_reserve: int = 0):
         self.pcfg = pcfg
         self.alloc = PageAllocator(pcfg.n_pages)
+        self.prefix = (PrefixCache(self.alloc, pcfg.page_size)
+                       if prefix_cache else None)
+        self.starvation_limit = starvation_limit
+        self.preempt_shield = preempt_shield
+        self.chunked = chunked
+        self.token_budget = token_budget
+        self.chunk_size = chunk_size
+        self.prefill_reserve = prefill_reserve
+        self._rr = 0                    # decode round-robin rotation
         self.waiting: collections.deque[Request] = collections.deque()
         self.running: dict[int, SeqState] = {}          # slot -> seq
         self._free_slots = list(range(pcfg.max_seqs - 1, -1, -1))
         self._admit_clock = 0
+        self._peek_memo: dict[int, tuple[int, int]] = {}   # rid -> (gen, n)
+        self.cow_splits = 0
+        self.cache_hit_tokens = 0
 
     # ------------------------------------------------------------ intake --
     def submit(self, req: Request) -> None:
@@ -112,27 +191,48 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     # ------------------------------------------------------------ policy --
+    def _alloc(self, n: int) -> list[int] | None:
+        """Allocate, reclaiming LRU prefix-cache pages before giving up."""
+        pages = self.alloc.alloc(n)
+        if pages is None and self.prefix is not None:
+            self.prefix.evict(n - self.alloc.n_free)
+            pages = self.alloc.alloc(n)
+        return pages
+
+    def _stash_prefix(self, seq: SeqState) -> None:
+        """Register a departing row's prompt blocks (with the partial
+        tail, frozen from now on: an adopter splits it before writing).
+
+        A row evicted before its prefill ran (admitted and preempted in
+        the same :meth:`schedule`) has nothing to stash: its pages were
+        never written, and indexing them would serve garbage KV."""
+        if self.prefix is not None and seq.pages and seq.emitted:
+            self.prefix.insert(seq.req.tokens, seq.pages)
+
     def _release(self, seq: SeqState) -> None:
-        """Free a departing row's pages and clear its page list, so a
-        stale reference the engine still holds (a row preempted the same
-        step it finishes) cannot free them a second time."""
+        """Free a departing row's pages and clear its state, so a stale
+        reference the engine still holds (a row preempted the same step
+        it finishes) can neither free them again nor look prefilling."""
         self.alloc.free(seq.pages)
         seq.pages = []
+        seq.shared_blocks = set()
+        seq.todo = None
 
     def _preempt_youngest(self) -> int | None:
         """Evict the most recently admitted unshielded running seq.
 
-        Rows preempted ``PREEMPT_SHIELD`` times are skipped while any
-        other candidate exists — page-growth priority must not bounce the
-        same request forever.  Returns the rid.
+        Rows preempted ``preempt_shield`` times are skipped while any
+        other candidate exists -- page-growth priority must not bounce
+        the same request forever.  Returns the rid.
         """
         if not self.running:
             return None
         cands = [s for s in self.running.values()
-                 if s.req.n_preempts < PREEMPT_SHIELD]
+                 if s.req.n_preempts < self.preempt_shield]
         victim = max(cands or self.running.values(),
                      key=lambda s: s.admit_seq)
         victim.req.n_preempts += 1
+        self._stash_prefix(victim)
         self._release(victim)
         self._free_slots.append(victim.slot)
         del self.running[victim.slot]
@@ -151,7 +251,7 @@ class Scheduler:
                 continue
             required = seq.length // bs + 1
             while len(seq.pages) < required:
-                got = self.alloc.alloc(1)
+                got = self._alloc(1)
                 if got is not None:
                     seq.pages.extend(got)
                     grew = True
@@ -164,41 +264,205 @@ class Scheduler:
                 preempted.append(rid)
         return grew
 
+    def _cow_split(self, preempted: list[int]) -> list[tuple[int, int, int, int]]:
+        """Split the shared page each row writes next (position
+        ``length``): the row gets a fresh copy and drops its reference
+        on the original.  The engine runs the device copies first."""
+        cow: list[tuple[int, int, int, int]] = []
+        bs = self.pcfg.page_size
+        for seq in sorted(self.running.values(), key=lambda s: s.admit_seq):
+            if self.running.get(seq.slot) is not seq:
+                continue
+            b = seq.length // bs
+            if b >= len(seq.pages):
+                continue
+            src = seq.pages[b]
+            if src == TRASH_PAGE or self.alloc.refcount(src) <= 1:
+                continue
+            fresh = self._alloc(1)
+            while fresh is None:
+                rid = self._preempt_youngest()
+                if rid is None:
+                    break
+                preempted.append(rid)
+                if rid == seq.rid:
+                    break                           # seq itself evicted
+                fresh = self._alloc(1)
+            if fresh is None or self.running.get(seq.slot) is not seq:
+                continue
+            dst = fresh[0]
+            cow.append((seq.slot, b, src, dst))
+            seq.pages[b] = dst
+            seq.shared_blocks.discard(b)
+            self.alloc.free([src])                  # drop OUR ref only
+            self.cow_splits += 1
+        return cow
+
+    def _pick_next(self) -> int:
+        """Index into ``waiting`` of the next admission candidate: the
+        request with the longest cached prefix, unless the queue head
+        was preempted or has waited ``starvation_limit`` steps (then
+        strict FCFS)."""
+        if self.prefix is None or len(self.waiting) <= 1:
+            return 0
+        head = self.waiting[0]
+        if head.n_preempts > 0 or head.wait_steps >= self.starvation_limit:
+            return 0
+        best, best_cached = 0, -1
+        gen = self.prefix.generation
+        for i, req in enumerate(self.waiting):
+            # memoized per (request, index generation): the probe hashes
+            # O(T^2 / page_size) prefix bytes
+            memo = self._peek_memo.get(req.rid)
+            if memo is not None and memo[0] == gen:
+                n_cached = memo[1]
+            else:
+                n_cached = self.prefix.peek_cached_tokens(req.tokens)
+                self._peek_memo[req.rid] = (gen, n_cached)
+            if n_cached > best_cached:
+                best, best_cached = i, n_cached
+        return best
+
     def _admit(self) -> list[SeqState]:
         bs = self.pcfg.page_size
         admitted = []
         while self.waiting and self._free_slots:
-            req = self.waiting[0]
-            pages = self.alloc.alloc(-(-(len(req.tokens) + 1) // bs))
-            if pages is None:
+            idx = self._pick_next()
+            req = self.waiting[idx]
+            n_blocks = -(-(len(req.tokens) + 1) // bs)
+            shared: list[int | None] = [None] * n_blocks
+            n_cached = 0
+            if self.prefix is not None:
+                hit, n_cached = self.prefix.lookup(req.tokens)
+                shared[: len(hit)] = hit
+            share_map = {b: pg for b, pg in enumerate(shared)
+                         if pg is not None}
+            # incref the adopted pages BEFORE the fresh allocation: _alloc
+            # may evict index entries, and an index-only hit page is
+            # exactly what eviction frees
+            self.alloc.incref(list(share_map.values()))
+            fresh = self._alloc(n_blocks - len(share_map))
+            if fresh is None:
+                self.alloc.free(list(share_map.values()))   # undo adoption
                 break                               # head-of-line blocks
-            self.waiting.popleft()
+            fi = iter(fresh)
+            pages = [share_map[b] if b in share_map else next(fi)
+                     for b in range(n_blocks)]
+            del self.waiting[idx]
+            self._peek_memo.pop(req.rid, None)
+            req.wait_steps = 0
             slot = self._free_slots.pop()
             seq = SeqState(req=req, slot=slot, pages=pages,
                            length=len(req.tokens), emitted=[],
-                           admit_seq=self._admit_clock)
+                           admit_seq=self._admit_clock,
+                           cached_tokens=n_cached,
+                           shared_blocks=set(share_map))
+            if self.chunked:
+                T = len(req.tokens)
+                todo = [p for p in range(T)
+                        if p // bs not in seq.shared_blocks]
+                if not todo or todo[-1] != T - 1:
+                    todo.append(T - 1)      # first-token logits
+                seq.todo = collections.deque(todo)
             self._admit_clock += 1
             self.running[slot] = seq
             admitted.append(seq)
+            self.cache_hit_tokens += n_cached
         return admitted
 
     def schedule(self) -> StepPlan:
-        """Growth (with LIFO preemption), then admission."""
+        """Growth (with LIFO preemption), admission, then COW splits."""
+        for req in self.waiting:
+            req.wait_steps += 1
         preempted: list[int] = []
         grew = self._grow(preempted)
         admitted = self._admit()
-        return StepPlan(admitted=admitted, preempted=preempted, grew=grew)
+        # COW runs last so it also covers rows admitted THIS step (their
+        # first write can land in an adopted partial block)
+        cow = self._cow_split(preempted)
+        admitted = [s for s in admitted
+                    if self.running.get(s.slot) is s]   # COW may evict
+        return StepPlan(admitted=admitted, preempted=preempted, grew=grew,
+                        cow=cow)
+
+    def plan_mixed(self) -> list[PackedSegment]:
+        """Fill one mixed step's ``token_budget`` lanes: decode rows,
+        then prefill chunks.  Called after :meth:`schedule`.
+
+          * total lanes never exceed ``token_budget``;
+          * every decode-phase row gets one lane, round-robin across
+            steps when rows outnumber the budget;
+          * while any row is prefilling, decode rows are capped so at
+            least ``prefill_reserve`` lanes go to chunks, but at least
+            one decode row always advances;
+          * chunks drain FCFS by admission order, each row consuming at
+            most ``chunk_size`` positions a step, ``todo`` front first.
+        """
+        budget = self.token_budget
+        segs: list[PackedSegment] = []
+        decode_rows = sorted((s for s in self.running.values()
+                              if not s.prefilling and s.emitted),
+                             key=lambda s: s.slot)
+        prefill_rows = sorted((s for s in self.running.values()
+                               if s.prefilling), key=lambda s: s.admit_seq)
+        max_decode = budget
+        if prefill_rows:
+            max_decode = min(max_decode,
+                             max(1, budget - self.prefill_reserve))
+        remaining = budget
+        if decode_rows:
+            rot = self._rr % len(decode_rows)
+            take = (decode_rows[rot:] + decode_rows[:rot])[:max_decode]
+            self._rr = (rot + len(take)) % len(decode_rows)
+            for seq in take:
+                segs.append(PackedSegment(
+                    seq=seq, kind="decode",
+                    positions=np.array([seq.length], np.int32),
+                    tokens=None))
+                remaining -= 1
+        for seq in prefill_rows:
+            if remaining <= 0:
+                break
+            n = min(len(seq.todo), remaining)
+            if self.chunk_size:
+                n = min(n, self.chunk_size)
+            positions = np.array([seq.todo.popleft() for _ in range(n)],
+                                 np.int32)
+            segs.append(PackedSegment(
+                seq=seq, kind="chunk", positions=positions,
+                tokens=np.asarray(seq.req.tokens, np.int32)[positions],
+                last=not seq.todo))
+            remaining -= n
+        return segs
+
+    def _register_blocks(self, seq: SeqState, n_tokens: int) -> None:
+        """Index the full blocks of the prompt's first ``n_tokens``."""
+        n_full = n_tokens // self.pcfg.page_size
+        if self.prefix is not None and n_full:
+            self.prefix.insert(seq.req.tokens[: n_full * self.pcfg.page_size],
+                               seq.pages[:n_full])
+
+    def register_chunks(self, seq: SeqState) -> None:
+        """Register a chunked row's now fully resident full prompt blocks
+        (a block becomes a hit as soon as its last chunk lands; the
+        partial tail waits for :meth:`_stash_prefix`)."""
+        self._register_blocks(seq, min(seq.resident, len(seq.req.tokens)))
+
+    def register_prefix(self, seq: SeqState) -> None:
+        """Called by the engine right after a prefill blit: the prompt's
+        FULL blocks now hold final KV and become discoverable.  The
+        partial tail stays private until the row departs (the producer
+        keeps writing into it)."""
+        self._register_blocks(seq, len(seq.req.tokens))
 
     def complete(self, seq: SeqState) -> None:
-        """Finished row: free its pages and slot immediately.
-
-        Guarded against stale states: if ``seq`` is no longer the
-        registered occupant of its slot (it was preempted this same step,
-        or completed already), this is a no-op — freeing its slot or
-        pages again would hand them to two sequences at once.
-        """
+        """Finished row: stash its prompt blocks, free its pages and
+        slot.  A no-op if ``seq`` no longer holds its slot (preempted
+        this same step, or completed already): freeing its slot or pages
+        again would hand them to two sequences at once."""
         if self.running.get(seq.slot) is not seq:
             return
+        self._stash_prefix(seq)
         self._release(seq)
         self._free_slots.append(seq.slot)
         del self.running[seq.slot]
@@ -206,7 +470,7 @@ class Scheduler:
     # ------------------------------------------------------- device views --
     def tables(self):
         """(block_tables [R, nb], lengths [R], active [R], last_tokens [R])
-        as numpy — empty slots point at the trash page with length 0."""
+        as numpy -- empty slots point at the trash page with length 0."""
         R, nb = self.pcfg.max_seqs, self.pcfg.max_blocks
         bt = np.full((R, nb), TRASH_PAGE, np.int32)
         lengths = np.zeros((R,), np.int32)
@@ -220,8 +484,13 @@ class Scheduler:
         return bt, lengths, active, last
 
     def block_row(self, seq: SeqState, n_blocks: int) -> np.ndarray:
-        """[n_blocks] physical pages for a prompt blit (trash-padded)."""
+        """[n_blocks] physical pages for a prompt blit (trash-padded).
+        Blocks adopted from the prefix cache map to the trash page too:
+        their KV is resident in the shared page, frozen for its holders."""
         row = np.full((n_blocks,), TRASH_PAGE, np.int32)
         k = min(len(seq.pages), n_blocks)
         row[:k] = seq.pages[:k]
+        for b in seq.shared_blocks:
+            if b < n_blocks:
+                row[b] = TRASH_PAGE
         return row

@@ -250,10 +250,20 @@ def test_scheduler_plans_equal_jax(seed):
 
 
 def test_later_slices_raise():
-    for flag in ({"prefix_cache": True}, {"spec_decode": True},
-                 {"chunked_prefill": True}, {"window_tokens": 8}):
+    for flag in ({"spec_decode": True}, {"window_tokens": 8},
+                 {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServeConfig(**flag)
+
+
+def test_chunked_prefill_and_prefix_cache_construct():
+    """The features this slice ports build a config, alone and together."""
+    for flags in ({"chunked_prefill": True}, {"prefix_cache": True},
+                  {"chunked_prefill": True, "prefix_cache": True,
+                   "token_budget": 32, "chunk_size": 16}):
+        scfg = ServeConfig(**flags)
+        for k, v in flags.items():
+            assert getattr(scfg, k) == v
 
 
 # ---------------------------------------------------------- on the card --
