@@ -62,6 +62,29 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 chunked; tokens equal to the uncached serve's, pages
                 shared, cached tokens served, the regenerate's partial
                 tail split copy-on-write (the copy captured once);
+  [serve_spec]  speculative decoding (3 drafts from 3-gram prompt
+                lookup) of the [serve] traffic plus a request whose
+                prompt is a 16-token phrase said four times: per-op and
+                fused phase-barrier (one verify program: decode_window,
+                argmax, greedy accept on the device) and per-op chunked
+                (spec windows in the mixed step's lanes), eager (counts
+                from 0, every distinct call recorded: the [8,4,.] verify
+                rows go to [tune] and [kernels]; each verify step's
+                launches its path's decode step's) then captured
+                (``verify=1 prefill=1`` or ``mixed=1``); greedy tokens
+                equal to the same prompts served plainly on the same
+                path; tokens a step and acceptance rate;
+  [serve_window] the [serve] prompts with 96 new tokens, a 64-token
+                sliding window and a pool of 49 pages (113 unwindowed),
+                per-op, phase-barrier and chunked, eager then captured:
+                pages recycled by the window, greedy tokens equal to the
+                windowed bucketed Engine's captured solo runs;
+  [serve_bucketed] the bucketed Engine on 8 prompts of 33 tokens, per-op
+                and fused resident, eager (recorded: the dense [8,33,.]
+                and [8,1,.] shapes) then captured (``prefill(8,33)=1
+                decode(8)=1``): the same tokens, every decode step
+                launching its path's decode kernels, and greedy tokens
+                equal to the ContinuousEngine's on the same prompts;
   [tune]        with the block table pointed at a fresh file under
                 build/, tune every kernel kind at every shape bucket the
                 serves gave the wrappers (on the recorded inputs),
@@ -226,6 +249,25 @@ CHUNKED_PATHS = {"serve_chunked": ("serve", {}),
 # later requests find the prefix cached
 PREFIX_SERVE = dict(seed=7, shared=96, tails=(7, 19, 40, 12, 33),
                     max_seqs=3, prompt_pad=144)
+# [serve_spec]: the SERVE traffic plus one request whose prompt is a
+# 16-token phrase said four times, speculative (3 drafts from 3-gram
+# prompt lookup); each label -> (the serve whose path and ops it runs,
+# overrides)
+SPEC_SERVE = dict(spec_decode=True, spec_k=3, spec_ngram=3)
+SPEC_PHRASE = dict(seed=5, length=16, times=4)
+SPEC_PATHS = {"serve_spec": ("serve", {}),
+              "serve_spec_fused": ("serve_fused", {}),
+              "serve_spec_chunked": ("serve", CHUNKED_SERVE)}
+# [serve_window]: the SERVE prompts, 96 new tokens, a 64-token window in
+# a pool of 1 + 8 * (ceil(65 / 16) + 1) = 49 pages (113 hold the same
+# rows unwindowed); phase-barrier and chunked, per-op
+WINDOW_SERVE = dict(new=96, window_tokens=64, n_pages=49)
+WINDOW_PATHS = {"serve_window": {}, "serve_window_chunked": CHUNKED_SERVE}
+# [serve_bucketed]: 8 prompts of 33 tokens through the bucketed Engine;
+# each label -> the serve whose path it runs
+BUCKETED_SERVE = dict(batch=8, prompt_len=33, new=16)
+BUCKETED_PATHS = {"serve_bucketed": "serve",
+                  "serve_bucketed_fused": "serve_fused"}
 IDENTITY_LAYERS = 4
 # Card vs CPU first-step logits (|logit| <= ~2 at this config).  The two
 # devices' float32 ops (attention, norms) differ in the last bits; the
@@ -617,6 +659,15 @@ def phase_serve_per_layer(torch, launches, calls, untuned):
           "[serve_fused]'s")
 
 
+def _merge_calls(calls: dict, path_calls: dict):
+    """Add one serve's recorded wrapper calls to ``calls``."""
+    for key, entry in path_calls.items():
+        if key in calls:
+            calls[key]["calls"] += entry["calls"]
+        else:
+            calls[key] = entry
+
+
 def _mixed_numbers(stats) -> dict:
     steps = stats["steps"]
     mixed = [s for s in steps if s["prefill_tokens"] and s["decode_tokens"]]
@@ -678,11 +729,7 @@ def phase_serve_chunked(torch, launches, calls, untuned):
         if not any(st["prefill_tokens"] and st["decode_tokens"]
                    for st in steps):
             raise AssertionError(f"{label}: no step mixed both phases")
-        for key, entry in path_calls.items():
-            if key in calls:
-                calls[key]["calls"] += entry["calls"]
-            else:
-                calls[key] = entry
+        _merge_calls(calls, path_calls)
         tokens = _tokens(results)
         if tokens != untuned[base][1]:
             raise AssertionError(f"{label}: eager greedy tokens differ from "
@@ -804,6 +851,357 @@ def phase_serve_prefix(torch, launches):
     print(json.dumps({"serve_prefix": out}))
     print("  serve_prefix: greedy tokens equal to the uncached serve's, "
           "phase-barrier and chunked")
+    return out
+
+
+def _spec_prompts(vocab: int):
+    """[serve_spec]'s traffic: the SERVE prompts and one prompt that is a
+    16-token phrase said four times."""
+    import numpy as np
+
+    from repro_torch.launch.serve import request_prompts
+
+    rng = np.random.default_rng(SPEC_PHRASE["seed"])
+    phrase = rng.integers(0, vocab, (SPEC_PHRASE["length"],))
+    return request_prompts(vocab, SERVE["requests"], SERVE["prompt_lens"]) + [
+        np.tile(phrase, SPEC_PHRASE["times"]).astype(np.int32)]
+
+
+def _served_twice(torch, label, launches, calls, serve_kw, *, base,
+                  want_captures, program, per_step_ops, check_step):
+    """One continuous serve path eager (counts from 0, every distinct
+    wrapper call recorded and merged into ``calls``, each step's
+    launches logged), then captured: the same tokens and rns_ops, the
+    captures ``want_captures``, and one replayed ``program`` step
+    running the kernels of ``base``'s decode step.  ``check_step(stats,
+    launches)`` holds each eager step; ``per_step_ops(stats)`` is the
+    step's rns_ops.  Returns (numbers, tokens, captured stats)."""
+    from repro_torch.launch.serve import serve
+
+    want_launch = DECODE_LAUNCHES[base]
+    _reset_launches()
+    steps_log: list = []
+    path_calls: dict = {}
+    in_step: dict = {}
+    t0 = time.perf_counter()
+    with _recording(torch, path_calls, None, in_step), \
+            _step_launches(steps_log, in_step):
+        engine, results, stats = serve("smollm-135m", full=True, rns="rns9",
+                                       device="cuda", graphs=False,
+                                       **serve_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches[label] = run = _launches()
+    for st in stats["steps"]:
+        if st["rns_ops"].as_dict() != per_step_ops(st):
+            raise AssertionError((label, st["step"], st["rns_ops"]))
+        if st["rns_ops"].fallbacks:
+            raise AssertionError((label, st["step"], "fallbacks"))
+    checked = [lc for st, lc in steps_log if check_step(st, lc)]
+    if not checked:
+        raise AssertionError(f"{label}: no step to hold to {base}'s "
+                             "launches")
+    for k, n in run.items():
+        if (n > 0) != (want_launch[k] > 0):
+            raise AssertionError((label, k, n))
+    _merge_calls(calls, path_calls)
+    tokens = _tokens(results)
+    eager = _serve_numbers(engine, stats, wall, checked[0])
+    eager.update(launches=dict(run), distinct_calls=len(path_calls),
+                 rns_kernels_per_decode_step=sum(checked[0].values()))
+    del engine
+
+    t0 = time.perf_counter()
+    cengine, cresults, cstats = serve("smollm-135m", full=True, rns="rns9",
+                                      device="cuda", graphs=True, **serve_kw)
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    if _tokens(cresults) != tokens:
+        raise AssertionError(f"{label}: captured greedy tokens differ from "
+                             "the eager serve's")
+    if [st["rns_ops"].as_dict() for st in cstats["steps"]] != [
+            st["rns_ops"].as_dict() for st in stats["steps"]]:
+        raise AssertionError(f"{label}: captured rns_ops differ")
+    if cstats["captures"] != want_captures:
+        raise AssertionError(f"{label}: captures {cstats['captures']}")
+    captured = _serve_numbers(cengine, cstats, cwall, None)
+    replay = _replay_kernels(torch, cengine, program)
+    captured["rns_kernels_per_decode_step"] = replay["rns_kernels"]
+    want_rns = {k: n for k, n in want_launch.items() if n}
+    if replay["by_kernel"] != want_rns:
+        raise AssertionError(f"{label}: a replayed {program} step ran "
+                             f"{replay['by_kernel']}, want {want_rns}")
+    captured[f"replayed_{program}_step_device_ms"] = replay["device_ms"]
+    captured[f"replayed_{program}_step_kernels"] = replay["all_kernels"]
+    del cengine
+    return {"eager": eager, "captured": captured}, tokens, cstats
+
+
+def _print_numbers(label, out, extra=()):
+    print(json.dumps({label: out}))
+    for name in ("tokens_per_s", "ttft_p50_s", "decode_step_ms_median",
+                 "captures", "rns_kernels_per_decode_step") + tuple(extra):
+        print(f"  {label} {name}: eager "
+              f"{out['eager'].get(name, 'not measured')}, captured "
+              f"{out['captured'].get(name, 'not measured')}")
+
+
+def phase_serve_spec(torch, launches, calls, untuned):
+    """Speculative decoding (SPEC_SERVE) of the [serve] traffic and a
+    repeated phrase, per-op and fused phase-barrier and per-op chunked,
+    eager then captured.  A verify step (or a mixed step) launches the
+    kernels of its path's decode step; captures ``verify=1 prefill=1``
+    (``mixed=1`` chunked).  Greedy tokens equal the same prompts served
+    without speculation on the same path (captured), whose first six
+    equal [serve]'s / [serve_fused]'s."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+
+    prompts = _spec_prompts(get_config("smollm-135m").vocab)
+    common = dict(prompts=prompts, new=SERVE["new"],
+                  max_seqs=SERVE["max_seqs"])
+    plain = {}
+    for base in ("serve", "serve_fused"):
+        if base not in untuned:
+            raise AssertionError(f"[{base}] did not run: nothing to compare "
+                                 "with")
+        _, res, _ = serve("smollm-135m", full=True, rns="rns9",
+                          device="cuda", graphs=True, **common,
+                          **SERVE_PATHS[base][0])
+        plain[base] = _tokens(res)
+        if plain[base][:SERVE["requests"]] != untuned[base][1]:
+            raise AssertionError(f"{base}: the plain serve of the spec "
+                                 f"traffic differs from [{base}]'s")
+    out = {}
+    for label, (base, kw) in SPEC_PATHS.items():
+        chunked = bool(kw.get("chunked_prefill"))
+        per_step = {k: v * FULL_LAYERS
+                    for k, v in SERVE_PATHS[base][1].items()}
+
+        def ops(st, per_step=per_step, chunked=chunked):
+            n = 1 if chunked else 1 + len(st["admitted"])
+            return {k: v * n for k, v in per_step.items()}
+
+        def check(st, lc, base=base, chunked=chunked, label=label):
+            if not chunked and (st["admitted"] or not st["decoded"]):
+                return False
+            if lc != DECODE_LAUNCHES[base]:
+                raise AssertionError((label, st["step"], lc))
+            return True
+
+        want_cap = {"mixed": 1} if chunked else {"verify": 1, "prefill": 1}
+        numbers, tokens, cstats = _served_twice(
+            torch, label, launches, calls,
+            dict(common, **SPEC_SERVE, **SERVE_PATHS[base][0], **kw),
+            base=base, want_captures=want_cap,
+            program="mixed" if chunked else "verify", per_step_ops=ops,
+            check_step=check)
+        if tokens != plain[base]:
+            raise AssertionError(f"{label}: speculative greedy tokens differ "
+                                 f"from the plain {base} serve's")
+        numbers["captured"].update(
+            tokens_per_step=cstats["tokens_per_step"],
+            acceptance_rate=cstats["acceptance_rate"],
+            spec_proposed=sum(st["spec_proposed"] for st in cstats["steps"]),
+            spec_accepted=sum(st["spec_accepted"] for st in cstats["steps"]))
+        if numbers["captured"]["tokens_per_step"] < 1.0:
+            raise AssertionError(f"{label}: tokens_per_step "
+                                 f"{numbers['captured']['tokens_per_step']}")
+        out[label] = numbers
+        _print_numbers(label, numbers, ("tokens_per_step", "acceptance_rate",
+                                        "steps"))
+        print(f"  {label}: greedy tokens equal to the plain {base} serve's, "
+              f"captures {want_cap}")
+    return out
+
+
+def phase_serve_window(torch, launches, calls):
+    """Sliding-window serving (WINDOW_SERVE: 96 new tokens, a 64-token
+    window, 49 pages) of the SERVE prompts, per-op, phase-barrier and
+    chunked, eager then captured: pages recycled by the window, and each
+    request's greedy tokens equal to the windowed bucketed Engine's
+    captured solo run of its prompt."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_model, request_prompts
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    model = build_model("smollm-135m", full=True, rns="rns9", device="cuda")
+    prompts = request_prompts(model.cfg.vocab, SERVE["requests"],
+                              SERVE["prompt_lens"])
+    new, W = WINDOW_SERVE["new"], WINDOW_SERVE["window_tokens"]
+    solo = Engine(model, ServeConfig(
+        max_cache=max(SERVE["prompt_lens"]) + new + 8, max_new_tokens=new,
+        window_tokens=W), device="cuda")
+    t0 = time.perf_counter()
+    want = [solo.generate(np.asarray(p)[None])[0].tolist() for p in prompts]
+    solo_s = time.perf_counter() - t0
+    if set(solo.captures().values()) != {1}:
+        raise AssertionError(f"windowed solo captures {solo.captures()}")
+    del solo, model
+    per_step = {k: v * FULL_LAYERS for k, v in JAX_DECODE_RNS_OPS.items()}
+    out = {"solo_runs_s": solo_s}
+    for label, kw in WINDOW_PATHS.items():
+        chunked = bool(kw.get("chunked_prefill"))
+
+        def ops(st, chunked=chunked):
+            n = 1 if chunked else 1 + len(st["admitted"])
+            return {k: v * n for k, v in per_step.items()}
+
+        def check(st, lc, chunked=chunked, label=label):
+            if not chunked and (st["admitted"] or not st["decoded"]):
+                return False
+            if lc != DECODE_LAUNCHES["serve"]:
+                raise AssertionError((label, st["step"], lc))
+            return True
+
+        want_cap = {"mixed": 1} if chunked else {"decode": 1, "prefill": 1}
+        numbers, tokens, cstats = _served_twice(
+            torch, label, launches, calls,
+            dict(requests=SERVE["requests"], prompt_lens=SERVE["prompt_lens"],
+                 max_seqs=SERVE["max_seqs"], **WINDOW_SERVE, **kw),
+            base="serve", want_captures=want_cap,
+            program="mixed" if chunked else "decode", per_step_ops=ops,
+            check_step=check)
+        evicted = cstats["pages_window_evicted"]
+        numbers["captured"].update(
+            pages_window_evicted=evicted, n_pages=WINDOW_SERVE["n_pages"],
+            n_preemptions=cstats["n_preemptions"],
+            peak_page_utilization=max(s["page_utilization"]
+                                      for s in cstats["steps"]))
+        if evicted <= 0:
+            raise AssertionError(f"{label}: no page recycled by the window")
+        if tokens != want:
+            raise AssertionError(f"{label}: windowed greedy tokens differ "
+                                 "from the windowed bucketed solo runs")
+        out[label] = numbers
+        _print_numbers(label, numbers, ("pages_window_evicted",
+                                        "n_preemptions", "steps"))
+        print(f"  {label}: {evicted} pages recycled in a pool of "
+              f"{WINDOW_SERVE['n_pages']}; greedy tokens equal to the "
+              "windowed bucketed solo runs")
+    return out
+
+
+@contextlib.contextmanager
+def _engine_runs(log: list, in_step: dict):
+    """Append (program name, kernel launches) for every program run of
+    the bucketed Engine in the block; ``in_step["on"]`` is True while
+    one runs (its build's warm-ups are not runs)."""
+    from repro_torch.serve.engine import Engine
+
+    run = Engine._run
+
+    def counted(self, prog, **values):
+        before = _launches()
+        in_step["on"] = True
+        try:
+            out = run(self, prog, **values)
+        finally:
+            in_step["on"] = False
+        after = _launches()
+        log.append((prog, {k: after[k] - before[k] for k in after}))
+        return out
+
+    Engine._run = counted
+    try:
+        yield log
+    finally:
+        Engine._run = run
+
+
+def phase_serve_bucketed(torch, launches, calls):
+    """The bucketed Engine (BUCKETED_SERVE: 8 prompts of 33 tokens) on
+    the per-op and the fused resident path, eager (counts from 0, every
+    distinct wrapper call recorded and merged into ``calls``: the dense
+    [8,33,.] and [8,1,.] shapes) then captured: ``prefill(8,33)=1
+    decode(8)=1``, the same tokens, each decode step launching its
+    path's decode kernels, the programs' rns_ops its path's; greedy
+    tokens equal to the ContinuousEngine's on the same prompts."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve, serve_bucketed
+
+    B, T, new = (BUCKETED_SERVE[k] for k in ("batch", "prompt_len", "new"))
+    out = {}
+    for label, base in BUCKETED_PATHS.items():
+        per_step = {k: v * FULL_LAYERS
+                    for k, v in SERVE_PATHS[base][1].items()}
+        want_launch = DECODE_LAUNCHES[base]
+        names = (f"prefill({B},{T})", f"decode({B})")
+        numbers, tokens = {}, {}
+        for graphs in (False, True):
+            _reset_launches()
+            log: list = []
+            path_calls: dict = {}
+            in_step: dict = {}
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if not graphs:
+                    stack.enter_context(_recording(torch, path_calls, None,
+                                                   in_step))
+                stack.enter_context(_engine_runs(log, in_step))
+                engine, toks, stats = serve_bucketed(
+                    "smollm-135m", full=True, rns="rns9", device="cuda",
+                    graphs=graphs, **BUCKETED_SERVE, **SERVE_PATHS[base][0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mode = "captured" if graphs else "eager"
+            caps = engine.captures()
+            want_caps = {n: int(graphs) for n in names}
+            if caps != want_caps:
+                raise AssertionError(f"{label} {mode}: captures {caps}")
+            for name in names:
+                if engine.programs[name].ops.as_dict() != per_step:
+                    raise AssertionError((label, name,
+                                          engine.programs[name].ops))
+            steps = [lc for prog, lc in log if prog == names[1]]
+            if not graphs:
+                launches[label] = run = _launches()
+                if any(lc != want_launch for lc in steps) or not steps:
+                    raise AssertionError(f"{label}: decode step launches "
+                                         f"{steps[:1]}, want {want_launch}")
+                for k, n in run.items():
+                    if (n > 0) != (want_launch[k] > 0):
+                        raise AssertionError((label, k, n))
+                _merge_calls(calls, path_calls)
+            else:
+                replay = _replay_kernels(torch, engine, names[1])
+                if replay["by_kernel"] != {k: n for k, n in
+                                           want_launch.items() if n}:
+                    raise AssertionError(f"{label}: a replayed decode step "
+                                         f"ran {replay['by_kernel']}")
+            tokens[mode] = toks.tolist()
+            numbers[mode] = {
+                "tokens_per_s": stats["warm"]["tokens_per_s"],
+                "first_call_tokens_per_s": stats["first"]["tokens_per_s"],
+                "ttft_p50_s": stats["ttft_s"],
+                "decode_step_ms_median": 1e3 * statistics.median(
+                    stats["step_time_s"]),
+                "captures": caps, "setup_and_run_s": wall,
+                "rns_kernels_per_decode_step": (
+                    sum(steps[0].values()) if not graphs
+                    else replay["rns_kernels"]),
+                "rns_op_counts": engine.rns_op_counts(B, T).as_dict()}
+            del engine
+        if tokens["captured"] != tokens["eager"]:
+            raise AssertionError(f"{label}: captured greedy tokens differ "
+                                 "from the eager run's")
+        prompts = np.random.default_rng(0).integers(
+            0, get_config("smollm-135m").vocab, (B, T)).astype(np.int32)
+        _, res, cstats = serve("smollm-135m", full=True, rns="rns9",
+                               device="cuda", graphs=True,
+                               prompts=list(prompts), new=new, max_seqs=B,
+                               **SERVE_PATHS[base][0])
+        if _tokens(res) != tokens["captured"]:
+            raise AssertionError(f"{label}: bucketed greedy tokens differ "
+                                 "from the ContinuousEngine's")
+        numbers["continuous_captured_tokens_per_s"] = cstats["tokens_per_s"]
+        out[label] = numbers
+        _print_numbers(label, numbers)
+        print(f"  {label}: greedy tokens equal to the ContinuousEngine's; "
+              f"captures {numbers['captured']['captures']}")
     return out
 
 
@@ -1267,22 +1665,33 @@ def _kernel_kind(name: str) -> str | None:
 
 def _replay_kernels(torch, engine, program: str = "decode") -> dict:
     """Kernels torch.profiler sees in one replay of the engine's captured
-    ``program`` ("decode" or "mixed"), by wrapper, by kernel name, and
-    the top 20 kernel names by device time, on the trash page: the
-    tables are zeroed first, no row is active and every lane is a pad
-    lane."""
+    ``program`` ("decode", "verify" or "mixed"; a bucketed Engine's
+    "decode(B)"), by wrapper, by kernel name, and the top 20 kernel
+    names by device time, on the trash page: the tables are zeroed
+    first, no row is active and every lane is a pad lane (a bucketed
+    engine's caches get lengths 0: the replay writes position 0)."""
     from torch.profiler import ProfilerActivity, profile
 
     prog = engine.programs[program]
     if prog.graph is None:
         raise AssertionError(f"the {program} step was not captured")
-    engine.cache.block_table.zero_()
-    engine.cache.lengths.zero_()
-    if program == "decode":
+    inputs = {}
+    if hasattr(engine, "_caches"):
+        for cache in engine._caches.values():
+            cache.lengths.zero_()
+    else:
+        engine.cache.block_table.zero_()
+        engine.cache.lengths.zero_()
         R = engine.pcfg.max_seqs
+    if program == "decode":
         inputs = {"token": torch.zeros((R, 1), dtype=torch.int64),
                   "active": torch.zeros((R,), dtype=torch.bool)}
-    else:
+    elif program == "verify":
+        inputs = {"window": torch.zeros((R, engine.spec_window),
+                                        dtype=torch.int64),
+                  "active": torch.zeros((R,), dtype=torch.bool),
+                  "caps": torch.zeros((R,), dtype=torch.int64)}
+    elif program == "mixed":
         N = engine.scfg.token_budget
         inputs = {"tokens": torch.zeros((N,), dtype=torch.int64),
                   "seg": torch.full((N,), -1, dtype=torch.int64),
@@ -1418,11 +1827,7 @@ def phase_serve(torch, path: str, launches: dict, calls: dict, *,
         assert not off_table, (f"{len(off_table)} of {n_launched} launches "
                                f"off the block table, e.g. {off_table[:3]}")
     else:
-        for key, entry in path_calls.items():
-            if key in calls:
-                calls[key]["calls"] += entry["calls"]
-            else:
-                calls[key] = entry
+        _merge_calls(calls, path_calls)
     assert len(results) == SERVE["requests"]
     for toks in results.values():
         assert len(toks) == SERVE["new"]
@@ -2023,6 +2428,12 @@ def main() -> int:
             ("serve_chunked", lambda: phase_serve_chunked(
                 torch, launches, calls, untuned)),
             ("serve_prefix", lambda: phase_serve_prefix(torch, launches)),
+            ("serve_spec", lambda: phase_serve_spec(torch, launches, calls,
+                                                    untuned)),
+            ("serve_window", lambda: phase_serve_window(torch, launches,
+                                                        calls)),
+            ("serve_bucketed", lambda: phase_serve_bucketed(torch, launches,
+                                                            calls)),
             ("tune", lambda: phase_tune(torch, dev, calls, launches, tuned)),
             ("serve_tuned", lambda: phase_serve_tuned(torch, launches, calls,
                                                       untuned)),

@@ -30,6 +30,10 @@ class ModelConfig:
     # numerics / paper technique: the RNS datapath on these targets
     rns: RnsDotConfig | None = None
     rns_targets: str = "mlp"               # mlp|attn|all
+    # sliding-window attention (None: full): query q attends keys
+    # [q - attn_window + 1, q]; the serving engines set it from
+    # ServeConfig.window_tokens
+    attn_window: int | None = None
     # prompts longer than this use the q-tiled (flash) prefill attention
     attn_dense_max: int = 1024
     attn_q_chunk: int = 512

@@ -1,7 +1,13 @@
-"""Serving launcher: continuous batching over the paged KV cache.
+"""Serving launcher: bucketed batching, or continuous batching over the
+paged KV cache.
 
-The residue-domain MLP datapath (rns9) at the full published width of
-smollm-135m, on the card:
+Bucketed (equal-length prompts, the batch run to completion):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --rns rns9 --full \\
+        --batch 8 --prompt-len 33 --new 16
+
+Continuous, the residue-domain MLP datapath (rns9) at the full published
+width of smollm-135m, on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --rns rns9 --full --requests 6 --prompt-lens 7,33,120 --new 16
@@ -17,23 +23,30 @@ prefill=1``); ``--eager`` runs them without graphs.
 ``--chunked-prefill [--token-budget N] [--chunk-size N]`` serves every
 step as one packed mixed-phase step (captured once: ``captures
 mixed=1``); ``--prefix-cache`` shares KV pages among prompts with a
-common prefix (copy-on-write).  The bucketed engine is a later slice of
-the port.
+common prefix (copy-on-write); ``--spec-decode [--spec-k N]`` decodes
+speculatively through one verify step (``captures prefill=1
+verify=1``); ``--window-tokens N`` attends the last N tokens and
+recycles the pages behind them.  The bucketed engine captures one
+prefill per (batch, prompt length) and one decode per batch size
+(``captures decode(8)=1 prefill(8,33)=1``); ``--window-tokens`` applies
+to it too.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.rns_matmul import RnsDotConfig
 from repro_torch.models.model import init_model
-from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
 
-__all__ = ["request_prompts", "serve", "main"]
+__all__ = ["request_prompts", "build_model", "serve", "serve_bucketed",
+           "main"]
 
 
 def request_prompts(vocab: int, requests: int, prompt_lens, seed: int = 0):
@@ -45,6 +58,55 @@ def request_prompts(vocab: int, requests: int, prompt_lens, seed: int = 0):
             for i in range(requests)]
 
 
+def build_model(arch: str = "smollm-135m", *, full: bool = False,
+                rns: str | None = None, device="cuda"):
+    """The model :func:`serve` serves: random weights from seed 0, the
+    MLP datapath on ``rns`` (qx = qw = 8) when given."""
+    cfg = get_config(arch, smoke=not full)
+    if rns:
+        cfg = dataclasses.replace(cfg, rns=RnsDotConfig(profile=rns, qx=8,
+                                                        qw=8),
+                                  rns_targets="mlp")
+    return init_model(cfg, seed=0, device=device)
+
+
+def serve_bucketed(arch: str = "smollm-135m", *, full: bool = False,
+                   rns: str | None = None, batch: int = 8,
+                   prompt_len: int = 32, new: int = 16,
+                   rns_backend: str | None = None,
+                   rns_defer: bool | None = None,
+                   resident_weights: bool = False,
+                   per_layer_profiles: bool = False,
+                   window_tokens: int | None = None, prompts=None,
+                   max_cache: int | None = None, device="cuda",
+                   graphs: bool = True):
+    """Build the model (:func:`build_model`) and generate for ``batch``
+    random prompts of ``prompt_len`` tokens (seed 0), or the [B, T]
+    ``prompts`` when given, through the bucketed :class:`Engine`: once
+    (its programs built, captured on the card) and once more warm.
+    Returns (engine, tokens [B, new], stats) with each call's wall
+    seconds and tokens/s, and the warm call's TTFT and step times."""
+    model = build_model(arch, full=full, rns=rns, device=device)
+    if prompts is None:
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, model.cfg.vocab, (batch, prompt_len))
+    prompts = np.asarray(prompts, np.int32)
+    engine = Engine(model, ServeConfig(
+        max_cache=max_cache or prompts.shape[1] + new + 8,
+        max_new_tokens=new, rns_backend=rns_backend, rns_defer=rns_defer,
+        resident_weights=resident_weights,
+        per_layer_profiles=per_layer_profiles,
+        window_tokens=window_tokens), device=device, graphs=graphs)
+    stats = {}
+    for run in ("first", "warm"):
+        t0 = time.perf_counter()
+        out = engine.generate(prompts)
+        dt = time.perf_counter() - t0
+        stats[run] = {"wall_s": dt, "tokens_per_s": out.size / dt}
+    stats.update(engine.last_stats, captures=engine.captures())
+    return engine, out, stats
+
+
 def serve(arch: str = "smollm-135m", *, full: bool = False,
           rns: str | None = None, requests: int = 12,
           prompt_lens=(7, 33, 120), new: int = 16, page_size: int = 16,
@@ -53,8 +115,9 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
           resident_weights: bool = False, per_layer_profiles: bool = False,
           prefix_cache: bool = False, chunked_prefill: bool = False,
           token_budget: int = 64, chunk_size: int | None = None,
-          prompt_pad: int | None = None, prompts=None, device="cuda",
-          graphs: bool = True):
+          spec_decode: bool = False, spec_k: int = 3, spec_ngram: int = 3,
+          window_tokens: int | None = None, prompt_pad: int | None = None,
+          prompts=None, device="cuda", graphs: bool = True):
     """Build the model (random weights from seed 0) and serve
     :func:`request_prompts` (seed 0), or ``prompts`` when given (then
     ``prompt_lens`` is not read).  Returns (engine, results, stats).
@@ -62,12 +125,8 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
     go to ``ServeConfig``; ``graphs=False`` serves eagerly.  The engine
     resolves its kernels' tiles when it captures its steps, so the block
     table in force at this call is the one it serves with."""
-    cfg = get_config(arch, smoke=not full)
-    if rns:
-        cfg = dataclasses.replace(cfg, rns=RnsDotConfig(profile=rns, qx=8,
-                                                        qw=8),
-                                  rns_targets="mlp")
-    model = init_model(cfg, seed=0, device=device)
+    model = build_model(arch, full=full, rns=rns, device=device)
+    cfg = model.cfg
     if prompts is None:
         prompts = request_prompts(cfg.vocab, requests, prompt_lens)
         longest = max(int(x) for x in prompt_lens)
@@ -80,7 +139,9 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
         resident_weights=resident_weights,
         per_layer_profiles=per_layer_profiles, prefix_cache=prefix_cache,
         chunked_prefill=chunked_prefill, token_budget=token_budget,
-        chunk_size=chunk_size), device=device, graphs=graphs)
+        chunk_size=chunk_size, spec_decode=spec_decode, spec_k=spec_k,
+        spec_ngram=spec_ngram, window_tokens=window_tokens),
+        device=device, graphs=graphs)
     results, stats = engine.run(prompts)
     return engine, results, stats
 
@@ -90,7 +151,11 @@ def main(argv=None):
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV cache "
-                         "(the only engine of this slice)")
+                         "(default: the bucketed engine)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="prompts in the bucketed engine's batch")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="the bucketed engine's prompt length")
     ap.add_argument("--full", action="store_true",
                     help="the full published config, not the smoke twin")
     ap.add_argument("--requests", type=int, default=12)
@@ -113,6 +178,18 @@ def main(argv=None):
     ap.add_argument("--chunk-size", type=int, default=None,
                     help="max prefill tokens per row per mixed step; must "
                          "be a multiple of --page-size")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="self-speculative (n-gram prompt-lookup) "
+                         "decoding through one captured [R, k+1] verify "
+                         "step (continuous engine only; tokens stay "
+                         "those of plain decoding)")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="draft tokens per speculative step")
+    ap.add_argument("--window-tokens", type=int, default=None,
+                    help="sliding-window attention: each row attends at "
+                         "most this many trailing tokens, and the "
+                         "continuous engine recycles the KV pages behind "
+                         "the window")
     ap.add_argument("--rns", metavar="PROFILE", default=None,
                     help="run the MLP datapath in residues on PROFILE "
                          "(e.g. rns9)")
@@ -125,15 +202,14 @@ def main(argv=None):
                     help="encode each layer on the narrowest RNS profile "
                          "that holds its chain (needs --resident-weights)")
     ap.add_argument("--eager", action="store_true",
-                    help="run the prefill and decode steps without CUDA "
-                         "graphs")
+                    help="run the step programs without CUDA graphs")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        raise SystemExit("the bucketed Engine is a later slice of the port; "
-                         "pass --continuous")
     if args.per_layer_profiles and not args.resident_weights:
         ap.error("--per-layer-profiles requires --resident-weights")
+    if not args.continuous:
+        _bucketed(args)
+        return
     engine, res, stats = serve(
         args.arch, full=args.full, rns=args.rns, requests=args.requests,
         prompt_lens=args.prompt_lens.split(","), new=args.new,
@@ -144,7 +220,9 @@ def main(argv=None):
         prefix_cache=args.prefix_cache,
         chunked_prefill=args.chunked_prefill,
         token_budget=args.token_budget, chunk_size=args.chunk_size,
-        device=args.device, graphs=not args.eager)
+        spec_decode=args.spec_decode, spec_k=args.spec_k,
+        window_tokens=args.window_tokens, device=args.device,
+        graphs=not args.eager)
     if args.per_layer_profiles:
         from collections import Counter
 
@@ -157,6 +235,13 @@ def main(argv=None):
               f"pages_shared={stats['pages_shared']} "
               f"pages_allocated={stats['pages_allocated']} "
               f"cow_splits={stats['cow_splits']}")
+    if args.spec_decode:
+        print(f"speculative: tokens/step={stats['tokens_per_step']:.2f} "
+              f"acceptance={stats['acceptance_rate']:.2f} "
+              f"(window {engine.spec_window})")
+    if args.window_tokens:
+        print(f"sliding window: {args.window_tokens} tokens retained per "
+              f"row, pages_window_evicted={stats['pages_window_evicted']}")
     if args.chunked_prefill:
         mixed = sum(1 for s in stats["steps"]
                     if s["prefill_tokens"] > 0 and s["decode_tokens"] > 0)
@@ -176,6 +261,27 @@ def main(argv=None):
         print("rns_ops (last step):",
               stats["steps"][-1]["rns_ops"].as_dict())
     print("sample:", res[0][:16])
+
+
+def _bucketed(args):
+    if args.spec_decode or args.chunked_prefill or args.prefix_cache:
+        raise SystemExit("--spec-decode, --chunked-prefill and "
+                         "--prefix-cache serve through the continuous "
+                         "engine: pass --continuous")
+    engine, out, stats = serve_bucketed(
+        args.arch, full=args.full, rns=args.rns, batch=args.batch,
+        prompt_len=args.prompt_len, new=args.new,
+        rns_backend=args.rns_backend, resident_weights=args.resident_weights,
+        per_layer_profiles=args.per_layer_profiles,
+        window_tokens=args.window_tokens, device=args.device,
+        graphs=not args.eager)
+    print(f"generated {out.shape} tokens in {stats['first']['wall_s']:.2f}s "
+          f"({stats['first']['tokens_per_s']:.1f} tok/s incl. build)")
+    print(f"warm: {stats['warm']['tokens_per_s']:.1f} tok/s, "
+          f"ttft={stats['ttft_s']:.3f}s")
+    print("captures " + " ".join(
+        f"{k}={v}" for k, v in sorted(stats["captures"].items())))
+    print("sample:", out[0][:16])
 
 
 if __name__ == "__main__":

@@ -1,6 +1,12 @@
-"""GQA attention with RoPE: prefill, paged one-token decode and the packed
-mixed-phase step.  Plain PyTorch, as in the JAX package, whose model
-paths compute attention outside any Pallas kernel.
+"""GQA attention with RoPE: prefill, one-token decode over a dense or a
+paged cache, the speculative-verify window and the packed mixed-phase
+step.  Plain PyTorch, as in the JAX package, whose model paths compute
+attention outside any Pallas kernel.
+
+``cfg.attn_window`` (a sliding window) narrows every one of them alike:
+query ``q`` attends keys ``[q - window + 1, q]``, the rest weigh exactly
+0, so a windowed prefill and windowed decode steps agree with a windowed
+solo run after the scheduler recycled the evicted positions' pages.
 
 Every serving path attends through :func:`lane_attention`: each query
 token (a *lane*) against its own keys, with its sums as fixed trees of
@@ -23,7 +29,8 @@ from torch import nn
 from repro_torch.core.rns_matmul import rns_multi_dot
 from repro_torch.models.layers import _param, linear, matmul_rows, tree_sum
 
-__all__ = ["rope", "lane_attention", "Attention", "gqa_qkv", "gqa_attend", "gqa_decode_paged",
+__all__ = ["rope", "lane_attention", "Attention", "gqa_qkv", "gqa_attend",
+           "gqa_decode", "gqa_decode_paged", "gqa_decode_paged_window",
            "gqa_decode_packed"]
 
 NEG_INF = -1e30
@@ -78,10 +85,13 @@ def _key_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
-def lane_attention(q, k, v, lengths):
+def lane_attention(q, k, v, lengths, window=None):
     """Each lane's query against its own keys: q [N, H, D], k/v [N or 1,
     S, Hk, D] (1: every lane reads the same keys), ``lengths`` [N] valid
     keys per lane.  Returns out [N, H, D] in q's dtype.
+
+    ``window``: a sliding window -- a lane with ``n`` valid keys (its
+    position is ``n - 1``) also masks the keys below ``n - window``.
 
     Scores are trees of elementwise products and adds over D
     (``tree_sum``); the softmax sum and the weighted sum of values are
@@ -89,7 +99,10 @@ def lane_attention(q, k, v, lengths):
     (:func:`_key_sum`), the keys zero-padded to whole blocks; masked
     keys weigh exactly 0 and the max is exact.  So a lane's result does
     not depend on the other lanes, on ``LANE_BLOCK``, or on how many
-    masked keys follow its valid ones.
+    masked keys follow its valid ones.  A masked key's value is set to 0
+    as well, not only its probability, so that a recycled or trash page
+    holding a non-finite value cannot turn ``0 * v`` into NaN (with
+    finite values this changes no bit).
     """
     N, H, D = q.shape
     S, Hk = k.shape[1], k.shape[2]
@@ -109,12 +122,19 @@ def lane_attention(q, k, v, lengths):
         vb = vt if vt.shape[0] == 1 else vt[i:i + n]
         qg = qb.reshape(n, Hk, G, 1, D)
         s = tree_sum(qg * kb, -1) / scale                    # [n, Hk, G, Sp]
-        valid = (keys < lengths[i:i + n, None])[:, None, None, :]
+        ln = lengths[i:i + n, None]
+        valid = keys < ln
+        if window is not None:
+            valid = valid & (keys >= ln - window)
+        valid = valid[:, None, None, :]
         s = torch.where(valid, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = _key_sum(p, -1)                                  # [n, Hk, G]
-        o = _key_sum(p[..., None] * vb, -2)                  # [n, Hk, G, D]
+        # masked values to 0 before the product: [n, Hk, 1, Sp, D],
+        # G times smaller than the product
+        vm = torch.where(valid[..., None], vb, 0.0)
+        o = _key_sum(p[..., None] * vm, -2)                  # [n, Hk, G, D]
         o = o / torch.clamp(l, min=1e-30)[..., None]
         outs.append(o.reshape(n, H, D))
     return torch.cat(outs).to(q.dtype)
@@ -160,9 +180,26 @@ def gqa_attend(p: Attention, x, cfg, *, rns=None):
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     q, k, v = gqa_qkv(p, x, cfg, positions, rns)
     lengths = torch.arange(1, T + 1, device=x.device)
-    out = torch.stack([lane_attention(q[b], k[b:b + 1], v[b:b + 1], lengths)
+    out = torch.stack([lane_attention(q[b], k[b:b + 1], v[b:b + 1], lengths,
+                                      cfg.attn_window)
                        for b in range(B)])
     return linear(p.wo, out.reshape(B, T, -1), rns), (k, v)
+
+
+def gqa_decode(p: Attention, x, cfg, cache, layer: int, *, rns=None):
+    """One-token decode against layer ``layer`` of a dense cache
+    (``model.DenseKV``, the bucketed engine's): the new token's K/V are
+    written at each row's length (in place), then each row attends its
+    ``lengths + 1`` keys."""
+    B = x.shape[0]
+    positions = cache.lengths[:, None]
+    q, k, v = gqa_qkv(p, x, cfg, positions, rns)
+    rows = torch.arange(B, device=x.device)
+    cache.k[layer, rows, cache.lengths] = k[:, 0].to(cache.k.dtype)
+    cache.v[layer, rows, cache.lengths] = v[:, 0].to(cache.v.dtype)
+    out = lane_attention(q[:, 0], cache.k[layer], cache.v[layer],
+                         cache.lengths + 1, cfg.attn_window)
+    return linear(p.wo, out.reshape(B, 1, -1), rns)
 
 
 def gqa_decode_paged(p: Attention, x, cfg, cache, layer: int, *, rns=None):
@@ -183,8 +220,39 @@ def gqa_decode_paged(p: Attention, x, cfg, cache, layer: int, *, rns=None):
                 v[:, 0])
     kd = gather_pages(cache.k_pages[layer], cache.block_table)
     vd = gather_pages(cache.v_pages[layer], cache.block_table)
-    out = lane_attention(q[:, 0], kd, vd, cache.lengths + 1)
+    out = lane_attention(q[:, 0], kd, vd, cache.lengths + 1,
+                         cfg.attn_window)
     return linear(p.wo, out.reshape(B, 1, -1), rns)
+
+
+def gqa_decode_paged_window(p: Attention, x, cfg, cache, layer: int, *,
+                            rns=None):
+    """W-token speculative-verify decode against layer ``layer`` of a
+    paged KV cache.
+
+    ``x`` [R, W, d]: the window [last token, draft 1, ..., draft W-1].
+    All W tokens' K/V are written (in place) at positions ``lengths ..
+    lengths + W - 1`` (past the row's pages: the trash page), then window
+    token i of row r attends ``lengths[r] + 1 + i`` keys of its row --
+    each a lane of :func:`lane_attention`, the same float ops as the
+    solo decode step at that position.  ``lengths`` is not advanced.
+    """
+    from repro_torch.serve.kv_cache import gather_pages, write_token_window
+
+    R, W = x.shape[:2]
+    ar = torch.arange(W, device=x.device)
+    positions = cache.lengths[:, None] + ar[None]
+    q, k, v = gqa_qkv(p, x, cfg, positions, rns)
+    write_token_window(cache.k_pages[layer], cache.block_table,
+                       cache.lengths, k)
+    write_token_window(cache.v_pages[layer], cache.block_table,
+                       cache.lengths, v)
+    rows = torch.arange(R, device=x.device).repeat_interleave(W)
+    kd = gather_pages(cache.k_pages[layer], cache.block_table)[rows]
+    vd = gather_pages(cache.v_pages[layer], cache.block_table)[rows]
+    out = lane_attention(q.reshape(R * W, *q.shape[2:]), kd, vd,
+                         (positions + 1).reshape(-1), cfg.attn_window)
+    return linear(p.wo, out.reshape(R, W, -1), rns)
 
 
 def gqa_decode_packed(p: Attention, x, cfg, cache, layer: int, seg, pos, *,
@@ -210,5 +278,5 @@ def gqa_decode_packed(p: Attention, x, cfg, cache, layer: int, seg, pos, *,
     segc = seg.clamp(0, cache.block_table.shape[0] - 1)
     kd = gather_pages(cache.k_pages[layer], cache.block_table)[segc]
     vd = gather_pages(cache.v_pages[layer], cache.block_table)[segc]
-    out = lane_attention(q[0], kd, vd, pos + 1)
+    out = lane_attention(q[0], kd, vd, pos + 1, cfg.attn_window)
     return linear(p.wo, out.reshape(1, N, -1), rns)

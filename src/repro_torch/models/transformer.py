@@ -40,8 +40,16 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, layer: int,
         seg, pos, _dec = packed
         y = attn.gqa_decode_packed(blk.attn, hn, cfg, cache, layer, seg, pos,
                                    rns=rns_a)
+    elif mode == "decode" and not hasattr(cache, "block_table"):
+        if hn.shape[1] > 1:
+            raise NotImplementedError(
+                "multi-token decode windows (speculative verify) need a "
+                "paged cache")
+        y = attn.gqa_decode(blk.attn, hn, cfg, cache, layer, rns=rns_a)
     elif mode == "decode":
-        y = attn.gqa_decode_paged(blk.attn, hn, cfg, cache, layer, rns=rns_a)
+        fn = (attn.gqa_decode_paged_window if hn.shape[1] > 1
+              else attn.gqa_decode_paged)
+        y = fn(blk.attn, hn, cfg, cache, layer, rns=rns_a)
     else:
         y, kv = attn.gqa_attend(blk.attn, hn, cfg, rns=rns_a)
     h = h + y
@@ -52,7 +60,9 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, layer: int,
 
 def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None):
     """Run every layer.  ``mode``: "prefill" (returns the per-layer
-    (k, v) planes) or "decode" (against the paged ``cache``, in place).
+    (k, v) planes) or "decode" (against ``cache``, in place: a paged
+    cache, [R, W] tokens with W > 1 being a speculative-verify window,
+    or the bucketed engine's dense cache, one token a row).
     ``packed`` (decode mode): a ``(seg, pos, dec)`` triple of [N] tensors
     giving every token of the [1, N, d] stream its own row, absolute
     position and phase -- the mixed chunked-prefill/decode layout."""

@@ -1,4 +1,11 @@
-"""Continuous batching over a paged KV cache.
+"""Serving engines: bucketed batching and continuous batching over a
+paged KV cache.
+
+:class:`Engine` is the port of ``repro.serve.engine``'s bucketed engine:
+equal-length prompts [B, T] prefilled into a dense cache, then decoded
+together to completion.  Its prefill and decode are step programs built
+at a bucket's first use and kept: the prefill keyed by (B, T), the decode
+by B (the JAX engine re-jits per bucket).
 
 :class:`ContinuousEngine` is the port of ``repro.serve.engine``'s engine
 of the same name.  On its phase-barrier path each :meth:`step` admits
@@ -17,20 +24,32 @@ stream in chunk by chunk.  With ``prefix_cache`` rows whose prompts
 share a prefix share its KV pages (copy-on-write: a row splits a shared
 page before its first write into it).
 
+With ``spec_decode`` (self-speculative n-gram prompt-lookup decoding)
+each decode row proposes ``spec_k`` draft tokens from its own history
+and ONE verify step scores [last token, drafts] for every row; the
+greedy accept keeps the stream token-identical to plain decoding while
+it emits up to ``spec_k + 1`` tokens a row a step (chunked: a row's
+window takes ``spec_k + 1`` lanes of the mixed step).  With
+``window_tokens`` every row attends only its last ``window_tokens``
+tokens and the scheduler recycles the pages behind the window, so a row
+holds a bounded number of pages however long it runs.
+
 The prefill (with the blit of its K/V planes into the pages), the
-decode step (with its argmax), the mixed step (with its per-lane argmax)
-and the copy-on-write page copy are step programs (``serve/graphs.py``)
-over static buffers whose shapes depend only on the engine's geometry,
-as the JAX engine jits each once.  An engine builds the programs its
-config serves: decode and prefill, or mixed when chunked, and the copy
-with the prefix cache.  On the card each is captured once in a CUDA
-graph at engine build and replayed every step; ``graphs=False`` (or the
-CPU) runs them eagerly.
+decode step (with its argmax), the verify step (with its argmax, the
+greedy accept and the length advance), the mixed step (with its
+per-lane argmax) and the copy-on-write page copy are step programs
+(``serve/graphs.py``) over static buffers whose shapes depend only on
+the engine's geometry, as the JAX engine jits each once.  An engine
+builds the programs its config serves: decode (verify with
+``spec_decode``) and prefill, or mixed when chunked, and the copy with
+the prefix cache.  On the card each is captured once in a CUDA graph at
+engine build and replayed every step; ``graphs=False`` (or the CPU)
+runs them eagerly.
 
 Each step reports the RNS primitive calls of its phases (``rns_ops``),
-as the JAX engine does: the decode program's tallies plus the prefill
-program's once per admitted prompt, or the mixed program's every step
-when chunked, each taken once when the program is built.  The port
+as the JAX engine does: the decode (or verify) program's tallies plus
+the prefill program's once per admitted prompt, or the mixed program's
+every step when chunked, each taken once when the program is built.  The port
 tallies every call of every layer, so for smollm-135m that is
 ``n_layers`` times what the JAX engine reports, whose trace-time tally
 sees its layer ``scan`` body once (ROADMAP C.3).
@@ -41,8 +60,8 @@ at engine build, the deferred MLP chain, the fused kernels; with
 ``per_layer_profiles=True`` each layer's weights are encoded on the
 narrowest profile that holds its chain (``models/resident.py``).
 
-Speculative decoding, sliding windows and digit sharding are later
-slices of the port: :class:`ServeConfig` refuses them.
+Digit sharding (``mesh``) is a later slice of the port (ROADMAP A.11):
+:class:`ServeConfig` refuses it.
 """
 
 from __future__ import annotations
@@ -59,7 +78,7 @@ from repro_torch.serve import kv_cache as kv
 from repro_torch.serve.graphs import StepProgram, build_programs
 from repro_torch.serve.scheduler import Request, Scheduler
 
-__all__ = ["ServeConfig", "ContinuousEngine"]
+__all__ = ["ServeConfig", "Engine", "ContinuousEngine"]
 
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -102,18 +121,31 @@ class ServeConfig:
     token_budget: int = 64
     chunk_size: int | None = None
     prefill_reserve: int | None = None
-    # later slices of the port: setting any of these raises
-    mesh: object | None = None
+    # self-speculative (n-gram prompt-lookup) decoding: every step scores
+    # [last token, spec_k drafts] a row in ONE verify step (spec_k + 1
+    # lanes a row when chunked); the greedy accept keeps the tokens
     spec_decode: bool = False
+    spec_k: int = 3                 # draft tokens a step (window spec_k+1)
+    spec_ngram: int = 3             # longest n-gram the lookup matches
+    # sliding-window attention: a row attends its last window_tokens
+    # tokens, and the pages behind the window go back to the pool
     window_tokens: int | None = None
+    # digit sharding, a later slice of the port: setting it raises
+    mesh: object | None = None
 
-    _LATER = ("mesh", "spec_decode", "window_tokens")
+    _LATER = ("mesh",)
 
     def __post_init__(self):
         if self.eos_id < -1:
             raise ValueError(
                 f"eos_id={self.eos_id}: use a token id, or -1 to disable "
                 "early stopping")
+        if self.spec_decode and self.spec_k < 1:
+            raise ValueError(
+                f"spec_k={self.spec_k}: speculative decoding needs at "
+                "least one draft token per step")
+        if self.spec_decode and self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram={self.spec_ngram}: need >= 1")
         if self.per_layer_profiles and not self.resident_weights:
             raise ValueError(
                 "per_layer_profiles selects moduli at weight-encode time; "
@@ -123,6 +155,12 @@ class ServeConfig:
                 raise ValueError(
                     f"token_budget={self.token_budget}: chunked_prefill "
                     "needs at least one packed lane per step")
+            if self.spec_decode and self.token_budget < self.spec_k + 1:
+                raise ValueError(
+                    f"token_budget={self.token_budget} < spec_k+1="
+                    f"{self.spec_k + 1}: a speculative decode row needs "
+                    "spec_k+1 lanes in one mixed step; raise token_budget "
+                    "or lower spec_k")
             if self.cache_dtype != "float32":
                 raise ValueError(
                     f"cache_dtype={self.cache_dtype!r}: chunked prefill "
@@ -163,13 +201,19 @@ class ServeConfig:
         on = [f for f in self._LATER if getattr(self, f) not in (None, False)]
         if on:
             raise NotImplementedError(
-                f"ServeConfig({', '.join(on)}): later slices of the port; "
-                "this slice serves the phase-barrier and chunked paths")
+                f"ServeConfig({', '.join(on)}): digit sharding is a later "
+                "slice of the port (ROADMAP A.11)")
 
 
 def _apply_rns_policy(model_cfg, scfg: ServeConfig):
-    """Fold the serve-side RNS backend and defer overrides into the
-    model config."""
+    """Fold the serve-side overrides into the model config: the RNS
+    backend and defer policy, and the sliding window (``attn_window``,
+    which both engines thread to attention: the bucketed engine's solo
+    run with the same ``window_tokens`` is what the continuous stream is
+    token-identical to)."""
+    if scfg.window_tokens is not None:
+        model_cfg = dataclasses.replace(model_cfg,
+                                        attn_window=scfg.window_tokens)
     if model_cfg.rns is None or (scfg.rns_backend is None
                                  and scfg.rns_defer is None):
         return model_cfg
@@ -190,7 +234,163 @@ def _maybe_resident(model, cfg, scfg: ServeConfig):
                         per_layer_profiles=scfg.per_layer_profiles)
 
 
-class ContinuousEngine:
+class _Programs:
+    """Step programs of an engine (``self.programs``, by name) and the
+    host staging of their inputs (``self._staging``)."""
+
+    device: torch.device
+    programs: dict[str, StepProgram]
+    _staging: dict[tuple[str, str], torch.Tensor]
+
+    def _install(self, programs, graphs: bool):
+        """Stage, warm and (on the card, with ``graphs``) capture
+        ``programs``; returns the capture stream (None: eager).  Host
+        staging is pinned on the card, so the copies into the static
+        buffers are asynchronous; every step ends in a pull of its
+        outputs, so a staging buffer is free again by the next step."""
+        programs = list(programs)
+        pin = self.device.type == "cuda"
+        for prog in programs:
+            self.programs[prog.name] = prog
+            for name, buf in prog.inputs.items():
+                self._staging[(prog.name, name)] = torch.empty(
+                    buf.shape, dtype=buf.dtype, pin_memory=pin)
+        return build_programs(programs, self.device, graphs=graphs)
+
+    def captures(self) -> dict[str, int]:
+        """Graphs captured per program (0 everywhere when eager)."""
+        return {name: p.captures for name, p in self.programs.items()}
+
+    def _run(self, prog: str, **values):
+        """Write host arrays into ``prog``'s staging buffers and run it
+        on them; returns its static outputs."""
+        staged = {}
+        for name, value in values.items():
+            buf = self._staging[(prog, name)]
+            buf.numpy()[...] = np.asarray(value).reshape(buf.shape)
+            staged[name] = buf
+        return self.programs[prog].run(**staged)
+
+
+class Engine(_Programs):
+    """Bucketed batching: equal-length prompts, the batch runs to
+    completion, on ``device`` (``model`` moved there in place; with
+    ``resident_weights`` its MLP weights encoded in place).
+
+    A (B, T) bucket's prefill program (``models/model.py::prefill`` into
+    a dense cache of ``max_cache`` positions, and the argmax) and a
+    batch size's decode program (``decode_step`` over that cache, and
+    the argmax) are built at first use and kept: captured once each on
+    the card, eager with ``graphs=False`` or on the CPU.  Each decode
+    row quantizes on its own grid (the step's ``active`` mask is all
+    ones), so a row's tokens do not depend on its batch (ROADMAP C.11).
+    Frontend and encoder-decoder prompts, digit sharding and the
+    exactness audit are later slices of the port."""
+
+    def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda",
+                 graphs: bool = True):
+        if scfg.cache_dtype not in _CACHE_DTYPES:
+            raise ValueError(f"cache_dtype={scfg.cache_dtype!r}: one of "
+                             f"{sorted(_CACHE_DTYPES)}")
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.cfg = _apply_rns_policy(model.cfg, scfg)
+        _maybe_resident(self.model, self.cfg, scfg)
+        self.scfg = scfg
+        self.graphs = graphs
+        self.programs: dict[str, StepProgram] = {}
+        self._staging = {}
+        self._caches: dict[int, M.DenseKV] = {}     # B -> dense cache
+
+    def _cache(self, B: int) -> M.DenseKV:
+        """The dense cache of batch size B, shared by its buckets."""
+        if B not in self._caches:
+            self._caches[B] = M.make_cache(
+                self.cfg, B, self.scfg.max_cache, device=self.device,
+                dtype=_CACHE_DTYPES[self.scfg.cache_dtype])
+        return self._caches[B]
+
+    def _bucket(self, B: int, T: int, *, decode: bool = True):
+        """Build (once) the (B, T) prefill program and, with ``decode``,
+        the B decode program; returns their names."""
+        cache = self._cache(B)
+        names = (f"prefill({B},{T})", f"decode({B})")
+        new = []
+
+        @torch.inference_mode()
+        def prefill(tokens):
+            logits, _ = M.prefill(self.model, self.cfg, tokens,
+                                  self.scfg.max_cache, cache=cache)
+            return torch.argmax(logits, dim=-1)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=self.device)
+
+        # the prefill first: its warm-up sets the lengths the decode
+        # warm-up writes at (both write only positions a later prefill
+        # or step overwrites before reading)
+        if names[0] not in self.programs:
+            new.append(StepProgram(names[0], prefill,
+                                   {"tokens": zeros(B, T)}))
+        if decode and names[1] not in self.programs:
+            every_row = torch.ones((B,), dtype=torch.bool,
+                                   device=self.device)
+
+            @torch.inference_mode()
+            def step(token):
+                logits = M.decode_step(self.model, self.cfg, token, cache,
+                                       every_row)
+                return torch.argmax(logits, dim=-1)
+
+            new.append(StepProgram(names[1], step, {"token": zeros(B, 1)}))
+        if new:
+            self._install(new, self.graphs)
+        return names
+
+    def rns_op_counts(self, B: int = 1, T: int = 8) -> dispatch.OpCounts:
+        """RNS primitive calls of one [B, T] prefill: the (B, T) prefill
+        program's tally, taken when it is built.  The port tallies every
+        layer's calls: ``n_layers`` times the JAX engine's (ROADMAP C.3)."""
+        name, _ = self._bucket(B, T, decode=False)
+        return self.programs[name].ops
+
+    def generate(self, prompts, frontend=None, max_new: int | None = None):
+        """prompts [B, T] (equal lengths) -> [B, n_new] int32 greedy
+        tokens.  A row that emits ``eos_id`` repeats it from then on;
+        the batch stops when every row has.  ``last_stats`` then holds
+        the call's host times: ``ttft_s`` (the prefill, its tokens
+        pulled) and ``step_time_s`` (each decode step)."""
+        if frontend is not None:
+            raise NotImplementedError(
+                "frontend / encoder-decoder prompts are a later slice of "
+                "the port")
+        prompts = np.asarray(prompts, np.int64)
+        B, T = prompts.shape
+        max_new = max_new or self.scfg.max_new_tokens
+        if T + max_new - 1 > self.scfg.max_cache:
+            raise ValueError(
+                f"prompt length {T} + max_new {max_new} - 1 > max_cache "
+                f"{self.scfg.max_cache}")
+        pre, dec = self._bucket(B, T)
+        t0 = time.perf_counter()
+        tok = self._run(pre, tokens=prompts).cpu().numpy()
+        self.last_stats = {"ttft_s": time.perf_counter() - t0,
+                           "step_time_s": []}
+        done = np.zeros((B,), bool)
+        out = [tok]
+        for _ in range(max_new - 1):
+            t0 = time.perf_counter()
+            done = done | (tok == self.scfg.eos_id)
+            nxt = self._run(dec, token=tok[:, None]).cpu().numpy()
+            tok = np.where(done, tok, nxt)
+            out.append(tok)
+            self.last_stats["step_time_s"].append(time.perf_counter() - t0)
+            if done.all():
+                break
+        return np.stack(out, axis=1).astype(np.int32)
+
+
+class ContinuousEngine(_Programs):
     """In-flight batching over a paged KV cache, on ``device`` (``model``
     is moved there in place, as ``nn.Module.to`` does, and with
     ``resident_weights`` its MLP weights are encoded onto it in place).
@@ -211,9 +411,15 @@ class ContinuousEngine:
         bs = scfg.page_size
         max_blocks = -(-scfg.max_cache // bs)
         n_pages = scfg.n_pages or 1 + scfg.max_seqs * max_blocks
+        self.spec_window = scfg.spec_k + 1 if scfg.spec_decode else 1
+        resident = None
+        if scfg.window_tokens is not None:
+            # window + lookahead tokens straddle at most this many pages
+            resident = -(-(scfg.window_tokens + self.spec_window) // bs) + 1
         self.pcfg = kv.PagedCacheConfig(page_size=bs, n_pages=n_pages,
                                         max_seqs=scfg.max_seqs,
-                                        max_blocks=max_blocks)
+                                        max_blocks=max_blocks,
+                                        resident_blocks=resident)
         # one prefill shape: every prompt is right-padded to prompt_pad,
         # a whole number of pages
         self.prompt_pad = _round_up(
@@ -227,10 +433,12 @@ class ContinuousEngine:
         if reserve is None:
             reserve = max(1, scfg.token_budget // 2)
         self.sched = Scheduler(self.pcfg, prefix_cache=scfg.prefix_cache,
+                               lookahead=self.spec_window,
                                chunked=self.chunked,
                                token_budget=scfg.token_budget,
                                chunk_size=scfg.chunk_size,
-                               prefill_reserve=reserve if self.chunked else 0)
+                               prefill_reserve=reserve if self.chunked else 0,
+                               window_tokens=scfg.window_tokens)
         self.cache = kv.make_paged_cache(
             self.cfg, self.pcfg, device=self.device,
             dtype=_CACHE_DTYPES[scfg.cache_dtype])
@@ -266,6 +474,20 @@ class ContinuousEngine:
             return torch.argmax(logits, dim=-1)
 
         @torch.inference_mode()
+        def verify(window, active, caps):
+            # the JAX engine's _verify_fn: draft i + 1 survives iff it is
+            # the argmax after window position i and every earlier draft
+            # survived; lengths advance by accepted + 1 on the device, in
+            # lockstep with the host's counters
+            logits = M.decode_window(self.model, self.cfg, window,
+                                     self.cache, active)
+            g = torch.argmax(logits, dim=-1)                 # [R, W]
+            match = (g[:, :-1] == window[:, 1:]).to(torch.int64)
+            a = torch.minimum(torch.cumprod(match, dim=1).sum(dim=1), caps)
+            self.cache.lengths += torch.where(active, a + 1, 0)
+            return g, a
+
+        @torch.inference_mode()
         def prefill(tokens, length, block_row):
             logits, ys = M.prefill_ragged(self.model, self.cfg, tokens,
                                           length)
@@ -292,9 +514,15 @@ class ContinuousEngine:
                 "tokens": zeros(N), "seg": torch.full((N,), -1, device=dev),
                 "pos": zeros(N), "dec": zeros(N, dtype=torch.bool),
                 "valid": zeros(N, dtype=torch.bool)})
+        elif self.scfg.spec_decode:
+            # ONE [R, W] verify program replaces the [R, 1] decode
+            self.programs["verify"] = StepProgram("verify", verify, {
+                "window": zeros(R, self.spec_window),
+                "active": zeros(R, dtype=torch.bool), "caps": zeros(R)})
         else:
             self.programs["decode"] = StepProgram("decode", decode, {
                 "token": zeros(R, 1), "active": zeros(R, dtype=torch.bool)})
+        if not self.chunked:
             self.programs["prefill"] = StepProgram("prefill", prefill, {
                 "tokens": zeros(1, self.prompt_pad),
                 "length": torch.ones((1,), dtype=torch.int64, device=dev),
@@ -302,44 +530,23 @@ class ContinuousEngine:
         if self.scfg.prefix_cache:
             self.programs["cow"] = StepProgram("cow", cow, {
                 "src": zeros(R), "dst": zeros(R)})
-        # host staging of each step's inputs, pinned on the card so the
-        # copies into the static buffers are asynchronous; every step
-        # ends in a pull of its argmax (a COW copy is followed by the
-        # step's program on the same stream), so a buffer is free again
-        # by the next step
-        pin = dev.type == "cuda"
-        self._staging = {
-            (prog.name, name): torch.empty(buf.shape, dtype=buf.dtype,
-                                           pin_memory=pin)
-            for prog in self.programs.values()
-            for name, buf in prog.inputs.items()}
-        self._capture_stream = build_programs(self.programs.values(), dev,
-                                              graphs=graphs)
-
-    def captures(self) -> dict[str, int]:
-        """Graphs captured per phase (0 everywhere when eager)."""
-        return {name: p.captures for name, p in self.programs.items()}
-
-    def _run(self, prog: str, **values):
-        """Write host arrays into ``prog``'s staging buffers and run it
-        on them; returns its static outputs."""
-        staged = {}
-        for name, value in values.items():
-            buf = self._staging[(prog, name)]
-            buf.numpy()[...] = np.asarray(value).reshape(buf.shape)
-            staged[name] = buf
-        return self.programs[prog].run(**staged)
+        # a COW copy is followed by the step's program on the same
+        # stream, whose outputs are pulled: its staging is free by then
+        self._staging = {}
+        self._capture_stream = self._install(self.programs.values(), graphs)
 
     def _rns_ops(self, n_prefills: int) -> dispatch.OpCounts:
         """This step's RNS tallies (the JAX engine's rule): the mixed
-        program's when chunked, else the decode program's plus the
-        prefill program's once per admitted prompt."""
+        program's when chunked, else the decode (or, with
+        ``spec_decode``, the verify) program's plus the prefill
+        program's once per admitted prompt."""
         if self.cfg.rns is None:
             return dispatch.OpCounts()
         if self.chunked:
             return self.programs["mixed"].ops
-        return self.programs["decode"].ops.add(self.programs["prefill"].ops,
-                                               times=n_prefills)
+        step = "verify" if self.scfg.spec_decode else "decode"
+        return self.programs[step].ops.add(self.programs["prefill"].ops,
+                                           times=n_prefills)
 
     def _apply_cow(self, cow):
         """Run the scheduler's COW splits on the device (before any write
@@ -365,6 +572,58 @@ class ContinuousEngine:
                 # the next round rewrites the pinned staging buffers that
                 # this round's copy may still be reading
                 torch.cuda.synchronize(self.device)
+
+    def _propose(self, seq) -> np.ndarray:
+        """Prompt-lookup (n-gram) drafting: match the row's trailing
+        n-gram (longest first, at most ``spec_ngram``) against its own
+        prompt + generation history and propose the ``spec_k`` tokens
+        that followed its most recent earlier occurrence.  A miss pads
+        with zeros: a draft is accepted only if it equals the model's
+        greedy choice, so correctness never depends on the drafts."""
+        k = self.scfg.spec_k
+        hist = np.concatenate([seq.req.tokens,
+                               np.asarray(seq.emitted, np.int32)])
+        out = np.zeros((k,), np.int32)
+        for n in range(min(self.scfg.spec_ngram, len(hist) - 1), 0, -1):
+            pat = hist[-n:]
+            base = hist[:-1]                 # a start needs a next token
+            if len(base) < n:
+                continue
+            wins = np.lib.stride_tricks.sliding_window_view(base, n)
+            hits = np.flatnonzero((wins == pat).all(axis=1))
+            if len(hits):
+                j = int(hits[-1]) + n
+                d = hist[j:j + k]
+                out[: len(d)] = d
+                return out
+        return out
+
+    def _cap(self, seq) -> int:
+        """Drafts a row may accept this step: within its ``max_new``
+        budget and its KV on real pages (not the trash page)."""
+        remaining = seq.req.max_new - len(seq.emitted)
+        return max(0, min(self.spec_window - 1, remaining - 1,
+                          len(seq.pages) * self.pcfg.page_size
+                          - seq.length - 1))
+
+    def _accept(self, seq, drafts, ar: int, bonus: int, cap: int) -> int:
+        """Emit a row's ``ar`` accepted drafts and the greedy token after
+        them (cut after an eos), advance its length by ``ar + 1`` (as the
+        verify step did on the device) and finish it when done; returns
+        the tokens emitted."""
+        toks = [int(t) for t in drafts[:ar]] + [int(bonus)]
+        if self.scfg.eos_id >= 0 and self.scfg.eos_id in toks:
+            toks = toks[: toks.index(self.scfg.eos_id) + 1]
+        seq.emitted.extend(toks)
+        seq.last_token = seq.emitted[-1]
+        seq.length += ar + 1
+        if self.spec_window > 1:
+            self._spec_accepted += ar
+            self._spec_proposed += cap
+        if self._done(seq):
+            self._step_finished.append(seq.rid)
+            self._finish(seq)
+        return len(toks)
 
     # ------------------------------------------------------------ intake --
     def submit(self, prompt, max_new: int | None = None) -> int:
@@ -430,6 +689,27 @@ class ContinuousEngine:
                 self._finish(seq)
         return n_tokens
 
+    def _decode_spec(self, last) -> int:
+        """One [R, W] draft-propose + verify for every running row:
+        ``accepted + 1`` tokens a row (between 1 and W), the stream of
+        plain decoding by the greedy accept rule.  Returns #new tokens."""
+        R, W = self.pcfg.max_seqs, self.spec_window
+        window = np.zeros((R, W), np.int64)
+        caps = np.zeros((R,), np.int64)
+        for seq in self.sched.running.values():
+            window[seq.slot, 0] = seq.last_token
+            window[seq.slot, 1:] = self._propose(seq)
+            caps[seq.slot] = self._cap(seq)
+        g, a = self._run("verify", window=window, active=self._active,
+                         caps=caps)
+        g, a = g.cpu().numpy(), a.cpu().numpy()
+        n_tokens = 0
+        for seq in list(self.sched.running.values()):
+            ar = int(a[seq.slot])
+            n_tokens += self._accept(seq, window[seq.slot, 1:], ar,
+                                     g[seq.slot, ar], int(caps[seq.slot]))
+        return n_tokens
+
     def _stats(self, t0, plan, *, n_tokens, decode_rows, prefill_tokens,
                n_prefills) -> dict:
         alloc = self.sched.alloc
@@ -449,6 +729,10 @@ class ContinuousEngine:
             "cache_hit_tokens": sum(s.cached_tokens for s in plan.admitted),
             "pages_allocated_total": alloc.pages_allocated,
             "pages_shared_total": alloc.pages_shared,
+            "pages_window_evicted": self.sched.window_evictions,
+            # speculative accounting (this step)
+            "spec_proposed": self._spec_proposed,
+            "spec_accepted": self._spec_accepted,
             "rns_ops": self._rns_ops(n_prefills),
             "prefill_tokens": prefill_tokens,
             "decode_tokens": n_tokens,
@@ -465,17 +749,20 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         self._step_finished: list[int] = []
         self._step_ttfts: list[float] = []
+        self._spec_accepted = self._spec_proposed = 0
         plan = self.sched.schedule()
         if plan.cow:
             # duplicate shared pages BEFORE any packed write lands on them
             self._apply_cow(plan.cow)
-        segs = self.sched.plan_mixed()
+        W = self.spec_window
+        segs = self.sched.plan_mixed(W)
         N = self.scfg.token_budget
         tok = np.zeros((N,), np.int64)
         sg = np.full((N,), -1, np.int64)
         ps = np.zeros((N,), np.int64)
         dc = np.zeros((N,), bool)
         vd = np.zeros((N,), bool)
+        caps: dict[int, int] = {}
         off = prefill_tokens = decode_lanes = 0
         for s in segs:
             s.offset, n = off, s.n
@@ -483,8 +770,11 @@ class ContinuousEngine:
             ps[off:off + n] = s.positions
             vd[off:off + n] = True
             if s.kind == "decode":
-                dc[off] = True
+                dc[off:off + n] = True
                 tok[off] = s.seq.last_token
+                if W > 1:
+                    tok[off + 1:off + W] = self._propose(s.seq)
+                caps[s.seq.slot] = self._cap(s.seq)
                 decode_lanes += n
             else:
                 tok[off:off + n] = s.tokens
@@ -516,20 +806,19 @@ class ContinuousEngine:
                         self._step_finished.append(seq.rid)
                         self._finish(seq)
                 else:
-                    t = int(g[s.offset])
-                    seq.emitted.append(t)
-                    seq.last_token = t
-                    seq.length += 1
-                    n_tokens += 1
-                    if self._done(seq):
-                        self._step_finished.append(seq.rid)
-                        self._finish(seq)
+                    # the verify step's greedy accept, on the host
+                    w = tok[s.offset:s.offset + s.n]
+                    gr = g[s.offset:s.offset + s.n]
+                    cap, ar = caps[seq.slot], 0
+                    while ar < cap and w[ar + 1] == gr[ar]:
+                        ar += 1
+                    n_tokens += self._accept(seq, w[1:], ar, gr[ar], cap)
         elif self.sched.running:
             raise RuntimeError("mixed step planned no segments while rows "
                                "are running: scheduler liveness bug")
         self._step_idx += 1
         return self._stats(t0, plan, n_tokens=n_tokens,
-                           decode_rows=decode_lanes,
+                           decode_rows=decode_lanes // W,
                            prefill_tokens=prefill_tokens, n_prefills=0)
 
     def step(self) -> dict:
@@ -542,6 +831,7 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         self._step_finished: list[int] = []
         self._step_ttfts: list[float] = []
+        self._spec_accepted = self._spec_proposed = 0
         plan = self.sched.schedule()
         if plan.admitted or plan.preempted or plan.grew or plan.cow:
             self._tables_dirty = True
@@ -567,7 +857,10 @@ class ContinuousEngine:
                 kv.set_tables(self.cache, bt, lengths)
                 self._active = active
                 self._tables_dirty = False
-            n_tokens = self._decode_vanilla(last)
+            if self.scfg.spec_decode:
+                n_tokens = self._decode_spec(last)
+            else:
+                n_tokens = self._decode_vanilla(last)
         self._step_idx += 1
         return self._stats(
             t0, plan, n_tokens=n_tokens, decode_rows=decode_rows,
@@ -587,6 +880,8 @@ class ContinuousEngine:
         lat = [self.latencies.pop(r) for r in done if r in self.latencies]
         ttft = [self.ttfts.pop(r) for r in done if r in self.ttfts]
         total = sum(len(v) for v in out.values())
+        decode_rows = sum(s["decode_rows"] for s in steps)
+        proposed = sum(s["spec_proposed"] for s in steps)
         stats = {
             "n_requests": len(done),
             "n_steps": len(steps),
@@ -601,11 +896,20 @@ class ContinuousEngine:
                 np.mean([s["page_utilization"] for s in steps]))
             if steps else 0.0,
             "n_preemptions": sum(len(s["preempted"]) for s in steps),
+            # speculative decoding: tokens a row per decode step (> 1 iff
+            # drafts are accepted) and the acceptance rate over eligible
+            # (capped) drafts
+            "tokens_per_step": (sum(s["new_tokens"] for s in steps)
+                                / decode_rows if decode_rows else 0.0),
+            "acceptance_rate": (sum(s["spec_accepted"] for s in steps)
+                                / proposed if proposed else 0.0),
             # prefix caching: cumulative allocator and COW traffic
             "cache_hit_tokens": sum(s["cache_hit_tokens"] for s in steps),
             "cow_splits": sum(s["cow_splits"] for s in steps),
             "pages_allocated": self.sched.alloc.pages_allocated,
             "pages_shared": self.sched.alloc.pages_shared,
+            # sliding window: pages recycled by eviction, cumulative
+            "pages_window_evicted": self.sched.window_evictions,
             "captures": self.captures(),
             "steps": steps,
         }

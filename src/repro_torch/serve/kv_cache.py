@@ -37,6 +37,7 @@ __all__ = [
     "set_tables",
     "gather_pages",
     "write_token",
+    "write_token_window",
     "write_packed_tokens",
     "write_prompt_pages",
     "copy_pages",
@@ -56,20 +57,30 @@ class PagedCacheConfig:
     *total* tokens resident across all sequences — the knob that trades
     memory for concurrency.  Page 0 is reserved (trash), so the usable
     pool is ``n_pages - 1`` pages.
+
+    ``resident_blocks`` (optional) caps how many of a sequence's blocks
+    are physically resident at once: sliding-window serving evicts pages
+    behind the window, so a pool far smaller than ``max_blocks`` can
+    still serve arbitrarily long rows.  It only relaxes the feasibility
+    check here; block tables keep ``max_blocks`` columns (positions stay
+    absolute, evicted entries point at the trash page).
     """
 
     page_size: int = 16
     n_pages: int = 129          # 128 usable + trash
     max_seqs: int = 8           # decode slots (R)
     max_blocks: int = 8         # logical blocks per sequence
+    resident_blocks: int | None = None   # physical bound (None: max_blocks)
 
     def __post_init__(self):
         if self.page_size < 1 or self.n_pages < 2:
             raise ValueError("need page_size >= 1 and n_pages >= 2")
-        if self.n_pages - 1 < self.max_blocks:
+        need = self.max_blocks if self.resident_blocks is None \
+            else min(self.max_blocks, self.resident_blocks)
+        if self.n_pages - 1 < need:
             raise ValueError(
                 f"pool of {self.n_pages - 1} usable pages cannot hold even "
-                f"one resident sequence ({self.max_blocks} blocks)")
+                f"one resident sequence ({need} blocks)")
 
     @property
     def tokens_per_seq(self) -> int:
@@ -358,6 +369,28 @@ def write_token(pages: torch.Tensor, block_table: torch.Tensor,
     page = torch.where(blk < nb, block_table[rows, blk.clamp(max=nb - 1)],
                        TRASH_PAGE)
     pages[page, lengths % bs] = vals.to(pages.dtype)
+
+
+def write_token_window(pages: torch.Tensor, block_table: torch.Tensor,
+                       lengths: torch.Tensor, vals: torch.Tensor) -> None:
+    """Scatter W consecutive tokens per row from its length, in place.
+
+    ``vals`` [R, W, ...] (a speculative-verify window): token i of row r
+    goes to logical position ``lengths[r] + i``.  As in
+    :func:`write_token`, positions past the row's table (block >= nb)
+    go to the trash page, so draft tokens past a row's pages lose their
+    KV harmlessly (the engine caps acceptance to what landed on real
+    pages).
+    """
+    bs = pages.shape[1]
+    R, nb = block_table.shape
+    W = vals.shape[1]
+    pos = lengths[:, None] + torch.arange(W, device=lengths.device)[None]
+    blk = pos // bs
+    rows = torch.arange(R, device=block_table.device)[:, None]
+    page = torch.where(blk < nb, block_table[rows, blk.clamp(max=nb - 1)],
+                       TRASH_PAGE)
+    pages[page, pos % bs] = vals.to(pages.dtype)
 
 
 def write_packed_tokens(pages: torch.Tensor, block_table: torch.Tensor,

@@ -1,16 +1,18 @@
 """Continuous-batching request scheduler (host-side policy, numpy only).
 
-The port of ``repro.serve.scheduler`` without its speculative lookahead
-(``lookahead`` stays 1) and sliding-window eviction, which come with the
-slices that serve them: on the same traffic both make the same plans
-(asserted in tests/test_torch_serve.py, test_torch_chunked.py and
-test_torch_prefix.py).
+The port of ``repro.serve.scheduler``: on the same traffic both make the
+same plans (asserted in tests/test_torch_serve.py, test_torch_chunked.py,
+test_torch_prefix.py and test_torch_window.py).
 
 One :class:`Scheduler` owns the page pool and the slot map and makes the
 in-flight-batching decisions each engine step:
 
-  * **growth** -- every running sequence gets the page its next token
-    lands in.  Running rows always outrank new admissions for pages.
+  * **growth** -- running sequences get the page(s) the tokens they
+    write next land in; with speculative decoding the write window is
+    ``lookahead`` tokens wide: the first page is preemption-backed (every
+    row emits at least one token a step), the rest best-effort (a draft
+    whose KV has no page goes to the trash page and the engine caps
+    acceptance).  Running rows always outrank new admissions for pages.
   * **copy-on-write** -- a row about to write into a *shared* page
     (refcount > 1: the prefix index and/or other rows hold it) first
     splits it: a fresh page is allocated, the engine copies the contents
@@ -23,6 +25,14 @@ in-flight-batching decisions each engine step:
     makes the regenerated tokens identical to the uninterrupted run.  A
     sequence preempted ``preempt_shield`` times becomes immune: victim
     selection skips it while any unshielded candidate exists.
+  * **window eviction** -- with ``window_tokens`` set, every step begins
+    by recycling each row's blocks that no future query can attend
+    (query ``q`` sees keys ``[q - W + 1, q]``).  Evicted block-table
+    entries become the trash page: absolute positions and block indices
+    stay, the attention mask weighs the evicted positions exactly 0, and
+    the freed pages serve the same step's growth and admissions.
+    Windowed rows never register prefix-cache blocks (every one is
+    evicted in time; the index holds only live, immutable pages).
   * **admission** -- while a slot is free and the pool can hold the
     prompt plus one decode token.  With the prefix cache on, the waiting
     request with the longest cached prefix goes first; strict FCFS
@@ -127,7 +137,8 @@ class PackedSegment:
     """One contiguous run of lanes in a packed mixed step.
 
     ``kind`` is ``"chunk"`` (prefill-chunk tokens, ``tokens`` taken from
-    the prompt) or ``"decode"`` (a decode row's next-token lane).
+    the prompt) or ``"decode"`` (a decode row's next-token lane and
+    ``n - 1`` speculative-draft lanes; the engine fills the tokens).
     ``offset`` is the segment's first lane in the step's fixed
     [token_budget] arrays, set by the engine when it packs.  ``last``
     marks a chunk that completes its prompt: its final lane's logits
@@ -148,13 +159,15 @@ class PackedSegment:
 
 class Scheduler:
     def __init__(self, pcfg: PagedCacheConfig, *, prefix_cache: bool = False,
-                 starvation_limit: int = 8, preempt_shield: int = 2,
-                 chunked: bool = False, token_budget: int = 0,
-                 chunk_size: int | None = None, prefill_reserve: int = 0):
+                 lookahead: int = 1, starvation_limit: int = 8,
+                 preempt_shield: int = 2, chunked: bool = False,
+                 token_budget: int = 0, chunk_size: int | None = None,
+                 prefill_reserve: int = 0, window_tokens: int | None = None):
         self.pcfg = pcfg
         self.alloc = PageAllocator(pcfg.n_pages)
         self.prefix = (PrefixCache(self.alloc, pcfg.page_size)
                        if prefix_cache else None)
+        self.lookahead = max(1, lookahead)
         self.starvation_limit = starvation_limit
         self.preempt_shield = preempt_shield
         self.chunked = chunked
@@ -162,6 +175,8 @@ class Scheduler:
         self.chunk_size = chunk_size
         self.prefill_reserve = prefill_reserve
         self._rr = 0                    # decode round-robin rotation
+        self.window = window_tokens     # sliding-window width (None: full)
+        self.window_evictions = 0       # pages recycled by _evict_window
         self.waiting: collections.deque[Request] = collections.deque()
         self.running: dict[int, SeqState] = {}          # slot -> seq
         self._free_slots = list(range(pcfg.max_seqs - 1, -1, -1))
@@ -180,9 +195,16 @@ class Scheduler:
                 f"request {req.rid}: prompt {T} + max_new {req.max_new} "
                 f"needs {need} blocks > per-seq capacity "
                 f"{self.pcfg.max_blocks} ({self.pcfg.tokens_per_seq} tokens)")
-        if need > self.alloc.n_pages - 1:
+        # windowed rows recycle their oldest pages as they go, so their
+        # physical footprint is bounded by the window (plus the write
+        # lookahead and block-alignment slack) however long they run
+        need_pool = need
+        if self.window is not None:
+            need_pool = min(need,
+                            -(-(self.window + self.lookahead) // bs) + 1)
+        if need_pool > self.alloc.n_pages - 1:
             raise ValueError(
-                f"request {req.rid} can never fit: needs {need} pages, "
+                f"request {req.rid} can never fit: needs {need_pool} pages, "
                 f"pool has {self.alloc.n_pages - 1}")
         self.waiting.append(req)
 
@@ -205,15 +227,20 @@ class Scheduler:
 
         A row evicted before its prefill ran (admitted and preempted in
         the same :meth:`schedule`) has nothing to stash: its pages were
-        never written, and indexing them would serve garbage KV."""
-        if self.prefix is not None and seq.pages and seq.emitted:
+        never written, and indexing them would serve garbage KV.  A
+        windowed row registers nothing: every one of its blocks is
+        evicted in time."""
+        if (self.prefix is not None and self.window is None
+                and seq.pages and seq.emitted):
             self.prefix.insert(seq.req.tokens, seq.pages)
 
     def _release(self, seq: SeqState) -> None:
-        """Free a departing row's pages and clear its state, so a stale
-        reference the engine still holds (a row preempted the same step
-        it finishes) can neither free them again nor look prefilling."""
-        self.alloc.free(seq.pages)
+        """Free a departing row's real pages (window eviction leaves trash
+        placeholders, which the allocator never handed out) and clear its
+        state, so a stale reference the engine still holds (a row
+        preempted the same step it finishes) can neither free them again
+        nor look prefilling."""
+        self.alloc.free([pg for pg in seq.pages if pg != TRASH_PAGE])
         seq.pages = []
         seq.shared_blocks = set()
         seq.todo = None
@@ -240,10 +267,41 @@ class Scheduler:
         self.waiting.appendleft(victim.req)
         return victim.rid
 
+    def _evict_window(self) -> None:
+        """Sliding window: recycle every block no future query can attend.
+
+        The earliest query a row runs again sits at ``qmin`` (the front
+        of its chunked ``todo`` while prefilling, else its ``length``),
+        and it attends keys from ``qmin - window + 1``, so block ``b`` is
+        dead once ``(b + 1) * bs <= qmin - window + 1``.  Its page goes
+        back to the pool and its entry becomes the trash page (absolute
+        block indexing stays; the window mask weighs those positions
+        exactly 0).  Runs first in :meth:`schedule`, so the pages serve
+        this step's growth and admissions."""
+        if self.window is None:
+            return
+        bs = self.pcfg.page_size
+        for seq in self.running.values():
+            qmin = seq.todo[0] if seq.todo else seq.length
+            keep_from = qmin - self.window + 1
+            n_dead = min(max(keep_from, 0) // bs, len(seq.pages))
+            for b in range(n_dead):
+                pg = seq.pages[b]
+                if pg == TRASH_PAGE:
+                    continue                        # already recycled
+                self.alloc.free([pg])
+                seq.pages[b] = TRASH_PAGE
+                seq.shared_blocks.discard(b)
+                self.window_evictions += 1
+
     def _grow(self, preempted: list[int]) -> bool:
-        """Give every running row the page for the token it writes next
-        (position ``length``); preemption backs it, so every surviving
-        row emits one token per step."""
+        """Give every running row page(s) for the tokens it writes next.
+
+        The page of position ``length`` is required: preemption backs
+        it, so every surviving row emits at least one token a step.  The
+        pages of the rest of the ``lookahead`` window (speculative
+        drafts) are best-effort: a missing one sends that draft's KV to
+        the trash page and the engine caps acceptance."""
         bs = self.pcfg.page_size
         grew = False
         for seq in sorted(self.running.values(), key=lambda s: s.admit_seq):
@@ -262,40 +320,53 @@ class Scheduler:
                         preempted.append(rid)
                     break                           # seq itself evicted
                 preempted.append(rid)
+            desired = min((seq.length + self.lookahead - 1) // bs + 1,
+                          self.pcfg.max_blocks)
+            while (self.running.get(seq.slot) is seq
+                   and len(seq.pages) < desired):
+                got = self._alloc(1)
+                if got is None:
+                    break                           # best-effort only
+                seq.pages.extend(got)
+                grew = True
         return grew
 
     def _cow_split(self, preempted: list[int]) -> list[tuple[int, int, int, int]]:
-        """Split the shared page each row writes next (position
-        ``length``): the row gets a fresh copy and drops its reference
-        on the original.  The engine runs the device copies first."""
+        """Split every shared page in a row's write window (positions
+        ``length .. length + lookahead - 1``): the row gets a fresh copy
+        and drops its reference on the original.  The engine runs the
+        device copies first."""
         cow: list[tuple[int, int, int, int]] = []
         bs = self.pcfg.page_size
         for seq in sorted(self.running.values(), key=lambda s: s.admit_seq):
             if self.running.get(seq.slot) is not seq:
                 continue
-            b = seq.length // bs
-            if b >= len(seq.pages):
-                continue
-            src = seq.pages[b]
-            if src == TRASH_PAGE or self.alloc.refcount(src) <= 1:
-                continue
-            fresh = self._alloc(1)
-            while fresh is None:
-                rid = self._preempt_youngest()
-                if rid is None:
-                    break
-                preempted.append(rid)
-                if rid == seq.rid:
-                    break                           # seq itself evicted
+            b0 = seq.length // bs
+            b1 = min((seq.length + self.lookahead - 1) // bs,
+                     len(seq.pages) - 1)
+            for b in range(b0, b1 + 1):
+                if self.running.get(seq.slot) is not seq:
+                    break                           # evicted mid-split
+                src = seq.pages[b]
+                if src == TRASH_PAGE or self.alloc.refcount(src) <= 1:
+                    continue
                 fresh = self._alloc(1)
-            if fresh is None or self.running.get(seq.slot) is not seq:
-                continue
-            dst = fresh[0]
-            cow.append((seq.slot, b, src, dst))
-            seq.pages[b] = dst
-            seq.shared_blocks.discard(b)
-            self.alloc.free([src])                  # drop OUR ref only
-            self.cow_splits += 1
+                while fresh is None:
+                    rid = self._preempt_youngest()
+                    if rid is None:
+                        break
+                    preempted.append(rid)
+                    if rid == seq.rid:
+                        break                       # seq itself evicted
+                    fresh = self._alloc(1)
+                if fresh is None or self.running.get(seq.slot) is not seq:
+                    continue
+                dst = fresh[0]
+                cow.append((seq.slot, b, src, dst))
+                seq.pages[b] = dst
+                seq.shared_blocks.discard(b)
+                self.alloc.free([src])              # drop OUR ref only
+                self.cow_splits += 1
         return cow
 
     def _pick_next(self) -> int:
@@ -332,7 +403,19 @@ class Scheduler:
             n_blocks = -(-(len(req.tokens) + 1) // bs)
             shared: list[int | None] = [None] * n_blocks
             n_cached = 0
-            if self.prefix is not None:
+            # windowed rows never adopt (nothing registers under a
+            # window), and blocks already outside the window at admission
+            # get the trash page, not a page: a whole-prompt prefill
+            # attends from the token stream, not the pages (a chunked
+            # one reads the pages, but its todo starts at 0, so nothing
+            # is dead yet: _evict_window recycles as chunks drain)
+            dead: set[int] = set()
+            if self.window is not None:
+                if not self.chunked:
+                    keep_from = len(req.tokens) - self.window + 1
+                    dead = {b for b in range(n_blocks)
+                            if (b + 1) * bs <= keep_from}
+            elif self.prefix is not None:
                 hit, n_cached = self.prefix.lookup(req.tokens)
                 shared[: len(hit)] = hit
             share_map = {b: pg for b, pg in enumerate(shared)
@@ -341,12 +424,13 @@ class Scheduler:
             # may evict index entries, and an index-only hit page is
             # exactly what eviction frees
             self.alloc.incref(list(share_map.values()))
-            fresh = self._alloc(n_blocks - len(share_map))
+            fresh = self._alloc(n_blocks - len(share_map) - len(dead))
             if fresh is None:
                 self.alloc.free(list(share_map.values()))   # undo adoption
                 break                               # head-of-line blocks
             fi = iter(fresh)
-            pages = [share_map[b] if b in share_map else next(fi)
+            pages = [share_map[b] if b in share_map
+                     else TRASH_PAGE if b in dead else next(fi)
                      for b in range(n_blocks)]
             del self.waiting[idx]
             self._peek_memo.pop(req.rid, None)
@@ -371,10 +455,12 @@ class Scheduler:
         return admitted
 
     def schedule(self) -> StepPlan:
-        """Growth (with LIFO preemption), admission, then COW splits."""
+        """Window eviction, growth (with LIFO preemption), admission,
+        then COW splits."""
         for req in self.waiting:
             req.wait_steps += 1
         preempted: list[int] = []
+        self._evict_window()
         grew = self._grow(preempted)
         admitted = self._admit()
         # COW runs last so it also covers rows admitted THIS step (their
@@ -385,19 +471,21 @@ class Scheduler:
         return StepPlan(admitted=admitted, preempted=preempted, grew=grew,
                         cow=cow)
 
-    def plan_mixed(self) -> list[PackedSegment]:
+    def plan_mixed(self, window: int = 1) -> list[PackedSegment]:
         """Fill one mixed step's ``token_budget`` lanes: decode rows,
         then prefill chunks.  Called after :meth:`schedule`.
 
           * total lanes never exceed ``token_budget``;
-          * every decode-phase row gets one lane, round-robin across
-            steps when rows outnumber the budget;
+          * every decode-phase row gets ``window`` lanes (its next token
+            and ``window - 1`` speculative drafts), round-robin across
+            steps when rows outnumber ``token_budget // window``;
           * while any row is prefilling, decode rows are capped so at
             least ``prefill_reserve`` lanes go to chunks, but at least
             one decode row always advances;
           * chunks drain FCFS by admission order, each row consuming at
             most ``chunk_size`` positions a step, ``todo`` front first.
         """
+        W = max(1, window)
         budget = self.token_budget
         segs: list[PackedSegment] = []
         decode_rows = sorted((s for s in self.running.values()
@@ -405,10 +493,10 @@ class Scheduler:
                              key=lambda s: s.slot)
         prefill_rows = sorted((s for s in self.running.values()
                                if s.prefilling), key=lambda s: s.admit_seq)
-        max_decode = budget
+        max_decode = budget // W
         if prefill_rows:
             max_decode = min(max_decode,
-                             max(1, budget - self.prefill_reserve))
+                             max(1, (budget - self.prefill_reserve) // W))
         remaining = budget
         if decode_rows:
             rot = self._rr % len(decode_rows)
@@ -417,9 +505,9 @@ class Scheduler:
             for seq in take:
                 segs.append(PackedSegment(
                     seq=seq, kind="decode",
-                    positions=np.array([seq.length], np.int32),
+                    positions=seq.length + np.arange(W, dtype=np.int32),
                     tokens=None))
-                remaining -= 1
+                remaining -= W
         for seq in prefill_rows:
             if remaining <= 0:
                 break
@@ -436,9 +524,10 @@ class Scheduler:
         return segs
 
     def _register_blocks(self, seq: SeqState, n_tokens: int) -> None:
-        """Index the full blocks of the prompt's first ``n_tokens``."""
+        """Index the full blocks of the prompt's first ``n_tokens`` (none
+        under a window)."""
         n_full = n_tokens // self.pcfg.page_size
-        if self.prefix is not None and n_full:
+        if self.prefix is not None and self.window is None and n_full:
             self.prefix.insert(seq.req.tokens[: n_full * self.pcfg.page_size],
                                seq.pages[:n_full])
 

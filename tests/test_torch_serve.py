@@ -250,8 +250,7 @@ def test_scheduler_plans_equal_jax(seed):
 
 
 def test_later_slices_raise():
-    for flag in ({"spec_decode": True}, {"window_tokens": 8},
-                 {"mesh": object()}):
+    for flag in ({"mesh": object()},):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServeConfig(**flag)
 
