@@ -99,6 +99,21 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 to the untuned serves, the same launches per decode
                 step, every launch on its bucket's row, and its numbers
                 beside the untuned run's;
+  [serve_mla]   DeepSeek-V2 (MLA attention, 160-expert MoE with 2 shared
+                experts, untied head) at its published width, depth 2,
+                capacity 27 (dropless), rns9 on the shared experts: a
+                120-token prefill's logits on the kernels bit-equal to the
+                plain RNS path on the card (``rns_targets="all"``); the
+                [serve] traffic per-op, with ``rns_targets="all"`` (the MLA
+                projections too), chunked, speculative and fused, eager
+                (counts from 0, every distinct call recorded for
+                [kernels], each decode / verify / mixed step's launches
+                the path's) then captured (one capture a program, the
+                eager tokens and rns_ops, a replayed step's kernels);
+                chunked and speculative tokens equal to the whole-prompt
+                serve's; the bucketed Engine on 8 x 33, eager and
+                captured, its tokens the ContinuousEngine's; the peak
+                device memory;
   [kernels]     hold all seven kernels against their plain PyTorch
                 versions on the card -- the six RNS kernels bit for bit
                 on the inputs the serves gave them (every distinct
@@ -153,8 +168,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 main path's decode and prefill inputs, one timed row of
                 each beside the same inputs unscaled.
 
-Then it prints the card's name and power limit, one ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+Then it prints the card's name and power limit, the peak device memory,
+one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``.  ``--phases=a,b`` runs only the named phases (a debugging aid).  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -268,6 +284,45 @@ WINDOW_PATHS = {"serve_window": {}, "serve_window_chunked": CHUNKED_SERVE}
 BUCKETED_SERVE = dict(batch=8, prompt_len=33, new=16)
 BUCKETED_PATHS = {"serve_bucketed": "serve",
                   "serve_bucketed_fused": "serve_fused"}
+# [serve_mla]: DeepSeek-V2 (arXiv:2405.04434) at its published width --
+# MLA (128 heads, q_lora 1536, kv_lora 512, nope 128, rope 64, v 128),
+# 160 routed experts of 1536 top-6 + 2 shared, vocab 102400, untied --
+# at depth 2 of 60: float32 weights take ~15.9 GB a layer (experts 15.1)
+# and 4.2 GB for the embedding and head, 36 GB of the card's 80
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 2
+# >= E / k = 160 / 6: dropless, so chunked and bucketed tokens can equal
+# whole-prompt ones (JAX's own reason for its dropless smoke twin)
+MLA_CAPACITY = 27.0
+# per layer, each RNS target: the JAX engine's (decode, prefill) rns_ops
+# (from the JAX engine on the smoke twin on the CPU, as
+# tests/test_torch_mla.py compares them); "all" adds the MLA projections
+# (prefill also re-expands the latents through wuk/wuv)
+MLA_OPS = {
+    "mlp": (JAX_DECODE_RNS_OPS, JAX_DECODE_RNS_OPS),
+    "all": ({"converts": 14, "matmuls": 9, "normalizes": 9, "fused": 0,
+             "fallbacks": 0, "weight_converts": 9},
+            {"converts": 17, "matmuls": 11, "normalizes": 11, "fused": 0,
+             "fallbacks": 0, "weight_converts": 11}),
+    "fused": (JAX_FUSED_DECODE_RNS_OPS, JAX_FUSED_DECODE_RNS_OPS),
+}
+# per layer: kernel launches of one decode (verify, mixed) step
+_NONE = dict.fromkeys(RNS_KERNELS + ("flash_attention",), 0)
+MLA_LAUNCHES = {
+    "mlp": dict(_NONE, rns_convert=5, rns_matmul=3, rns_normalize=3),
+    "all": dict(_NONE, rns_convert=14, rns_matmul=9, rns_normalize=9),
+    "fused": dict(_NONE, rns_convert=1, rns_fused_encode_matmul=1,
+                  rns_fused_matmul_normalize=1, rns_fused_dot=1),
+}
+# label -> (ops/launches key, rns_targets, ServeConfig overrides); the
+# fused one last: it encodes the shared experts resident in place
+MLA_PATHS = {
+    "serve_mla": ("mlp", "mlp", {}),
+    "serve_mla_all": ("all", "all", {}),
+    "serve_mla_chunked": ("mlp", "mlp", CHUNKED_SERVE),
+    "serve_mla_spec": ("mlp", "mlp", SPEC_SERVE),
+    "serve_mla_fused": ("fused", "mlp", FUSED_SERVE),
+}
 IDENTITY_LAYERS = 4
 # Card vs CPU first-step logits (|logit| <= ~2 at this config).  The two
 # devices' float32 ops (attention, norms) differ in the last bits; the
@@ -420,9 +475,15 @@ def phase_build():
     if over:
         raise AssertionError("instantiations over the tile checker's "
                              "register model:\n" + "\n".join(over))
+    dumps = {name: (build.library_path(name, sources[name]), op)
+             for name, op in [*SASS_MMA.items(), ("rns_normalize",
+                                                   "MUFU.RCP")]}
+    with ThreadPoolExecutor(len(dumps)) as pool:     # cuobjdumps at once
+        sasses = dict(zip(dumps, pool.map(lambda d: _sass_counts(*d),
+                                          dumps.values())))
     for name, op in SASS_MMA.items():
-        lib = build.library_path(name, sources[name])
-        by_fn, sass = _sass_counts(lib, op)
+        lib = dumps[name][0]
+        by_fn, sass = sasses[name]
         counts = {name: sum(by_fn.values())}
         if name == "rns_fused_mma":     # B.5's instantiations on their own
             counts["rns_encode_residues_kernel"] = sum(
@@ -437,8 +498,8 @@ def phase_build():
                     f"{sass.returncode}: {sass.stderr.strip()[:200]})")
     # B.3's MRC reduces by multiply-high mods: no division, whose
     # reciprocal (MUFU.RCP) would show in the SASS
-    lib = build.library_path("rns_normalize", sources["rns_normalize"])
-    by_fn, sass = _sass_counts(lib, "MUFU.RCP")
+    lib = dumps["rns_normalize"][0]
+    by_fn, sass = sasses["rns_normalize"]
     n = sum(by_fn.values())
     print(f"  rns_normalize: {n} MUFU.RCP instructions in the SASS of "
           f"{len(by_fn)} functions (cuobjdump -sass {lib.name})")
@@ -1205,6 +1266,256 @@ def phase_serve_bucketed(torch, launches, calls):
     return out
 
 
+def _mla_model():
+    """DeepSeek-V2 at full width, depth MLA_LAYERS, dropless, rns9 (qx =
+    qw = 8) on the shared experts, random weights from seed 0 drawn on
+    the card."""
+    from repro_torch.configs.base import at_depth, get_config
+    from repro_torch.core.rns_matmul import RnsDotConfig
+    from repro_torch.models.model import init_model
+
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(
+        at_depth(full, MLA_LAYERS),
+        moe=dataclasses.replace(full.moe, capacity_factor=MLA_CAPACITY),
+        rns=RnsDotConfig(profile="rns9", qx=8, qw=8), rns_targets="mlp")
+    return init_model(cfg, seed=0, device="cuda")
+
+
+def phase_serve_mla(torch, launches, calls):
+    """DeepSeek-V2 at its published width (depth 2) through the engines:
+    the [serve] traffic on the per-op path (shared experts through B.1-
+    B.3), with rns_targets="all" (the MLA projections too), chunked (64
+    lanes), speculative (3 drafts) and on the fused resident path (B.1,
+    B.4-B.6), each eager (counts from 0, every distinct wrapper call
+    recorded into ``calls`` for [kernels], each decode / verify / mixed
+    step's launches the path's) then captured (one capture a program,
+    the eager tokens and rns_ops, a replayed decode step's kernels);
+    tokens chunked = speculative = whole-prompt; the bucketed Engine on
+    8 x 33 eager and captured, its tokens the ContinuousEngine's; the
+    first prefill's logits on the kernels bit-equal to the plain
+    ("reference") RNS path on the card, finite, of shape [1, vocab]."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch.serve import request_prompts
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _mla_model()
+    torch.cuda.synchronize()
+    cfg0 = model.cfg
+    m, moe = cfg0.mla, cfg0.moe
+    assert (cfg0.d_model, cfg0.n_heads, m.q_lora_rank, m.kv_lora_rank,
+            m.qk_nope_dim, m.qk_rope_dim, m.v_dim, moe.n_experts, moe.top_k,
+            moe.d_ff_expert, moe.n_shared, cfg0.vocab) == (
+        5120, 128, 1536, 512, 128, 64, 128, 160, 6, 1536, 2, 102400)
+    L = cfg0.n_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {MLA_ARCH} depth {L}: {n_params} parameters "
+          f"({4 * n_params / 1e9:.1f} GB float32) drawn in "
+          f"{time.perf_counter() - t0:.1f}s")
+    prompts = request_prompts(cfg0.vocab, SERVE["requests"],
+                              SERVE["prompt_lens"])
+    new = SERVE["new"]
+    base = dict(max_cache=max(SERVE["prompt_lens"]) + new + 8,
+                max_new_tokens=new, page_size=16,
+                max_seqs=SERVE["max_seqs"])
+    out, tokens = {}, {}
+
+    def cfg_for(targets):
+        return dataclasses.replace(cfg0, rns_targets=targets)
+
+    # the kernels against the plain RNS path on the card: one prompt's
+    # prefill logits, bit for bit
+    tok = torch.as_tensor(prompts[2][None].astype(np.int64), device="cuda")
+    cfg = cfg_for("all")
+    model.cfg = cfg
+    lg = M.prefill(model, cfg, tok, 128)[0]
+    ref = dataclasses.replace(cfg, rns=dataclasses.replace(
+        cfg.rns, backend="reference"))
+    lg_ref = M.prefill(model, ref, tok, 128)[0]
+    if lg.shape != (1, cfg0.vocab) or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"prefill logits {tuple(lg.shape)} not finite")
+    if not torch.equal(lg, lg_ref):
+        raise AssertionError("prefill logits on the kernels differ from the "
+                             "plain RNS path's: max "
+                             f"{float((lg - lg_ref).abs().max())}")
+    print("  serve_mla_all: a 120-token prefill's logits on the kernels "
+          "bit-equal to the plain RNS path on the card")
+    del lg, lg_ref
+
+    for label, (key, targets, kw) in MLA_PATHS.items():
+        per_dec, per_pre = ({k: v * L for k, v in ops.items()}
+                            for ops in MLA_OPS[key])
+        want_launch = {k: v * L for k, v in MLA_LAUNCHES[key].items()}
+        chunked = kw.get("chunked_prefill", False)
+        program = ("mixed" if chunked else
+                   "verify" if kw.get("spec_decode") else "decode")
+        numbers, runs = {}, {}
+        for graphs in (False, True):
+            model.cfg = cfg_for(targets)
+            mode = "captured" if graphs else "eager"
+            _reset_launches()
+            log: list = []
+            path_calls: dict = {}
+            in_step: dict = {}
+            t1 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if not graphs:
+                    stack.enter_context(_recording(torch, path_calls, None,
+                                                   in_step))
+                stack.enter_context(_step_launches(log, in_step))
+                engine = ContinuousEngine(model, ServeConfig(**base, **kw),
+                                          device="cuda", graphs=graphs)
+                results, stats = engine.run(prompts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            steps = stats["steps"]
+            for s in steps:
+                want = (per_dec if chunked else {
+                    k: v + per_pre[k] * len(s["admitted"])
+                    for k, v in per_dec.items()})
+                if s["rns_ops"].as_dict() != want:
+                    raise AssertionError((label, mode, s["step"],
+                                          s["rns_ops"], want))
+            want_caps = {program: int(graphs)}
+            if not chunked:
+                want_caps["prefill"] = int(graphs)
+            if stats["captures"] != want_caps:
+                raise AssertionError(f"{label} {mode}: captures "
+                                     f"{stats['captures']}")
+            runs[mode] = (_tokens(results),
+                          [s["rns_ops"].as_dict() for s in steps])
+            numbers[mode] = _serve_numbers(engine, stats, wall, None)
+            if not graphs:
+                launches[label] = run = _launches()
+                stepped = [lc for st, lc in log if st["decoded"] and (
+                    chunked or not st["admitted"])]
+                if not stepped or any(lc != want_launch for lc in stepped):
+                    raise AssertionError(f"{label}: {program} step launches "
+                                         f"{stepped[:1]}, want {want_launch}")
+                for k, n in run.items():
+                    if (n > 0) != (want_launch[k] > 0):
+                        raise AssertionError((label, k, n))
+                _merge_calls(calls, path_calls)
+                numbers["eager"]["launches"] = dict(run)
+            else:
+                replay = _replay_kernels(torch, engine, program)
+                if replay["by_kernel"] != {k: n for k, n in
+                                           want_launch.items() if n}:
+                    raise AssertionError(f"{label}: a replayed {program} "
+                                         f"step ran {replay['by_kernel']}")
+                numbers["captured"]["replayed_step"] = {
+                    k: replay[k] for k in ("by_kernel", "all_kernels",
+                                           "device_ms")}
+                _print_top(f"{label} {program}", replay)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        if runs["captured"] != runs["eager"]:
+            raise AssertionError(f"{label}: captured tokens or rns_ops "
+                                 "differ from the eager serve's")
+        tokens[label] = runs["captured"][0]
+        if label in ("serve_mla_chunked", "serve_mla_spec") and \
+                tokens[label] != tokens["serve_mla"]:
+            raise AssertionError(f"{label}: greedy tokens differ from the "
+                                 "whole-prompt plain serve's")
+        out[label] = numbers
+        _print_numbers(label, numbers)
+        if label == "serve_mla_chunked":
+            # the bucketed Engine on 8 x 33 before the fused path encodes
+            # the shared experts resident: tokens = ContinuousEngine's
+            out["serve_mla_bucketed"] = _mla_bucketed(
+                torch, model, cfg_for("mlp"), launches, calls)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    out["max_memory_allocated"] = peak
+    print(f"  serve_mla max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)")
+    return out
+
+
+def _mla_bucketed(torch, model, cfg, launches, calls):
+    """The bucketed Engine (BUCKETED_SERVE) on ``model``, eager
+    (recorded) then captured (``prefill(8,33)=1 decode(8)=1``, the same
+    tokens, each decode step launching the path's kernels); greedy tokens
+    equal to the captured ContinuousEngine's on the same prompts."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
+
+    B, T, new = (BUCKETED_SERVE[k] for k in ("batch", "prompt_len", "new"))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, T)).astype(np.int32)
+    names = (f"prefill({B},{T})", f"decode({B})")
+    want_launch = {k: v * cfg.n_layers for k, v in MLA_LAUNCHES["mlp"].items()}
+    label = "serve_mla_bucketed"
+    numbers, toks = {}, {}
+    model.cfg = cfg
+    for graphs in (False, True):
+        mode = "captured" if graphs else "eager"
+        _reset_launches()
+        log: list = []
+        path_calls: dict = {}
+        in_step: dict = {}
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(_recording(torch, path_calls, None,
+                                               in_step))
+            stack.enter_context(_engine_runs(log, in_step))
+            engine = Engine(model, ServeConfig(max_cache=T + new + 8,
+                                               max_new_tokens=new),
+                            device="cuda", graphs=graphs)
+            toks[mode] = engine.generate(prompts).tolist()
+            t_gen = time.perf_counter()
+            engine.generate(prompts)
+            warm = time.perf_counter() - t_gen
+        torch.cuda.synchronize()
+        caps = engine.captures()
+        if caps != {n: int(graphs) for n in names}:
+            raise AssertionError(f"{label} {mode}: captures {caps}")
+        steps = [lc for prog, lc in log if prog == names[1]]
+        if not graphs:
+            launches[label] = _launches()
+            if not steps or any(lc != want_launch for lc in steps):
+                raise AssertionError(f"{label}: decode step launches "
+                                     f"{steps[:1]}, want {want_launch}")
+            _merge_calls(calls, path_calls)
+        numbers[mode] = {
+            "setup_and_run_s": time.perf_counter() - t0,
+            "warm_tokens_per_s": B * new / warm,
+            "ttft_s": engine.last_stats["ttft_s"],
+            "decode_step_ms_median": 1e3 * statistics.median(
+                engine.last_stats["step_time_s"]),
+            "captures": caps}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if toks["captured"] != toks["eager"]:
+        raise AssertionError(f"{label}: captured tokens differ from eager")
+    res, cstats = ContinuousEngine(model, ServeConfig(
+        max_cache=T + new + 8, max_new_tokens=new, page_size=16,
+        max_seqs=B), device="cuda").run(list(prompts))
+    if _tokens(res) != toks["captured"]:
+        raise AssertionError(f"{label}: bucketed greedy tokens differ from "
+                             "the ContinuousEngine's")
+    numbers["continuous_captured_tokens_per_s"] = cstats["tokens_per_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _print_numbers(label, numbers)
+    print(f"  {label}: greedy tokens equal to the ContinuousEngine's")
+    return numbers
+
+
 def phase_kernels(torch, dev, record, calls, launches):
     """The six RNS kernels bit for bit on the inputs the serves gave
     them, at every candidate tiling and on boundary cases; flash_attention
@@ -1663,18 +1974,83 @@ def _kernel_kind(name: str) -> str | None:
     return None
 
 
+def _graph_kernel_names(graph) -> list[str]:
+    """The kernel of every kernel node of a captured ``torch.cuda.CUDAGraph``
+    (kept with ``keep_graph=True``), by its mangled name, read from
+    ``libcuda`` (``cuGraphGetNodes``): a replay launches each node once,
+    so this is what every replay runs, whatever a profiler records."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    class KernelNodeParams(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(n, ctypes.c_uint) for n in
+                       ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(n, ctypes.c_void_p) for n in
+                       ("kernel_params", "extra", "kern", "ctx")])
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn} returned CUresult {rc}")
+
+    def walk(g, names):
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", g, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+        for node in nodes:
+            node = ctypes.c_void_p(node)
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", node, ctypes.byref(kind))
+            if kind.value == 4:                 # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", node,
+                     ctypes.byref(child))
+                walk(child, names)
+            if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            params = KernelNodeParams()
+            call("cuGraphKernelNodeGetParams_v2", node, ctypes.byref(params))
+            name = ctypes.c_char_p()
+            if params.func:
+                call("cuFuncGetName", ctypes.byref(name),
+                     ctypes.c_void_p(params.func))
+            else:
+                call("cuKernelGetName", ctypes.byref(name),
+                     ctypes.c_void_p(params.kern))
+            names.append(name.value.decode())
+        return names
+
+    return walk(ctypes.c_void_p(graph.raw_cuda_graph()), [])
+
+
 def _replay_kernels(torch, engine, program: str = "decode") -> dict:
-    """Kernels torch.profiler sees in one replay of the engine's captured
-    ``program`` ("decode", "verify" or "mixed"; a bucketed Engine's
-    "decode(B)"), by wrapper, by kernel name, and the top 20 kernel
-    names by device time, on the trash page: the tables are zeroed
+    """The kernels of the engine's captured ``program`` ("decode",
+    "verify" or "mixed"; a bucketed Engine's "decode(B)"), and one replay
+    of it under torch.profiler on the trash page: the tables are zeroed
     first, no row is active and every lane is a pad lane (a bucketed
-    engine's caches get lengths 0: the replay writes position 0)."""
+    engine's caches get lengths 0: the replay writes position 0).
+
+    ``by_kernel`` / ``rns_kernels`` / ``all_kernels`` count the graph's
+    kernel nodes by wrapper (what every replay launches);
+    ``profiled_by_kernel`` / ``profiled_kernels`` are what the profiler
+    recorded of the one replay, which must be more than nothing and no
+    more than the graph holds; ``device_ms`` and the top 20 kernel names
+    by device time are the profiler's."""
     from torch.profiler import ProfilerActivity, profile
 
     prog = engine.programs[program]
     if prog.graph is None:
         raise AssertionError(f"the {program} step was not captured")
+    nodes = _graph_kernel_names(prog.graph)
+    by_kind, by_name = {}, {}
+    for name in nodes:
+        kind = _kernel_kind(name)
+        if kind is not None:
+            by_kind[kind] = by_kind.get(kind, 0) + 1
+            by_name[name[:120]] = by_name.get(name[:120], 0) + 1
     inputs = {}
     if hasattr(engine, "_caches"):
         for cache in engine._caches.values():
@@ -1701,15 +2077,17 @@ def _replay_kernels(torch, engine, program: str = "decode") -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prog.run(**inputs)
+        time.sleep(0.01)        # margins: the replay lies well inside
+        prog.run(**inputs)      # the profiler's window
         torch.cuda.synchronize()
-    by_kind, by_name, total, device_us, timed = {}, {}, 0, 0.0, []
+        time.sleep(0.01)
+    seen, seen_total, device_us, timed = {}, 0, 0.0, []
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
             continue
-        total += ev.count
+        seen_total += ev.count
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0.0)
@@ -1717,18 +2095,28 @@ def _replay_kernels(torch, engine, program: str = "decode") -> dict:
         timed.append((dt, ev.count, ev.key[:120]))
         kind = _kernel_kind(ev.key)
         if kind is not None:
-            by_kind[kind] = by_kind.get(kind, 0) + ev.count
-            by_name[ev.key[:120]] = by_name.get(ev.key[:120], 0) + ev.count
+            seen[kind] = seen.get(kind, 0) + ev.count
+    if seen_total == 0:
+        raise AssertionError(f"torch.profiler sees no kernel in a replayed "
+                             f"{program} step")
+    if any(n > by_kind.get(k, 0) for k, n in seen.items()):
+        raise AssertionError(f"a replayed {program} step: the profiler saw "
+                             f"{seen}, more than the graph's {by_kind}")
+    if seen != by_kind:
+        print(f"  note: the profiler recorded {seen} of the {program} "
+              f"graph's {by_kind} kernel nodes in one replay")
     top = [{"kernel": name, "calls": n, "device_us": dt,
             "share": dt / device_us if device_us else None}
            for dt, n, name in sorted(timed, reverse=True)[:20]]
     return {"by_kernel": by_kind, "rns_kernels": sum(by_kind.values()),
-            "all_kernels": total, "names": by_name,
+            "all_kernels": len(nodes), "names": by_name,
+            "profiled_by_kernel": seen, "profiled_kernels": seen_total,
             "device_ms": device_us / 1e3, "top20_by_device_time": top}
 
 
 def _print_top(label: str, replay: dict):
-    print(f"  {label}: one replayed step, {replay['all_kernels']} kernels, "
+    print(f"  {label}: one replayed step, {replay['all_kernels']} kernel "
+          f"nodes ({replay['profiled_kernels']} recorded by the profiler), "
           f"{replay['device_ms']:.4f} ms of device time; top 20 by time:")
     for row in replay["top20_by_device_time"]:
         share = row["share"] if row["share"] is not None else float("nan")
@@ -1871,8 +2259,7 @@ def phase_serve(torch, path: str, launches: dict, calls: dict, *,
         _print_top(f"{label} decode", replay)
     captured["rns_kernels_per_decode_step"] = replay["rns_kernels"]
     if replay["all_kernels"] == 0:
-        raise AssertionError("torch.profiler sees no kernel in a replayed "
-                             "decode step")
+        raise AssertionError("the captured decode step holds no kernel")
     want_rns = {k: n for k, n in want_launch.items() if n}
     if replay["by_kernel"] != want_rns:
         raise AssertionError(f"{label}: a replayed decode step ran "
@@ -1957,15 +2344,15 @@ def _tokens(results) -> list:
 
 
 def phase_identity(torch):
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import at_depth, get_config
     from repro_torch.core.rns_matmul import RnsDotConfig
     from repro_torch.models import model as M
     from repro_torch.models.resident import encode_resident, resident_profiles
     from repro_torch.serve.engine import ContinuousEngine, ServeConfig
     import numpy as np
 
-    cfg = dataclasses.replace(get_config("smollm-135m"),
-                              n_layers=IDENTITY_LAYERS,
+    cfg = dataclasses.replace(at_depth(get_config("smollm-135m"),
+                                       IDENTITY_LAYERS),
                               rns=RnsDotConfig(profile="rns9", qx=8, qw=8))
     cpu_model = M.init_model(cfg, seed=1, device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -2416,6 +2803,12 @@ def main() -> int:
           f"python {sys.version.split()[0]} on {torch.cuda.get_device_name(0)}")
     record, launches, calls, failed = {}, {}, {}, []
     untuned, tuned = {}, {}
+    # ``--phases a,b``: run only those phases (a debugging aid; the
+    # contract's run takes no argument and runs every phase)
+    only = None
+    for arg in sys.argv[1:]:
+        if arg.startswith("--phases="):
+            only = set(arg.split("=", 1)[1].split(","))
     for name, fn in [
             ("build", phase_build),
             ("serve", lambda: untuned.__setitem__("serve", phase_serve(
@@ -2437,11 +2830,14 @@ def main() -> int:
             ("tune", lambda: phase_tune(torch, dev, calls, launches, tuned)),
             ("serve_tuned", lambda: phase_serve_tuned(torch, launches, calls,
                                                       untuned)),
+            ("serve_mla", lambda: phase_serve_mla(torch, launches, calls)),
             ("kernels", lambda: phase_kernels(torch, dev, record, calls,
                                               launches)),
             ("identity", lambda: phase_identity(torch)),
             ("fractional", lambda: phase_fractional(torch, dev, record,
                                                     launches))]:
+        if only is not None and name not in only:
+            continue
         print(f"[{name}]", flush=True)
         t0 = time.perf_counter()
         try:
@@ -2456,6 +2852,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi)
+    print(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+          f"on {smi}")
     print(json.dumps(_kernel_line(record, launches, tuned)))
     if failed:
         print(f"failed phases: {failed}", file=sys.stderr)

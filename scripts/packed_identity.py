@@ -38,7 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import at_depth, get_config  # noqa: E402
 from repro_torch.core.rns_matmul import RnsDotConfig  # noqa: E402
 from repro_torch.launch.serve import request_prompts  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -77,9 +77,9 @@ class Recorder:
         rec = self
 
         def apply_layer(orig):
-            def f(blk, h, cfg, *, layer, **kw):
-                rec.layer = layer
-                h, kv_ = orig(blk, h, cfg, layer=layer, **kw)
+            def f(blk, h, cfg, *, slot, **kw):
+                rec.layer = slot        # the layer (one layer type here)
+                h, kv_ = orig(blk, h, cfg, slot=slot, **kw)
                 rec.put("h", h)
                 return h, kv_
             return f
@@ -168,7 +168,7 @@ def main(argv=None) -> int:
                                                         qw=8),
                                   rns_targets="mlp")
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = at_depth(cfg, args.layers)
     model = M.init_model(cfg, seed=0, device=dev)
     prompt = next(p for p in request_prompts(cfg.vocab, 6, (7, 33, 120))
                   if len(p) == args.prompt_len)

@@ -1,5 +1,5 @@
-"""Model configuration and the architecture registry (this slice: the
-decoder-only llama-style family that ``smollm-135m`` belongs to)."""
+"""Model configuration and the architecture registry (the decoder-only
+families ported so far: GQA or MLA attention, dense or MoE MLPs)."""
 
 from __future__ import annotations
 
@@ -7,8 +7,19 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.core.rns_matmul import RnsDotConfig
+from repro_torch.models.moe import MoEConfig
 
-__all__ = ["ModelConfig", "register", "get_config"]
+__all__ = ["MLAConfig", "ModelConfig", "at_depth", "register",
+           "get_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,12 +32,22 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab: int
+    family: str = "dense"                  # dense|moe (ported so far)
+    # per-layer programs (len == n_layers; empty: all attn / all dense)
+    layer_types: tuple[str, ...] = ()      # attn|mla
+    mlp_types: tuple[str, ...] = ()        # dense|moe
     rope_theta: float = 10000.0
+    # encoder-decoder and modality frontends: later slices of the port
+    # (models/model.py and the continuous engine refuse them)
+    enc_dec: bool = False
+    frontend: str | None = None            # audio|vision
     norm: str = "rmsnorm"
     act: str = "silu"
     gated_mlp: bool = True
     causal: bool = True
     tie_embeddings: bool = False
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     # numerics / paper technique: the RNS datapath on these targets
     rns: RnsDotConfig | None = None
     rns_targets: str = "mlp"               # mlp|attn|all
@@ -39,12 +60,37 @@ class ModelConfig:
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 1024
 
+    def __post_init__(self):
+        if not self.layer_types:
+            object.__setattr__(self, "layer_types", ("attn",) * self.n_layers)
+        if not self.mlp_types:
+            object.__setattr__(self, "mlp_types", ("dense",) * self.n_layers)
+        assert len(self.layer_types) == self.n_layers
+        assert len(self.mlp_types) == self.n_layers
+
     @property
     def period(self) -> int:
-        """Layers in the smallest repeating pattern: 1, since every layer
-        of this slice's family is (attention, dense MLP).  The JAX package
-        stacks layer ``i`` as entry ``i // period`` of slot ``i % period``."""
-        return 1
+        """Smallest p with a periodic (layer, mlp) program.  The JAX
+        package stacks layer ``i`` as entry ``i // period`` of slot
+        ``i % period``."""
+        L = self.n_layers
+        prog = list(zip(self.layer_types, self.mlp_types))
+        for p in range(1, L + 1):
+            if L % p == 0 and all(prog[i] == prog[i % p] for i in range(L)):
+                return p
+        return L
+
+
+def at_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` cut (or extended, periodically) to ``n_layers`` layers:
+    ``layer_types`` and ``mlp_types`` follow the depth, as the config
+    requires."""
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        layer_types=tuple(cfg.layer_types[i % cfg.n_layers]
+                          for i in range(n_layers)),
+        mlp_types=tuple(cfg.mlp_types[i % cfg.n_layers]
+                        for i in range(n_layers)))
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -1,9 +1,9 @@
 """Build and bind the hand-written CUDA kernels (nvcc + ctypes).
 
 Each kernel package is one ``.cu`` file with plain C entry points.  It is
-compiled for Hopper (``sm_90a``) at first use into ``build/`` at the root
-of the checkout, named by a hash of its sources and flags, and loaded
-with ``ctypes``.  Nothing here runs at import time: the CPU tests import
+compiled for Hopper (``sm_90a``), in shares where ``PARTS`` says so, at
+first use into ``build/`` at the root of the checkout, named by a hash
+of its sources and flags, and loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests import
 every module on a machine with no ``nvcc``.
 """
 
@@ -22,7 +22,7 @@ import numpy as np
 
 from repro_torch.core.rns import f32_weights, tables
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "RNS_MAX_K", "RNS_PAIRS", "rns_pair",
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "PARTS", "RNS_MAX_K", "RNS_PAIRS", "rns_pair",
            "RnsTablesC", "rns_tables_c", "mulhi_magic", "mulhi_offset",
            "mulhi_mod", "mrc_c", "mrc_offset",
            "library_path", "load", "build_all", "check"]
@@ -32,6 +32,11 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build"
 INCLUDE_DIR = KERNELS_DIR / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Sources whose entry points compile in that many disjoint shares
+# (``-DBUILD_PART=p``), one nvcc each, all at once, then one link: the
+# longest compile, split.  Without the macro a source compiles whole.
+PARTS = {"rns_fused_mma": 4}
 
 RNS_MAX_K = 21      # widest profile (rns21); matches csrc/rns_tables.cuh
 RNS_PAIRS = RNS_MAX_K * (RNS_MAX_K - 1) // 2
@@ -152,29 +157,56 @@ def library_path(name: str, source: Path) -> Path:
 
 
 def _start(name: str, source: Path):
-    """Start nvcc for one source unless its library is built; returns
-    (target, tmp, process) or (target, None, None)."""
+    """Start nvcc for one source (one process a share of ``PARTS``)
+    unless its library is built; returns (target, tmp, processes) or
+    (target, None, [])."""
     target = library_path(name, source)
     if target.exists():
-        return target, None, None
+        return target, None, []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", tmp, str(source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return target, tmp, proc
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}"]
+    parts = PARTS.get(source.stem, 1)
+    if parts == 1:
+        cmds = [[*cmd, "-o", tmp, str(source)]]
+    else:
+        cmd = [f for f in cmd if f != "-shared"]
+        cmds = [[*cmd, "-c", f"-DBUILD_PART={p}", "-o", f"{tmp}.{p}.o",
+                 str(source)] for p in range(parts)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return target, tmp, procs
 
 
-def _finish(name: str, target: Path, tmp, proc) -> str:
-    """Wait for one build; keep its compiler log beside the library."""
+def _finish(name: str, target: Path, tmp, procs) -> str:
+    """Wait for one build (and link its shares); keep its compiler log
+    beside the library."""
     log = target.with_suffix(".log")
-    if proc is None:
+    if not procs:
         return log.read_text() if log.exists() else ""
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
+    outs = [proc.communicate()[0] for proc in procs]
+    objs = [f"{tmp}.{p}.o" for p in range(len(procs))] if len(procs) > 1 \
+        else []
+    try:
+        for proc, out in zip(procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        if objs:
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link {name}:\n"
+                                   f"{link.stdout}{link.stderr}")
+    except RuntimeError:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        raise
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
+    out = "".join(outs)
     log.write_text(out)
     os.replace(tmp, target)         # atomic: a concurrent build is harmless
     return out
@@ -195,8 +227,8 @@ def load(name: str, source: Path, bind) -> ctypes.CDLL:
     argtypes/restype once."""
     lib = _LIBS.get(name)
     if lib is None:
-        target, tmp, proc = _start(name, source)
-        _finish(name, target, tmp, proc)
+        target, tmp, procs = _start(name, source)
+        _finish(name, target, tmp, procs)
         lib = ctypes.CDLL(str(target))
         bind(lib)
         _LIBS[name] = lib

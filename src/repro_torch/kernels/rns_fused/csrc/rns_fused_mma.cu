@@ -19,7 +19,10 @@
 //   digit (K * BN threads), each warp BM rows x 32 columns of its digit's
 //   int32 accumulators in registers.  Products: mma.sync.m16n8k32 with u8
 //   b (csrc/rns_mma.cuh, as rns_matmul.cu), reduced mod m every `lim` =
-//   lazy_chunk - 1 terms.
+//   lazy_chunk - 1 terms: at D = 16384 (MLA's wo, the widest reduction
+//   served) a digit sums at most 16384 * 255^2 = 1.07e9 (u8 a) or
+//   16384 * 128 * 255 = 5.3e8 in magnitude (s8 a) < 2^31 between
+//   reductions.
 // * K steps come through a ring of shared-memory stages filled by 16-byte
 //   cp.async (int32 b or ragged widths: element by element, b narrowed to
 //   u8).  a's residues are staged as they come, int8 or int32 (the
@@ -532,12 +535,23 @@ static int with_tile(int bm, int bn, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The entry points compile in four shares (kernels/build.py PARTS): with
+// -DBUILD_PART=p only share p's entry point and the kernels it
+// instantiates are compiled, so four nvcc processes build the library's
+// four disjoint sets of instantiations at once and one link joins them.
+// Without BUILD_PART the file compiles whole.
+#ifndef BUILD_PART
+#define BUILD_PART -1
+#endif
+#define IN_PART(p) (BUILD_PART < 0 || BUILD_PART == (p))
+
 // x [M, D] float32; s [M / group] float32, one scale per run of `group`
 // rows; b [K, D, N] int8 (b_int8) or int32; out [M, N] float32,
 // unscaled.  (bm, bn) one of the compiled tiles.  splits > 1 shares each
 // tile's K steps among that many blocks and needs ws (int32, tiles *
 // splits * K * bm * bn) and cnt (int32, one per tile, zero); the kernel
 // leaves cnt zero.
+#if IN_PART(0)
 extern "C" int rns_fused_dot(const void* x, const void* s, long long group,
                              float qmax, const void* b, int b_int8, int M,
                              int N, int D, int lim, const RnsTables* t,
@@ -549,29 +563,74 @@ extern "C" int rns_fused_dot(const void* x, const void* s, long long group,
         (cudaStream_t)stream);
   });
 }
+#endif
+
+// rns_fused_matmul_normalize for int8 a residues (share 1) and int32 ones
+// (share 2).
+template <typename AT>
+static int matmul_normalize_as(const void* a, const void* b, int b_int8,
+                               int M, int N, int D, int lim,
+                               const RnsTables* t, void* out, int bm, int bn,
+                               int splits, void* ws, void* cnt,
+                               cudaStream_t st) {
+  return with_tile(bm, bn, [&](auto tm, auto tn) {
+    return launch_k<AT, decltype(tm)::value, decltype(tn)::value>(
+        a, nullptr, 1, 0.f, b, b_int8, M, N, D, lim, splits, *t, out, ws,
+        cnt, st);
+  });
+}
+int rns_fused_matmul_normalize_i8(const void* a, const void* b, int b_int8,
+                                  int M, int N, int D, int lim,
+                                  const RnsTables* t, void* out, int bm,
+                                  int bn, int splits, void* ws, void* cnt,
+                                  cudaStream_t st);
+int rns_fused_matmul_normalize_i32(const void* a, const void* b, int b_int8,
+                                   int M, int N, int D, int lim,
+                                   const RnsTables* t, void* out, int bm,
+                                   int bn, int splits, void* ws, void* cnt,
+                                   cudaStream_t st);
+#if IN_PART(1)
+int rns_fused_matmul_normalize_i8(const void* a, const void* b, int b_int8,
+                                  int M, int N, int D, int lim,
+                                  const RnsTables* t, void* out, int bm,
+                                  int bn, int splits, void* ws, void* cnt,
+                                  cudaStream_t st) {
+  return matmul_normalize_as<int8_t>(a, b, b_int8, M, N, D, lim, t, out, bm,
+                                     bn, splits, ws, cnt, st);
+}
+#endif
+#if IN_PART(2)
+int rns_fused_matmul_normalize_i32(const void* a, const void* b, int b_int8,
+                                   int M, int N, int D, int lim,
+                                   const RnsTables* t, void* out, int bm,
+                                   int bn, int splits, void* ws, void* cnt,
+                                   cudaStream_t st) {
+  return matmul_normalize_as<int32_t>(a, b, b_int8, M, N, D, lim, t, out, bm,
+                                      bn, splits, ws, cnt, st);
+}
+#endif
 
 // a [K, M, D] int8 (a_int8) or int32 residues; b, out, tiles and
 // workspace as above.
+#if IN_PART(1)
 extern "C" int rns_fused_matmul_normalize(const void* a, int a_int8,
                                           const void* b, int b_int8, int M,
                                           int N, int D, int lim,
                                           const RnsTables* t, void* out,
                                           int bm, int bn, int splits,
                                           void* ws, void* cnt, void* stream) {
-  return with_tile(bm, bn, [&](auto tm, auto tn) {
-    constexpr int TBM = decltype(tm)::value, TBN = decltype(tn)::value;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (a_int8)
-      return launch_k<int8_t, TBM, TBN>(a, nullptr, 1, 0.f, b, b_int8, M, N,
-                                        D, lim, splits, *t, out, ws, cnt,
-                                        st);
-    return launch_k<int32_t, TBM, TBN>(a, nullptr, 1, 0.f, b, b_int8, M, N, D,
-                                       lim, splits, *t, out, ws, cnt, st);
-  });
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a_int8)
+    return rns_fused_matmul_normalize_i8(a, b, b_int8, M, N, D, lim, t, out,
+                                         bm, bn, splits, ws, cnt, st);
+  return rns_fused_matmul_normalize_i32(a, b, b_int8, M, N, D, lim, t, out,
+                                        bm, bn, splits, ws, cnt, st);
 }
+#endif
 
 // The fused encode + matmul: as rns_fused_dot, with out [K, M, N] int32
 // residues.
+#if IN_PART(3)
 extern "C" int rns_fused_encode_matmul(const void* x, const void* s,
                                        long long group, float qmax,
                                        const void* b, int b_int8, int M,
@@ -585,3 +644,4 @@ extern "C" int rns_fused_encode_matmul(const void* x, const void* s,
         (cudaStream_t)stream);
   });
 }
+#endif

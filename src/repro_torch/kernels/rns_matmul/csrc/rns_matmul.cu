@@ -13,7 +13,11 @@
 // 128-deep K steps of its share of D; BN / 32 warps each hold all BM rows
 // of 32 columns, int32 accumulators in registers, reduced mod m after
 // every `lim` = lazy_chunk - 1 terms (residues < m keep each product
-// <= (m-1)^2, and lim * (m-1)^2 + m <= 2^31 - 1).
+// <= (m-1)^2, and lim * (m-1)^2 + m <= 2^31 - 1).  The bound holds at any
+// D: DeepSeek-V2's widest reduction, MLA's wo over H * v_dim = 16384,
+// sums at most 16384 * 255^2 = 1.07e9 < 2^31 between reductions even
+// without them (lim >= 2^15 for every m <= 256), and the split slices
+// add partial residues below m.
 //
 // Staging: a ring of STAGES shared-memory stages filled by 16-byte
 // cp.async copies (int8 operands whose rows are 16-byte aligned), so the

@@ -39,6 +39,11 @@ __all__ = ["CHARS", "view", "mandelbrot_step", "MandelbrotRender",
 
 CHARS = " .:-=+*#%@"
 RENDER_PROFILE = "rns12"        # an M_f (~2**21) the float encode takes
+#: a frame of at most this many pixels iterates on one CPU thread: its
+#: digit planes are so small that an op's fork and join of intra-op
+#: threads cost more than they save, and on a loaded host the threads
+#: wait on each other for every one of the step's ~90 ops
+CPU_ONE_THREAD_PIXELS = 1 << 14
 
 
 def view(width: int, height: int) -> tuple[np.ndarray, np.ndarray]:
@@ -105,10 +110,21 @@ class MandelbrotRender:
         self.inputs["esc"].fill_(self.iters)
 
     def run(self) -> np.ndarray:
-        """All ``iters`` iterations from z = 0; the escape counts."""
+        """All ``iters`` iterations from z = 0; the escape counts.  On the
+        CPU a frame of at most CPU_ONE_THREAD_PIXELS pixels runs on one
+        intra-op thread (the setting is restored after)."""
         self._reset()
-        for _ in range(self.iters):
-            self.program.run()
+        threads = torch.get_num_threads()
+        one = (self.device.type == "cpu"
+               and self.inputs["esc"].numel() <= CPU_ONE_THREAD_PIXELS)
+        if one:
+            torch.set_num_threads(1)
+        try:
+            for _ in range(self.iters):
+                self.program.run()
+        finally:
+            if one:
+                torch.set_num_threads(threads)
         return self.inputs["esc"].cpu().numpy()
 
 

@@ -1,7 +1,8 @@
-"""GQA attention with RoPE: prefill, one-token decode over a dense or a
-paged cache, the speculative-verify window and the packed mixed-phase
-step.  Plain PyTorch, as in the JAX package, whose model paths compute
-attention outside any Pallas kernel.
+"""GQA attention with RoPE and DeepSeek-V2's multi-head latent attention
+(MLA): prefill, one-token decode over a dense or a paged cache, the
+speculative-verify window and the packed mixed-phase step.  Plain
+PyTorch, as in the JAX package, whose model paths compute attention
+outside any Pallas kernel.
 
 ``cfg.attn_window`` (a sliding window) narrows every one of them alike:
 query ``q`` attends keys ``[q - window + 1, q]``, the rest weigh exactly
@@ -27,11 +28,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.rns_matmul import rns_multi_dot
-from repro_torch.models.layers import _param, linear, matmul_rows, tree_sum
+from repro_torch.models.layers import (RMSNorm, _param, bmm_rows, linear,
+                                       matmul_rows, tree_sum)
 
 __all__ = ["rope", "lane_attention", "Attention", "gqa_qkv", "gqa_attend",
            "gqa_decode", "gqa_decode_paged", "gqa_decode_paged_window",
-           "gqa_decode_packed"]
+           "gqa_decode_packed", "MLA", "mla_qkv", "mla_attend",
+           "mla_decode", "mla_decode_paged", "mla_decode_paged_window",
+           "mla_decode_packed"]
 
 NEG_INF = -1e30
 
@@ -64,9 +68,12 @@ def _scale(D: int, device) -> torch.Tensor:
                       device=device)
 
 
-#: lanes one pass of :func:`lane_attention` takes (bounds its memory;
-#: the result does not depend on it)
+#: lanes one pass of :func:`lane_attention` takes at most (bounds its
+#: memory; the result does not depend on it)
 LANE_BLOCK = 64
+#: elements one pass's products may hold: fewer lanes a pass where the
+#: heads, keys and widths are large (MLA's absorbed form at full width)
+LANE_ELEMS = 1 << 26
 #: keys summed as one tree in :func:`lane_attention` (a page's worth)
 KEY_BLOCK = 16
 
@@ -85,10 +92,22 @@ def _key_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
-def lane_attention(q, k, v, lengths, window=None):
-    """Each lane's query against its own keys: q [N, H, D], k/v [N or 1,
-    S, Hk, D] (1: every lane reads the same keys), ``lengths`` [N] valid
-    keys per lane.  Returns out [N, H, D] in q's dtype.
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None):
+    """Each lane's query against its own keys: q [N, H, D], k [N or 1, S,
+    Hk, D] (1: every lane reads the same keys), v [N or 1, S, Hk, Dv],
+    ``lengths`` [N] valid keys per lane.  Returns out [N, H, Dv] in q's
+    dtype.
+
+    ``q`` and ``k`` may also be equal-length tuples of parts (q_i [N, H,
+    D_i], k_i [N or 1, S, Hk or 1, D_i], a one-head part read by every
+    head): the score is the sum of the parts' dot products, added in
+    order -- MLA's ``[nope | rope]`` halves, kept apart rather than
+    concatenated.  Scores are divided by ``sqrt(scale_dim)`` (default:
+    the query width, the parts' widths summed).
 
     ``window``: a sliding window -- a lane with ``n`` valid keys (its
     position is ``n - 1``) also masks the keys below ``n - window``.
@@ -98,30 +117,43 @@ def lane_attention(q, k, v, lengths, window=None):
     trees over blocks of KEY_BLOCK keys added block by block
     (:func:`_key_sum`), the keys zero-padded to whole blocks; masked
     keys weigh exactly 0 and the max is exact.  So a lane's result does
-    not depend on the other lanes, on ``LANE_BLOCK``, or on how many
-    masked keys follow its valid ones.  A masked key's value is set to 0
-    as well, not only its probability, so that a recycled or trash page
-    holding a non-finite value cannot turn ``0 * v`` into NaN (with
-    finite values this changes no bit).
+    not depend on the other lanes, on how many lanes one pass takes
+    (``LANE_BLOCK``, fewer where the products would pass ``LANE_ELEMS``
+    elements), or on how many masked keys follow its valid ones.  A
+    masked key's value is set to 0 as well, not only its probability, so
+    that a recycled or trash page holding a non-finite value cannot turn
+    ``0 * v`` into NaN (with finite values this changes no bit).
     """
-    N, H, D = q.shape
-    S, Hk = k.shape[1], k.shape[2]
+    qs = q if isinstance(q, tuple) else (q,)
+    ks = k if isinstance(k, tuple) else (k,)
+    N, H = qs[0].shape[:2]
+    S, Hk, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // Hk
     Sp = -(-S // KEY_BLOCK) * KEY_BLOCK
-    pad = (0, 0, 0, 0, 0, Sp - S)
-    # [N or 1, Hk, 1, Sp, D]: keys and values per KV head, zero-padded
-    kt = F.pad(k.to(torch.float32), pad).permute(0, 2, 1, 3)[:, :, None]
-    vt = F.pad(v.to(torch.float32), pad).permute(0, 2, 1, 3)[:, :, None]
-    scale = _scale(D, q.device)
-    keys = torch.arange(Sp, device=q.device)
+
+    def lay(t):
+        # [N or 1, S, h, d] -> [N or 1, h, 1, Sp, d] float32, zero-padded
+        t = F.pad(t.to(torch.float32), (0, 0, 0, 0, 0, Sp - S))
+        return t.permute(0, 2, 1, 3)[:, :, None]
+
+    kts = [lay(t) for t in ks]
+    vt = lay(v)
+    scale = _scale(scale_dim or sum(t.shape[-1] for t in qs), qs[0].device)
+    keys = torch.arange(Sp, device=qs[0].device)
+    widest = max([_pow2(t.shape[-1]) for t in qs] + [Dv])
+    step = max(1, min(LANE_BLOCK, LANE_ELEMS // (H * Sp * widest)))
     outs = []
-    for i in range(0, N, LANE_BLOCK):
-        qb = q[i:i + LANE_BLOCK].to(torch.float32)
-        n = qb.shape[0]
-        kb = kt if kt.shape[0] == 1 else kt[i:i + n]
+    for i in range(0, N, step):
+        n = min(step, N - i)
+        s = None
+        for qp, kt in zip(qs, kts):
+            qg = qp[i:i + n].to(torch.float32).reshape(n, Hk, G, 1,
+                                                       qp.shape[-1])
+            kb = kt if kt.shape[0] == 1 else kt[i:i + n]
+            part = tree_sum(qg * kb, -1)                 # [n, Hk, G, Sp]
+            s = part if s is None else s + part
+        s = s / scale
         vb = vt if vt.shape[0] == 1 else vt[i:i + n]
-        qg = qb.reshape(n, Hk, G, 1, D)
-        s = tree_sum(qg * kb, -1) / scale                    # [n, Hk, G, Sp]
         ln = lengths[i:i + n, None]
         valid = keys < ln
         if window is not None:
@@ -131,13 +163,13 @@ def lane_attention(q, k, v, lengths, window=None):
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = _key_sum(p, -1)                                  # [n, Hk, G]
-        # masked values to 0 before the product: [n, Hk, 1, Sp, D],
+        # masked values to 0 before the product: [n, Hk, 1, Sp, Dv],
         # G times smaller than the product
         vm = torch.where(valid[..., None], vb, 0.0)
-        o = _key_sum(p[..., None] * vm, -2)                  # [n, Hk, G, D]
+        o = _key_sum(p[..., None] * vm, -2)                  # [n, Hk, G, Dv]
         o = o / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(o.reshape(n, H, D))
-    return torch.cat(outs).to(q.dtype)
+        outs.append(o.reshape(n, H, Dv))
+    return torch.cat(outs).to(qs[0].dtype)
 
 
 class Attention(nn.Module):
@@ -280,3 +312,228 @@ def gqa_decode_packed(p: Attention, x, cfg, cache, layer: int, seg, pos, *,
     vd = gather_pages(cache.v_pages[layer], cache.block_table)[segc]
     out = lane_attention(q[0], kd, vd, pos + 1, cfg.attn_window)
     return linear(p.wo, out.reshape(1, N, -1), rns)
+
+
+# ----------------------------------------------------------- MLA (DSv2) ---
+class MLA(nn.Module):
+    """Multi-head latent attention weights with the JAX package's names:
+    the query down/up projections ``wdq`` [d, q_lora], ``wuqn`` [q_lora,
+    H*dn], ``wuqr`` [q_lora, H*dr]; the KV down projection ``wdkv`` [d,
+    r] and the shared rope key ``wkr`` [d, dr]; the up projections
+    ``wuk`` [r, H*dn], ``wuv`` [r, H*v_dim]; ``wo`` [H*v_dim, d]; and the
+    latent norms ``q_norm``, ``kv_norm``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        m, H, d = cfg.mla, cfg.n_heads, cfg.d_model
+
+        def w(*shape):
+            return _param(torch.empty(*shape, device=device))
+
+        self.wdq = w(d, m.q_lora_rank)
+        self.wuqn = w(m.q_lora_rank, H * m.qk_nope_dim)
+        self.wuqr = w(m.q_lora_rank, H * m.qk_rope_dim)
+        self.wdkv = w(d, m.kv_lora_rank)
+        self.wkr = w(d, m.qk_rope_dim)
+        self.wuk = w(m.kv_lora_rank, H * m.qk_nope_dim)
+        self.wuv = w(m.kv_lora_rank, H * m.v_dim)
+        self.wo = w(H * m.v_dim, d)
+        self.q_norm = RMSNorm(m.q_lora_rank, device)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, device)
+
+
+def _mla_proj_at(p: MLA, x, cfg, positions, rns):
+    """MLA projections at absolute ``positions`` [B, T]: (q_nope [B,T,H,
+    dn], q_rope [B,T,H,dr] roped, c_kv [B,T,r], k_rope [B,T,dr] roped).
+    The down-projection triple (wdq, wdkv, wkr) and the up-projection
+    pair (wuqn, wuqr) each share one forward conversion on the RNS path.
+    Per token the same math as :func:`mla_qkv` before the k/v expansion,
+    so the latents a decode step caches are those a prefill caches."""
+    m = cfg.mla
+    B, T = x.shape[:2]
+    H = cfg.n_heads
+    dq, dkv, kr = _multi_proj(x, (p.wdq, p.wdkv, p.wkr), rns)
+    q_nope, q_rope = _multi_proj(p.q_norm(dq), (p.wuqn, p.wuqr), rns)
+    q_nope = q_nope.reshape(B, T, H, m.qk_nope_dim)
+    q_rope = rope(q_rope.reshape(B, T, H, m.qk_rope_dim), positions,
+                  cfg.rope_theta)
+    c_kv = p.kv_norm(dkv)
+    k_rope = rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand(p: MLA, cfg, c_kv, k_rope, rns):
+    """The expanded (prefill) form's keys and values from latents c_kv
+    [B, S, r], k_rope [B, S, dr]: ((k_nope [B,S,H,dn], k_rope [B,S,1,dr]),
+    v [B,S,H,v_dim]) -- the keys as :func:`lane_attention` parts, the
+    rope half one head read by every head."""
+    m = cfg.mla
+    B, S = c_kv.shape[:2]
+    H = cfg.n_heads
+    k_nope, v = _multi_proj(c_kv, (p.wuk, p.wuv), rns)
+    return ((k_nope.reshape(B, S, H, m.qk_nope_dim), k_rope[:, :, None]),
+            v.reshape(B, S, H, m.v_dim))
+
+
+def mla_qkv(p: MLA, x, cfg, positions, rns=None):
+    """q, k, v expanded per head ([B,T,H,dn+dr] q and k, [B,T,H,v_dim]
+    v) and the latent pair (c_kv [B,T,r], k_rope [B,T,dr]) the cache
+    keeps, as JAX's ``mla_qkv``."""
+    q_nope, q_rope, c_kv, k_rope = _mla_proj_at(p, x, cfg, positions, rns)
+    (k_nope, kr), v = _mla_expand(p, cfg, c_kv, k_rope, rns)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr.expand(-1, -1, k_nope.shape[2], -1)], dim=-1)
+    return q, k, v, (c_kv, k_rope)
+
+
+def mla_attend(p: MLA, x, cfg, *, rns=None):
+    """Causal MLA prefill over a whole (padded) prompt, in the expanded
+    form; returns (y, (c_kv, k_rope)) for the latent cache.  Every
+    prompt token is a lane of :func:`lane_attention` over the prompt's
+    keys, as a packed chunk token is over its row's gathered latents."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    q_nope, q_rope, c_kv, k_rope = _mla_proj_at(p, x, cfg, positions, rns)
+    ks, v = _mla_expand(p, cfg, c_kv, k_rope, rns)
+    lengths = torch.arange(1, T + 1, device=x.device)
+    out = torch.stack([
+        lane_attention((q_nope[b], q_rope[b]),
+                       tuple(t[b:b + 1] for t in ks), v[b:b + 1], lengths,
+                       cfg.attn_window)
+        for b in range(B)])
+    return linear(p.wo, out.reshape(B, T, -1), rns), (c_kv, k_rope)
+
+
+def _mla_absorbed_ctx(p: MLA, cfg, q_nope, q_rope, c_kv, k_rope, lengths,
+                      window=None):
+    """Absorbed-matrix latent attention (DeepSeek-V2's decode form), all
+    before ``wo``: q_nope [N, H, dn], q_rope [N, H, dr] per lane against
+    the latents c_kv [N or 1, S, r], k_rope [N or 1, S, dr]; ``lengths``
+    [N] valid latents per lane.  Returns out [N, H, v_dim] float32.
+
+    W_uk is absorbed into the query (q_abs = q_nope . W_uk per head) and
+    W_uv into the output, so attention runs in the latent space, MQA-
+    shaped (one KV head): the score is q_abs . c_kv + q_rope . k_rope
+    over 1/sqrt(dn + dr).  The per-head products go through
+    ``bmm_rows`` and the attention through :func:`lane_attention`, so a
+    lane's floats do not depend on its batch (ROADMAP C.10).
+    """
+    m = cfg.mla
+    H = cfg.n_heads
+    r = m.kv_lora_rank
+    wuk = p.wuk.reshape(r, H, m.qk_nope_dim).permute(1, 2, 0)  # [H,dn,r]
+    q_abs = bmm_rows(q_nope.to(torch.float32).transpose(0, 1),
+                     wuk.to(torch.float32)).transpose(0, 1)     # [N,H,r]
+    lat = c_kv.to(torch.float32)[:, :, None]
+    ctx = lane_attention((q_abs, q_rope), (lat, k_rope[:, :, None]), lat,
+                         lengths, window,
+                         scale_dim=m.qk_nope_dim + m.qk_rope_dim)
+    wuv = p.wuv.reshape(r, H, m.v_dim).transpose(0, 1)          # [H,r,vd]
+    out = bmm_rows(ctx.transpose(0, 1), wuv.to(torch.float32))
+    return out.transpose(0, 1)                                  # [N,H,vd]
+
+
+def _mla_out(p: MLA, x, out, rns):
+    """``wo`` over the per-lane contexts out [R*W, H, v_dim] of x [R, W,
+    d]."""
+    R, W = x.shape[:2]
+    return linear(p.wo, out.reshape(R, W, -1).to(x.dtype), rns)
+
+
+def mla_decode(p: MLA, x, cfg, cache, layer: int, *, rns=None):
+    """One-token absorbed MLA decode against MLA layer ``layer`` of a
+    dense cache (``model.DenseKV``: the latent planes ``c_kv`` [L, B, S,
+    r] and ``k_rope`` [L, B, S, dr]): the token's latents are written at
+    each row's length (in place), then each row attends ``lengths + 1``
+    latents."""
+    B = x.shape[0]
+    q_nope, q_rope, c_t, kr_t = _mla_proj_at(p, x, cfg,
+                                             cache.lengths[:, None], rns)
+    rows = torch.arange(B, device=x.device)
+    cache.c_kv[layer, rows, cache.lengths] = c_t[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[layer, rows, cache.lengths] = kr_t[:, 0].to(
+        cache.k_rope.dtype)
+    out = _mla_absorbed_ctx(p, cfg, q_nope[:, 0], q_rope[:, 0],
+                            cache.c_kv[layer], cache.k_rope[layer],
+                            cache.lengths + 1, cfg.attn_window)
+    return _mla_out(p, x, out, rns)
+
+
+def mla_decode_paged(p: MLA, x, cfg, cache, layer: int, *, rns=None):
+    """One-token absorbed MLA decode against MLA layer ``layer`` of a
+    paged latent cache (``ckv_pages`` [L, P, bs, r], ``krope_pages`` [L,
+    P, bs, dr]): latents written into the row's current page (in
+    place), the row's pages gathered, ``lengths + 1`` latents read."""
+    from repro_torch.serve.kv_cache import gather_pages, write_token
+
+    q_nope, q_rope, c_t, kr_t = _mla_proj_at(p, x, cfg,
+                                             cache.lengths[:, None], rns)
+    ckv, krp = cache.ckv_pages[layer], cache.krope_pages[layer]
+    write_token(ckv, cache.block_table, cache.lengths, c_t[:, 0])
+    write_token(krp, cache.block_table, cache.lengths, kr_t[:, 0])
+    out = _mla_absorbed_ctx(p, cfg, q_nope[:, 0], q_rope[:, 0],
+                            gather_pages(ckv, cache.block_table),
+                            gather_pages(krp, cache.block_table),
+                            cache.lengths + 1, cfg.attn_window)
+    return _mla_out(p, x, out, rns)
+
+
+def mla_decode_paged_window(p: MLA, x, cfg, cache, layer: int, *,
+                            rns=None):
+    """W-token speculative-verify MLA decode against a paged latent
+    cache: x [R, W, d]; all W tokens' latents are written (in place) at
+    positions ``lengths .. lengths + W - 1``, then window token i of row
+    r attends ``lengths[r] + 1 + i`` latents of its row -- a lane of the
+    absorbed attention, the solo decode step's float ops at that
+    position.  ``lengths`` is not advanced."""
+    from repro_torch.serve.kv_cache import gather_pages, write_token_window
+
+    R, W = x.shape[:2]
+    positions = cache.lengths[:, None] + torch.arange(W, device=x.device)
+    q_nope, q_rope, c_t, kr_t = _mla_proj_at(p, x, cfg, positions, rns)
+    ckv, krp = cache.ckv_pages[layer], cache.krope_pages[layer]
+    write_token_window(ckv, cache.block_table, cache.lengths, c_t)
+    write_token_window(krp, cache.block_table, cache.lengths, kr_t)
+    rows = torch.arange(R, device=x.device).repeat_interleave(W)
+    out = _mla_absorbed_ctx(
+        p, cfg, q_nope.flatten(0, 1), q_rope.flatten(0, 1),
+        gather_pages(ckv, cache.block_table)[rows],
+        gather_pages(krp, cache.block_table)[rows],
+        (positions + 1).reshape(-1), cfg.attn_window)
+    return _mla_out(p, x, out, rns)
+
+
+def mla_decode_packed(p: MLA, x, cfg, cache, layer: int, seg, pos, dec, *,
+                      rns=None):
+    """Packed mixed-phase MLA step against a paged latent cache: x [1, N,
+    d], lane i of row ``seg[i]`` at position ``pos[i]``; ``dec`` [N]
+    marks decode lanes.
+
+    MLA's two forms are not bitwise interchangeable: a prefilled token
+    attends in the expanded form, a decoded one in the absorbed form.
+    So, as in JAX, the step computes both over each lane's gathered
+    latents (written before the gather) and takes the absorbed context
+    on decode lanes, the expanded one on chunk lanes, before the shared
+    ``wo``.  Re-expanding gathered latents is exact: the pages are
+    float32 (chunked prefill requires it) and the expansion's matmul
+    treats each (lane, position) row on its own.  With ``rns`` on the
+    attention the expansion's grids cannot be rebuilt from the cache, so
+    the engine refuses chunked MLA with ``rns_targets="all"``.
+    """
+    from repro_torch.serve.kv_cache import gather_pages, write_packed_tokens
+
+    q_nope, q_rope, c_t, kr_t = _mla_proj_at(p, x, cfg, pos[None], rns)
+    ckv, krp = cache.ckv_pages[layer], cache.krope_pages[layer]
+    write_packed_tokens(ckv, cache.block_table, seg, pos, c_t[0])
+    write_packed_tokens(krp, cache.block_table, seg, pos, kr_t[0])
+    segc = seg.clamp(0, cache.block_table.shape[0] - 1)
+    c_kv = gather_pages(ckv, cache.block_table)[segc]              # [N,S,r]
+    k_rope = gather_pages(krp, cache.block_table)[segc]            # [N,S,dr]
+    qn, qr = q_nope[0], q_rope[0]
+    abs_out = _mla_absorbed_ctx(p, cfg, qn, qr, c_kv, k_rope, pos + 1,
+                                cfg.attn_window)
+    ks, v = _mla_expand(p, cfg, c_kv, k_rope, rns)
+    exp_out = lane_attention((qn, qr), ks, v, pos + 1, cfg.attn_window)
+    out = torch.where(dec[:, None, None], abs_out,
+                      exp_out.to(torch.float32))
+    return _mla_out(p, x, out, rns)

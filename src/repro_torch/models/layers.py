@@ -28,6 +28,7 @@ they are.
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 
 import torch
@@ -42,7 +43,8 @@ from repro_torch.core.tensor import (RnsTensor, rt_decode, rt_dot, rt_encode,
                                      rt_encode_matmul, rt_matmul,
                                      rt_matmul_decode, rt_mul)
 
-__all__ = ["ROW_BLOCK", "matmul_rows", "tree_sum", "linear", "RMSNorm", "rmsnorm", "embed", "unembed", "act_fn",
+__all__ = ["ROW_BLOCK", "matmul_rows", "bmm_rows", "tree_sum",
+           "init_normal_", "linear", "RMSNorm", "rmsnorm", "embed", "unembed", "act_fn",
            "MLP", "mlp", "mlp_rns_deferred", "mlp_rns_resident_perop"]
 
 
@@ -73,6 +75,21 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out[:M].reshape(lead + (w.shape[1],))
 
 
+def bmm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [G, M, K] @ w [G, K, N]`` (one matmul per group, e.g. per
+    head) as one fixed-shape ``[G, ROW_BLOCK, K] @ [G, K, N]`` call per
+    block of rows, each block contiguous: a row's result does not depend
+    on the rows batched with it (see :func:`matmul_rows`)."""
+    G, M, K = x.shape
+    Mp = -(-M // ROW_BLOCK) * ROW_BLOCK
+    if Mp != M:
+        x = F.pad(x, (0, 0, 0, Mp - M))
+    w = w.contiguous()
+    out = [torch.bmm(x[:, i:i + ROW_BLOCK].contiguous(), w)
+           for i in range(0, Mp, ROW_BLOCK)]
+    return torch.cat(out, dim=1)[:, :M]
+
+
 def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum over ``dim`` as a tree of elementwise adds of halves over the
     next power of two (zero-padded), ``dim`` dropped.
@@ -98,6 +115,19 @@ def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def init_normal_(module: nn.Module, generator: torch.Generator,
+                 skip=()) -> None:
+    """Draw every parameter of ``module`` from N(0, 1/d_in), ``d_in`` its
+    next-to-last dim (a weight [d_in, d_out], an expert stack [E, d_in,
+    d_out]) -- the JAX package's ``init_linear`` scale; norms' scales
+    (names ending in ``scale``) and the names in ``skip`` are left."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("scale") or name in skip:
+                continue
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[-2]), generator=generator)
 
 
 def _encode_weight(w: torch.Tensor, res: RnsTensor | None,

@@ -5,29 +5,53 @@ the speculative-verify window and the packed mixed-phase step."""
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
 
 from repro_torch.core.quantize import token_mask
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import RMSNorm, _param, embed, unembed
+from repro_torch.models.layers import (RMSNorm, _param, embed, init_normal_,
+                                       linear, unembed)
 
-__all__ = ["Model", "init_model", "DenseKV", "make_cache",
-           "set_cache_lengths", "prefill", "prefill_ragged", "decode_step",
-           "decode_window", "mixed_step"]
+__all__ = ["Model", "init_model", "DenseKV", "make_cache", "plane_shapes",
+           "stack_planes", "set_cache_lengths", "prefill", "prefill_ragged",
+           "decode_step", "decode_window", "mixed_step"]
+
+#: the cache planes of each layer type, in the order its prefill returns
+#: them (``transformer.apply_blocks``)
+PLANES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope")}
 
 
 def _check_supported(cfg):
-    if cfg.norm != "rmsnorm" or not cfg.tie_embeddings or not cfg.causal:
+    """The port has the causal, rmsnorm, decoder-only model with GQA or
+    MLA attention, dense or MoE MLPs, tied or untied head (smollm-135m,
+    deepseek-v2-236b, llama4-scout-17b-a16e); the rest are later
+    slices."""
+    later = []
+    if cfg.norm != "rmsnorm":
+        later.append(f"norm={cfg.norm!r}")
+    if not cfg.causal:
+        later.append("non-causal attention")
+    if cfg.enc_dec:
+        later.append("enc_dec")
+    if cfg.frontend is not None:
+        later.append(f"frontend={cfg.frontend!r}")
+    bad = sorted(set(cfg.layer_types) - set(PLANES))
+    if bad:
+        later.append(f"layer types {bad} (SSM / hybrid)")
+    bad = sorted(set(cfg.mlp_types) - {"dense", "moe"})
+    if bad:
+        later.append(f"MLP types {bad}")
+    if later:
         raise NotImplementedError(
-            f"{cfg.arch_id}: this slice ports the causal, rmsnorm, tied-"
-            "embedding decoder (smollm-135m); other families are later slices")
+            f"{cfg.arch_id}: {', '.join(later)} come with later slices of "
+            "the port (ROADMAP A)")
 
 
 class Model(nn.Module):
-    """Decoder-only LM: tied embedding, ``n_layers`` blocks, final norm."""
+    """Decoder-only LM: embedding, ``n_layers`` blocks, final norm and
+    the head: the embedding transposed (tied) or ``lm_head`` [d, V]."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -35,48 +59,86 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _param(torch.empty(cfg.vocab, cfg.d_model, device=device))
         self.blocks = nn.ModuleList(
-            tf.Block(cfg, device) for _ in range(cfg.n_layers))
+            tf.Block(cfg, lt, mt, device)
+            for lt, mt in zip(cfg.layer_types, cfg.mlp_types))
         self.final_norm = RMSNorm(cfg.d_model, device)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        _param(torch.empty(cfg.d_model, cfg.vocab,
+                                           device=device)))
 
 
 def init_model(cfg, seed: int = 0, device="cuda") -> Model:
     """Random weights from ``seed`` with the JAX package's scales:
-    embedding N(0, 0.02), projections N(0, 1/d_in), norms one.  The
-    generator lives on ``device`` (on the card, the full model is drawn
-    there); the same seed on another device gives other numbers."""
+    embedding N(0, 0.02), projections and expert stacks N(0, 1/d_in),
+    norms one.  The generator lives on ``device`` (on the card, the full
+    model is drawn there); the same seed on another device gives other
+    numbers."""
     model = Model(cfg, device)
     g = torch.Generator(device=device).manual_seed(seed)
-    for name, p in model.named_parameters():
-        if name.endswith("scale"):
-            continue                        # norms stay at one
-        std = 0.02 if name == "embed" else 1.0 / math.sqrt(p.shape[0])
-        p.normal_(0.0, std, generator=g)
+    with torch.no_grad():
+        model.embed.normal_(0.0, 0.02, generator=g)     # drawn first
+    init_normal_(model, g, skip=("embed",))
     return model
 
 
 def _logits(model: Model, h):
-    return unembed(model.embed, model.final_norm(h))
+    h = model.final_norm(h)
+    if model.lm_head is None:
+        return unembed(model.embed, h)
+    return linear(model.lm_head, h)
 
 
 @dataclasses.dataclass
 class DenseKV:
-    """The bucketed engine's decode cache: every attention layer's K/V
-    ``[n_layers, B, S_max, Hk, D]`` and the rows' ``lengths`` [B]."""
+    """The bucketed engine's decode cache: the GQA layers' K/V ``[n_attn,
+    B, S_max, Hk, D]``, the MLA layers' latents ``c_kv`` [n_mla, B,
+    S_max, r] and ``k_rope`` [n_mla, B, S_max, dr] (None where the model
+    has no such layer) and the rows' ``lengths`` [B]."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | None
+    v: torch.Tensor | None
     lengths: torch.Tensor       # [B] int64
+    c_kv: torch.Tensor | None = None
+    k_rope: torch.Tensor | None = None
+
+
+def plane_shapes(cfg) -> dict[str, tuple[int, tuple[int, ...]]]:
+    """{plane name: (layers of its type, one token's shape)} for the
+    layer types ``cfg`` has (JAX's ``_layer_cache_shape``)."""
+    feat = {"k": (cfg.n_kv_heads, cfg.d_head),
+            "v": (cfg.n_kv_heads, cfg.d_head)}
+    if cfg.mla is not None:
+        feat["c_kv"] = (cfg.mla.kv_lora_rank,)
+        feat["k_rope"] = (cfg.mla.qk_rope_dim,)
+    out = {}
+    for lt, names in PLANES.items():
+        n = cfg.layer_types.count(lt)
+        if n:
+            out.update({name: (n, feat[name]) for name in names})
+    return out
+
+
+def stack_planes(cfg, ys) -> dict[str, torch.Tensor]:
+    """Prefill's per-layer planes (``apply_blocks``' ``ys``) stacked per
+    name: {"k": [n_attn, B, T, Hk, D], "c_kv": [n_mla, B, T, r], ...}."""
+    out = {}
+    for lt, names in PLANES.items():
+        idx = [i for i, t in enumerate(cfg.layer_types) if t == lt]
+        for j, name in enumerate(names if idx else ()):
+            out[name] = torch.stack([ys[i][j] for i in idx])
+    return out
 
 
 def make_cache(cfg, B: int, S_max: int, *, dtype=torch.float32,
                device="cuda") -> DenseKV:
-    """Zero dense decode cache, lengths 0 (attention layers: the only
-    layer type of this slice's family)."""
-    shape = (cfg.n_layers, B, S_max, cfg.n_kv_heads, cfg.d_head)
-    return DenseKV(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
+    """Zero dense decode cache, lengths 0: the planes of every layer
+    type the model has."""
+    planes = {name: torch.zeros((n, B, S_max) + feat, dtype=dtype,
+                                device=device)
+              for name, (n, feat) in plane_shapes(cfg).items()}
+    return DenseKV(k=planes.pop("k", None), v=planes.pop("v", None),
                    lengths=torch.zeros((B,), dtype=torch.int64,
-                                       device=device))
+                                       device=device), **planes)
 
 
 def set_cache_lengths(cache, lengths):
@@ -110,8 +172,9 @@ def prefill(model: Model, cfg, tokens: torch.Tensor, S_max: int, *,
     if cache is None:
         cache = make_cache(cfg, B, S_max, dtype=cache_dtype,
                            device=tokens.device)
-    cache.k[:, :, :T] = torch.stack([k for k, _ in ys]).to(cache.k.dtype)
-    cache.v[:, :, :T] = torch.stack([v for _, v in ys]).to(cache.v.dtype)
+    for name, planes in stack_planes(cfg, ys).items():
+        dst = getattr(cache, name)
+        dst[:, :, :T] = planes.to(dst.dtype)
     cache.lengths.fill_(T)
     return logits, cache
 

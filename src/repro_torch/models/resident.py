@@ -1,7 +1,8 @@
 """Resident residue-domain weights: encode once at build time, serve on.
 
 :func:`encode_resident` walks a model, finds every RNS-target MLP
-(``wi``/``wg``/``wo``) and keeps each weight encoded once on its module
+(``wi``/``wg``/``wo``: a dense layer's MLP or a MoE block's shared
+expert) and keeps each weight encoded once on its module
 (``MLP.set_resident``), next to the float master; ``models/layers.mlp``
 then takes the resident paths, with zero weight conversions per step.
 Each weight gets its own absmax grid, the scale the re-encode path
@@ -53,8 +54,18 @@ def _encode_one(w: torch.Tensor, profile: str, qw: int, mag_bits: float,
 
 
 def _mlps(model):
+    """(module path, MLP) of every MLP: each layer's dense MLP or its MoE
+    block's shared expert (the routed expert stacks are not MLPs and stay
+    float, as in JAX's structural walk)."""
     return [(name, m) for name, m in model.named_modules()
             if isinstance(m, MLP)]
+
+
+def _layer_of(path: str) -> int:
+    """The layer of a model's MLP (``blocks.<i>.mlp``, ``blocks.<i>.moe.
+    shared``); 0 for an MLP outside a model's blocks."""
+    parts = path.split(".")
+    return int(parts[1]) if parts[0] == "blocks" and len(parts) > 1 else 0
 
 
 def _colsum_bits(ws, qw: int) -> float:
@@ -101,10 +112,11 @@ def encode_resident(model, cfg, *, per_layer_profiles: bool = False):
     if cfg.rns is None or cfg.rns_targets not in ("all", "mlp"):
         return model
     rns = cfg.rns
-    mlps = [m for _, m in _mlps(model) if not m.has_bias()]
+    mlps = [(_layer_of(path), m) for path, m in _mlps(model)
+            if not m.has_bias()]
     period = cfg.period if per_layer_profiles else 1
     for slot in range(period):
-        members = mlps[slot::period]
+        members = [m for i, m in mlps if i % period == slot]
         if not members:
             continue
         if per_layer_profiles:

@@ -403,9 +403,29 @@ class ContinuousEngine(_Programs):
         if scfg.cache_dtype not in _CACHE_DTYPES:
             raise ValueError(f"cache_dtype={scfg.cache_dtype!r}: one of "
                              f"{sorted(_CACHE_DTYPES)}")
+        cfg = _apply_rns_policy(model.cfg, scfg)
+        # the JAX engine's checks, with its messages
+        bad = sorted({t for t in cfg.layer_types if t not in ("attn", "mla")})
+        if bad:
+            raise NotImplementedError(
+                f"continuous batching pages attn/mla caches only; "
+                f"{cfg.arch_id} has layer types {bad}")
+        if cfg.enc_dec or cfg.frontend is not None:
+            raise NotImplementedError(
+                "continuous batching is decoder-only (no enc-dec / frontend)")
+        if not cfg.causal:
+            raise NotImplementedError("continuous batching requires causal "
+                                      "attention (padded prefill relies on it)")
+        if scfg.chunked_prefill and cfg.rns is not None \
+                and cfg.rns_targets == "all" and "mla" in cfg.layer_types:
+            raise NotImplementedError(
+                "chunked_prefill with rns_targets='all' on an MLA model: "
+                "packed chunk tokens re-expand gathered latents, and the "
+                "original per-token quantization grids of earlier chunks "
+                "are not recoverable from the cache; use rns_targets='mlp'")
         self.device = torch.device(device)
         self.model = model.to(self.device)
-        self.cfg = _apply_rns_policy(model.cfg, scfg)
+        self.cfg = cfg
         _maybe_resident(self.model, self.cfg, scfg)
         self.scfg = scfg
         bs = scfg.page_size
@@ -491,10 +511,11 @@ class ContinuousEngine(_Programs):
         def prefill(tokens, length, block_row):
             logits, ys = M.prefill_ragged(self.model, self.cfg, tokens,
                                           length)
-            kv.write_prompt_pages(self.cache.k_pages, block_row,
-                                  torch.stack([k[0] for k, _ in ys]))
-            kv.write_prompt_pages(self.cache.v_pages, block_row,
-                                  torch.stack([v[0] for _, v in ys]))
+            # JAX's _ingest_fn: each plane (K/V or MLA latents) into its
+            # pool
+            pools = self.cache.pools()
+            for name, planes in M.stack_planes(self.cfg, ys).items():
+                kv.write_prompt_pages(pools[name], block_row, planes[:, 0])
             return torch.argmax(logits, dim=-1)
 
         @torch.inference_mode()
@@ -505,8 +526,8 @@ class ContinuousEngine(_Programs):
 
         @torch.inference_mode()
         def cow(src, dst):
-            kv.copy_pages(self.cache.k_pages, src, dst)
-            kv.copy_pages(self.cache.v_pages, src, dst)
+            for pages in self.cache.pools().values():
+                kv.copy_pages(pages, src, dst)
 
         self.programs: dict[str, StepProgram] = {}
         if self.chunked:

@@ -8,6 +8,9 @@ captured from the function once, at engine build: no Python runs inside
 a replayed step.  The graph keeps every address it was captured with, so
 the buffers, the outputs and whatever the function reads (weights, the
 KV pool, the block table) are never rebound, only written in place.
+The captured ``cudaGraph_t`` is kept beside its instantiation
+(``keep_graph``), so that a caller can list the kernel nodes that every
+replay launches (``chip_smoke.py`` counts the port's kernels there).
 
 On the CPU, or with ``graphs=False`` on the card (the counterpart of
 ``jax.disable_jit()``), the same function runs eagerly over the same
@@ -54,9 +57,10 @@ class StepProgram:
 
     def capture(self, stream: torch.cuda.Stream, pool):
         """Capture ``fn`` on ``stream`` into the shared memory ``pool``."""
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             ops = self._call()
+        graph.instantiate()
         if ops.as_dict() != self.ops.as_dict():
             raise RuntimeError(f"{self.name}: the captured run tallied "
                                f"{ops.as_dict()}, the warm-up "

@@ -7,10 +7,11 @@ finished row's pages return to the pool at once.
 
 Host side (numpy, as ``repro.serve.kv_cache``): the refcounted
 :class:`PageAllocator` and the content-addressed :class:`PrefixCache`
-that ``serve/scheduler.py`` drives.  Device side (PyTorch): the page pool
-:class:`PagedKV` -- ``k_pages``/``v_pages`` ``[n_layers, n_pages,
-page_size, Hk, D]`` plus one ``block_table`` ``[max_seqs, max_blocks]``
-and ``lengths`` ``[max_seqs]`` shared by every layer -- and the
+that ``serve/scheduler.py`` drives.  Device side (PyTorch): the page pools
+:class:`PagedKV` -- ``k_pages``/``v_pages`` ``[n_attn, n_pages,
+page_size, Hk, D]`` of the GQA layers, the latent ``ckv_pages`` /
+``krope_pages`` of the MLA layers, plus one ``block_table`` ``[max_seqs,
+max_blocks]`` and ``lengths`` ``[max_seqs]`` shared by every layer -- and the
 gather/scatter/copy helpers, which update the pool IN PLACE (the JAX
 package returns new arrays; in place saves a copy of the pool per token).
 
@@ -311,30 +312,51 @@ class PrefixCache:
 
 
 # ------------------------------------------------------- device tensors ---
+#: the page pool of each cache plane (``models/model.py::PLANES``)
+POOLS = {"k": "k_pages", "v": "v_pages", "c_kv": "ckv_pages",
+         "k_rope": "krope_pages"}
+
+
 @dataclasses.dataclass
 class PagedKV:
-    """The device page pool of every layer plus the shared tables."""
+    """The device page pools of every layer plus the shared tables: the
+    GQA layers' ``k_pages``/``v_pages`` [n_attn, n_pages, page_size, Hk,
+    D], the MLA layers' latent ``ckv_pages`` [n_mla, n_pages, page_size,
+    r] and ``krope_pages`` [n_mla, n_pages, page_size, dr] (None where the
+    model has no such layer)."""
 
-    k_pages: torch.Tensor       # [n_layers, n_pages, page_size, Hk, D]
-    v_pages: torch.Tensor
+    k_pages: torch.Tensor | None
+    v_pages: torch.Tensor | None
     block_table: torch.Tensor   # [max_seqs, max_blocks] int64
     lengths: torch.Tensor       # [max_seqs] int64
+    ckv_pages: torch.Tensor | None = None
+    krope_pages: torch.Tensor | None = None
+
+    def pools(self) -> dict[str, torch.Tensor]:
+        """{plane name: its page pool} of the pools this cache has."""
+        return {name: getattr(self, pool) for name, pool in POOLS.items()
+                if getattr(self, pool) is not None}
 
 
 def make_paged_cache(cfg, pcfg: PagedCacheConfig, *, device="cuda",
                      dtype=torch.float32) -> PagedKV:
-    """Zero paged decode cache for every attention layer, its pages in
-    ``dtype`` (``ServeConfig.cache_dtype``; writes round to it, reads
-    upcast exactly to float32)."""
-    shape = (cfg.n_layers, pcfg.n_pages, pcfg.page_size, cfg.n_kv_heads,
-             cfg.d_head)
+    """Zero paged decode cache: the pools of every layer type the model
+    has (JAX's ``_layer_pages``), its pages in ``dtype``
+    (``ServeConfig.cache_dtype``; writes round to it, reads upcast
+    exactly to float32)."""
+    from repro_torch.models.model import plane_shapes
+
+    pools = {POOLS[name]: torch.zeros(
+                 (n, pcfg.n_pages, pcfg.page_size) + feat, dtype=dtype,
+                 device=device)
+             for name, (n, feat) in plane_shapes(cfg).items()}
     return PagedKV(
-        k_pages=torch.zeros(shape, dtype=dtype, device=device),
-        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        k_pages=pools.pop("k_pages", None),
+        v_pages=pools.pop("v_pages", None),
         block_table=torch.zeros((pcfg.max_seqs, pcfg.max_blocks),
                                 dtype=torch.int64, device=device),
         lengths=torch.zeros((pcfg.max_seqs,), dtype=torch.int64,
-                            device=device))
+                            device=device), **pools)
 
 
 def set_tables(cache: PagedKV, block_tables, lengths) -> None:
@@ -416,17 +438,17 @@ def write_prompt_pages(pages: torch.Tensor, block_row: torch.Tensor,
                        planes: torch.Tensor) -> None:
     """Blit one prefilled prompt into its pages, in place.
 
-    ``pages`` [..., P, bs, Hk, D] (leading layer dim allowed);
-    ``block_row`` [nbp] physical page per logical block (trash for blocks
-    past the prompt); ``planes`` [..., Tpad, Hk, D] with ``Tpad == nbp *
-    bs``.  Whole pages are overwritten; positions past the prompt length
-    hold garbage that ``lengths`` masks at read time.
+    ``pages`` [L, P, bs, ...] (a pool of every layer of one type: K/V
+    [.., Hk, D] or latents [.., r]); ``block_row`` [nbp] physical page
+    per logical block (trash for blocks past the prompt); ``planes`` [L,
+    Tpad, ...] with ``Tpad == nbp * bs``.  Whole pages are overwritten;
+    positions past the prompt length hold garbage that ``lengths`` masks
+    at read time.
     """
-    bs = pages.shape[-3]
+    L, bs = pages.shape[0], pages.shape[2]
     nbp = block_row.shape[0]
-    lead = tuple(planes.shape[:-3])
-    v = planes.reshape(lead + (nbp, bs) + tuple(planes.shape[-2:]))
-    pages[..., block_row, :, :, :] = v.to(pages.dtype)
+    v = planes.reshape((L, nbp, bs) + tuple(planes.shape[2:]))
+    pages[:, block_row] = v.to(pages.dtype)
 
 
 def copy_pages(pages: torch.Tensor, src: torch.Tensor,

@@ -17,6 +17,7 @@ from repro.kernels import autotune as j_autotune
 from repro_torch.analysis import kernel_audit as ka
 from repro_torch.core.moduli import PROFILES, get_profile
 from repro_torch.kernels import autotune, wrappers
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MATMUL_KINDS = ("rns_matmul", "rns_fused_encode_matmul",
                 "rns_fused_matmul_normalize", "rns_fused_dot")

@@ -20,6 +20,7 @@ from repro.core.moduli import PROFILES as JPROFILES
 from repro_torch.core import dispatch, mrc, quantize, rns
 from repro_torch.core import rns_matmul as rm
 from repro_torch.core.moduli import PROFILES, get_profile
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ALL = sorted(PROFILES)
 INT8_SAFE = sorted(n for n, p in PROFILES.items() if p.int8_safe)

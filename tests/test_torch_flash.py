@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels import autotune
 from repro_torch.kernels.flash_attention import ops as fa
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5     # float32, different summation orders (fa.ATOL)
 

@@ -6,6 +6,7 @@ tails and the dispatch's ``inv_scale``, and the Mandelbrot demo
 Inputs are made with numpy from a seed and go through both packages.
 Residues and escape counts must be equal; floats from ``fr_decode`` and
 from every ``frac_exp`` decode equal JAX's reference backend bit for
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 bit, on every port backend (on the CPU each kernel wrapper takes its
 plain version); op counts equal JAX's but for ROADMAP C.8.  The tests
 marked ``gpu`` hold the kernels with a scaled weight table to their

@@ -49,6 +49,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import resident
 from repro_torch.models.params import params_from_jax
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # ROADMAP C.1: rns5 value whose float reconstruction is 13505986560.0
 # with one rounding per op (an FMA-contracted sum gives 13505985536.0)

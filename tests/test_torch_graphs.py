@@ -25,12 +25,13 @@ from repro.core.rns_matmul import RnsDotConfig as JRnsDotConfig
 from repro.models import model as JM
 from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import at_depth, get_config
 from repro_torch.core import dispatch
 from repro_torch.core.rns_matmul import RnsDotConfig
 from repro_torch.models.params import params_from_jax
 from repro_torch.serve import graphs
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIELDS = ("converts", "matmuls", "normalizes", "fused", "fallbacks",
           "weight_converts")
@@ -199,7 +200,7 @@ def test_gpu_replay_after_workspace_grows(cuda, path):
     from repro_torch.kernels.rns_matmul import ops as m_ops
     from repro_torch.models.model import init_model
 
-    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+    cfg = dataclasses.replace(at_depth(get_config("smollm-135m"), 2),
                               rns=RnsDotConfig(profile="rns9", qx=8, qw=8))
     model = init_model(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(6)

@@ -8,6 +8,7 @@ import re
 from pathlib import Path
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -30,6 +30,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rns_convert import ops as convert_ops
 from repro_torch.kernels.rns_matmul import ops as matmul_ops
 from repro_torch.kernels.rns_normalize import ops as normalize_ops
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 INT8_SAFE = sorted(n for n, p in PROFILES.items() if p.int8_safe)
 C1_VALUE, C1_FLOAT = 4_503_599_542_737_792, 13505986560.0
@@ -274,6 +275,81 @@ def test_wrappers_count_only_kernel_launches():
     convert_ops.rns_convert("rns9", torch.ones(4), 1.0, bits=8)
     assert (convert_ops.launches, matmul_ops.launches,
             normalize_ops.launches) == before
+
+
+# A stand-in for nvcc: writes its arguments to its ``-o`` file and its log,
+# and fails for the share named by FAIL_PART.
+FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+case " $* " in *" -DBUILD_PART=$FAIL_PART "*) echo "share failed"; exit 1;; esac
+echo "$@" > "$out"
+echo "nvcc $*"
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("FAIL_PART", "none")
+    return tmp_path
+
+
+@pytest.mark.parametrize("stem", ["rns_fused_mma", "rns_convert"])
+def test_build_compiles_shares_then_links(fake_nvcc, stem):
+    """A source of ``build.PARTS`` compiles as that many ``-DBUILD_PART``
+    objects (``-c``, not ``-shared``), then one ``-shared`` link of them
+    whose objects are removed; any other source is one ``-shared``
+    compile.  The library's log holds every compile's output."""
+    src = fake_nvcc / f"{stem}.cu"
+    src.write_text("// entry points\n")
+    log = build.build_all({stem: src})[stem]
+    lib = build.library_path(stem, src)
+    args = lib.read_text().split()
+    parts = build.PARTS.get(stem, 1)
+    compiles = [line.split() for line in log.splitlines()]
+    assert len(compiles) == parts
+    if parts == 1:
+        assert "-shared" in args and str(src) in args and "-c" not in args
+    else:
+        assert sorted(a for a in args if a.endswith(".o")) == sorted(
+            c[c.index("-o") + 1] for c in compiles)
+        assert "-shared" in args
+        for p, c in enumerate(compiles):
+            assert f"-DBUILD_PART={p}" in c and "-c" in c
+            assert "-shared" not in c and str(src) in c
+    assert lib.with_suffix(".log").read_text() == log
+    assert sorted(f.name for f in (fake_nvcc / "build").iterdir()) == \
+        sorted([lib.name, lib.with_suffix(".log").name])
+
+
+def test_load_builds_once_then_binds(fake_nvcc, monkeypatch):
+    """``load`` builds a library of shares at first use, opens the built
+    file, binds it once and hands the same library back after."""
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: f"lib:{path}")
+    monkeypatch.setattr(build, "_LIBS", {})
+    src = fake_nvcc / "rns_fused_mma.cu"
+    src.write_text("// entry points\n")
+    bound = []
+    lib = build.load("rns_fused_mma", src, bound.append)
+    assert lib == f"lib:{build.library_path('rns_fused_mma', src)}"
+    assert build.load("rns_fused_mma", src, bound.append) is lib
+    assert bound == [lib]
+
+
+def test_build_share_failure_leaves_nothing(fake_nvcc, monkeypatch):
+    """A share that fails raises with its log, and leaves no library,
+    object or temporary file behind."""
+    monkeypatch.setenv("FAIL_PART", "2")
+    src = fake_nvcc / "rns_fused_mma.cu"
+    src.write_text("// entry points\n")
+    with pytest.raises(RuntimeError, match="share failed"):
+        build.build_all({"rns_fused_mma": src})
+    assert list((fake_nvcc / "build").iterdir()) == []
 
 
 # ---------------------------------------------------------- on the card --

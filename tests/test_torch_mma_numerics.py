@@ -74,6 +74,7 @@ from repro_torch.kernels import autotune, build
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rns_fused import ops as fused
 from repro_torch.kernels.rns_matmul import ops as mm
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # tests/test_flash_kernel.py's shapes: (B, Tq, Tk, H, Hk, D)
 SHAPES = [(1, 128, 128, 2, 1, 16), (2, 96, 200, 4, 2, 32),

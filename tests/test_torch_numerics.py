@@ -23,6 +23,7 @@ from repro.core import quantize as jq
 from repro.core import rns as jrns
 from repro_torch.core import mrc, quantize, rns
 from repro_torch.core.moduli import PROFILES, get_profile
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SLICE = ["rns5", "rns9", "rns12", "rns18", "rns21"]
 INT32_MAX, INT32_MIN = 2 ** 31 - 1, -2 ** 31

@@ -34,6 +34,7 @@ from repro_torch.models.params import params_from_jax
 from repro_torch.serve import kv_cache as kv
 from repro_torch.serve import scheduler as sched
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIELDS = ("converts", "matmuls", "normalizes", "fused", "fallbacks",
           "weight_converts")

@@ -39,6 +39,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import resident
 from repro_torch.models.params import params_from_jax
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIELDS = ("converts", "matmuls", "normalizes", "fused", "fallbacks",
           "weight_converts")

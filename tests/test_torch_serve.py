@@ -28,7 +28,7 @@ from repro.serve import kv_cache as jkv
 from repro.serve import scheduler as jsched
 from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import at_depth, get_config
 from repro_torch.core.rns_matmul import RnsDotConfig
 from repro_torch.kernels.rns_convert import ops as convert_ops
 from repro_torch.kernels.rns_matmul import ops as matmul_ops
@@ -38,6 +38,7 @@ from repro_torch.models.params import params_from_jax
 from repro_torch.serve import kv_cache as kv
 from repro_torch.serve import scheduler as sched
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # |logit| is O(1) here; XLA and PyTorch float32 kernels differ by a few
 # ulps, which a rare 8-bit requantization flip amplifies to ~1e-3
@@ -57,7 +58,7 @@ def _cfgs(n_layers=None):
         jcfg = dataclasses.replace(jcfg, n_layers=n_layers,
                                    layer_types=("attn",) * n_layers,
                                    mlp_types=("dense",) * n_layers)
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = at_depth(cfg, n_layers)
     return jcfg, cfg
 
 

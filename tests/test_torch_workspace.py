@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import workspace
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)
