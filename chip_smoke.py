@@ -168,6 +168,35 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 main path's decode and prefill inputs, one timed row of
                 each beside the same inputs unscaled.
 
+  [serve_archs] tinyllama-1.1b and granite-3-8b at full width and depth,
+                qwen2.5-32b (q/k/v bias) at full width, depth 8, and
+                Llama-4-Scout at full width, depth 2, capacity 16
+                (dropless), rns9, random weights from seed 0: the
+                [serve] traffic through ContinuousEngine (tinyllama,
+                granite; qwen per-op, ``rns_targets="all"``, chunked and
+                fused resident; Scout per-op and fused) and the bucketed
+                Engine on 8 x 33 (granite, qwen, Scout: the [8,33,.]
+                prefill rows at their widths), each eager (counts from 0,
+                every distinct wrapper call recorded and held bit for
+                bit to its plain version and timed while the model is on
+                the card, each decode / mixed step's launches equal and
+                agreeing with its rns_ops) then captured (one capture a
+                program, the eager tokens and rns_ops, the replayed
+                step's kernel nodes the eager step's launches); qwen's
+                chunked tokens equal its whole-prompt ones, Scout's
+                bucketed tokens its ContinuousEngine's; each model's
+                peak memory;
+  [serve_ssm]   rwkv6-7b at full width and depth 32 and jamba-v0.1-52b at
+                full width, depth 8 (one period), capacity 8, through the
+                bucketed Engine on 8 x 33 prompts, 16 new tokens: float,
+                per-op rns9 and (Jamba) fused resident, checked as in
+                [serve_archs]; rows 0 and 5 served alone give the
+                batch's tokens and bit-equal final state planes; the
+                ContinuousEngine refuses both with the JAX engine's
+                message.  These two run last, after [kernels] has freed
+                the other serves' recorded inputs: Jamba's 49.5 GiB of
+                weights is the largest model the port holds.
+
 Then it prints the card's name and power limit, the peak device memory,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  ``--phases=a,b`` runs only the named phases (a debugging aid).  Without a CUDA
@@ -1516,11 +1545,424 @@ def _mla_bucketed(torch, model, cfg, launches, calls):
     return numbers
 
 
-def phase_kernels(torch, dev, record, calls, launches):
+# [serve_archs] and [serve_ssm]: the dense archs with the q/k/v bias,
+# Llama-4-Scout, RWKV-6 and Jamba at their published widths
+# (configs/all_archs.py).  Depth: tinyllama 22 of 22, granite 40 of 40,
+# rwkv6 32 of 32 (4.1, 31.2, 28.1 GiB of float32 weights); qwen2.5-32b 8
+# of 64 (20.3 GiB; whole 122.1), Scout 2 of 48 (24.1 GiB), Jamba 8 of 32
+# (one period: 7 mamba + 1 attention layer, 4 MoE; 49.5 GiB).
+# label -> (arch, depth (None: all), rns_targets (None: float), engine,
+# ServeConfig overrides).  An arch's cells share one model, drawn once,
+# the fused cell last (it encodes the dense MLPs resident in place).
+ARCH_DEPTH = {"qwen2.5-32b": 8, "llama4-scout-17b-a16e": 2,
+              "jamba-v0.1-52b": 8}
+# >= E / k: dropless, so chunked and bucketed tokens can equal
+# whole-prompt ones (the published 1.25 drops tokens a prompt's chunks
+# keep)
+ARCH_CAPACITY = {"llama4-scout-17b-a16e": 16.0, "jamba-v0.1-52b": 8.0}
+ARCH_CELLS = {
+    "serve_archs_tinyllama": ("tinyllama-1.1b", "mlp", "continuous", {}),
+    "serve_archs_granite": ("granite-3-8b", "mlp", "continuous", {}),
+    "serve_archs_granite_bucketed": ("granite-3-8b", "mlp", "bucketed", {}),
+    "serve_archs_qwen": ("qwen2.5-32b", "mlp", "continuous", {}),
+    "serve_archs_qwen_bucketed": ("qwen2.5-32b", "mlp", "bucketed", {}),
+    "serve_archs_qwen_all": ("qwen2.5-32b", "all", "continuous", {}),
+    "serve_archs_qwen_chunked": ("qwen2.5-32b", "mlp", "continuous",
+                                 CHUNKED_SERVE),
+    "serve_archs_qwen_fused": ("qwen2.5-32b", "mlp", "continuous",
+                               FUSED_SERVE),
+    "serve_archs_scout": ("llama4-scout-17b-a16e", "mlp", "continuous", {}),
+    "serve_archs_scout_bucketed": ("llama4-scout-17b-a16e", "mlp",
+                                   "bucketed", {}),
+    "serve_archs_scout_fused": ("llama4-scout-17b-a16e", "mlp", "continuous",
+                                FUSED_SERVE),
+}
+SSM_CELLS = {
+    "serve_ssm_rwkv_float": ("rwkv6-7b", None, "bucketed", {}),
+    "serve_ssm_rwkv": ("rwkv6-7b", "mlp", "bucketed", {}),
+    "serve_ssm_jamba_float": ("jamba-v0.1-52b", None, "bucketed", {}),
+    "serve_ssm_jamba": ("jamba-v0.1-52b", "mlp", "bucketed", {}),
+    "serve_ssm_jamba_fused": ("jamba-v0.1-52b", "mlp", "bucketed",
+                              FUSED_SERVE),
+}
+# rows of the 8 x 33 batch served again alone (batch invariance)
+SOLO_ROWS = (0, 5)
+
+
+def _arch_model(arch: str):
+    """``arch`` at its published width, depth ARCH_DEPTH (else all), MoE
+    dropless (ARCH_CAPACITY), rns9 (qx = qw = 8) on the MLPs and the
+    recurrent layers' projections, random weights from seed 0 drawn on
+    the card.  Returns (model, the changes to the published config)."""
+    from repro_torch.configs.base import at_depth, get_config
+    from repro_torch.core.rns_matmul import RnsDotConfig
+    from repro_torch.models.model import init_model
+
+    full = get_config(arch)
+    cfg, changed = full, {}
+    if arch in ARCH_DEPTH:
+        cfg = at_depth(cfg, ARCH_DEPTH[arch])
+        changed["n_layers"] = f"{full.n_layers} -> {cfg.n_layers}"
+    if arch in ARCH_CAPACITY:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=ARCH_CAPACITY[arch]))
+        changed["capacity_factor"] = (f"{full.moe.capacity_factor} -> "
+                                      f"{ARCH_CAPACITY[arch]} (dropless)")
+    cfg = dataclasses.replace(cfg, rns=RnsDotConfig(profile="rns9", qx=8,
+                                                    qw=8))
+    return init_model(cfg, seed=0, device="cuda"), changed
+
+
+def _launch_ops_agree(ops: dict, lc: dict) -> bool:
+    """One step's kernel launches against its RNS op tallies: every
+    rns_matmul / rns_normalize launch and every fused kernel is one
+    ``matmuls`` / ``normalizes`` (the fused dot and matmul + normalize
+    count both) and one ``fused``; a convert launch or a fused encode is
+    one ``converts`` (a fused dot over a shared conversion counts
+    none)."""
+    fused = (lc["rns_fused_encode_matmul"] + lc["rns_fused_matmul_normalize"]
+             + lc["rns_fused_dot"])
+    return (ops["fused"] == fused
+            and ops["matmuls"] == lc["rns_matmul"] + fused
+            and ops["normalizes"] == lc["rns_normalize"]
+            + lc["rns_fused_matmul_normalize"] + lc["rns_fused_dot"]
+            and lc["rns_convert"] + lc["rns_fused_encode_matmul"]
+            <= ops["converts"] <= lc["rns_convert"] + fused)
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def _continuous_cell(torch, model, label, kw, launches, record, seen):
+    """The [serve] traffic through ContinuousEngine on ``model`` (its
+    cfg set by the caller), eager (counts from 0, every distinct wrapper
+    call recorded and checked against its plain version, each decode or
+    mixed step's launches equal and agreeing with its rns_ops) then
+    captured (one capture a program, the eager tokens and rns_ops, a
+    replayed step's kernel nodes the eager step's launches).  Returns
+    (numbers, tokens)."""
+    import gc
+
+    from repro_torch.launch.serve import request_prompts
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+
+    prompts = request_prompts(model.cfg.vocab, SERVE["requests"],
+                              SERVE["prompt_lens"])
+    new = SERVE["new"]
+    chunked = kw.get("chunked_prefill", False)
+    program = "mixed" if chunked else "decode"
+    numbers, runs, step_lc = {}, {}, None
+    for graphs in (False, True):
+        mode = "captured" if graphs else "eager"
+        _reset_launches()
+        log: list = []
+        path_calls: dict = {}
+        in_step: dict = {}
+        t1 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(_recording(torch, path_calls, None,
+                                               in_step))
+            stack.enter_context(_step_launches(log, in_step))
+            engine = ContinuousEngine(model, ServeConfig(
+                max_cache=max(SERVE["prompt_lens"]) + new + 8,
+                max_new_tokens=new, page_size=16,
+                max_seqs=SERVE["max_seqs"], **kw), device="cuda",
+                graphs=graphs)
+            results, stats = engine.run(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        want_caps = {program: int(graphs)}
+        if not chunked:
+            want_caps["prefill"] = int(graphs)
+        if stats["captures"] != want_caps:
+            raise AssertionError(f"{label} {mode}: captures "
+                                 f"{stats['captures']}")
+        steps = stats["steps"]
+        runs[mode] = (_tokens(results),
+                      [s["rns_ops"].as_dict() for s in steps])
+        numbers[mode] = _serve_numbers(engine, stats, wall, None)
+        if not graphs:
+            launches[label] = dict(_launches())
+            stepped = [(st, lc) for st, lc in log if st["decoded"] and (
+                chunked or not st["admitted"])]
+            if not stepped:
+                raise AssertionError(f"{label}: no {program} step")
+            step_lc = stepped[0][1]
+            for st, lc in stepped:
+                if lc != step_lc or not _launch_ops_agree(
+                        st["rns_ops"].as_dict(), lc):
+                    raise AssertionError(f"{label}: {program} step "
+                                         f"launches {lc}, rns_ops "
+                                         f"{st['rns_ops']}")
+            numbers["eager"]["rns_kernels_per_decode_step"] = sum(
+                step_lc.values())
+            numbers["eager"]["launches"] = launches[label]
+        else:
+            replay = _replay_kernels(torch, engine, program)
+            if replay["by_kernel"] != {k: n for k, n in step_lc.items()
+                                       if n}:
+                raise AssertionError(f"{label}: a replayed {program} step "
+                                     f"ran {replay['by_kernel']}, the eager "
+                                     f"step {step_lc}")
+            numbers["captured"]["rns_kernels_per_decode_step"] = \
+                replay["rns_kernels"]
+            numbers["captured"]["replayed_step"] = {
+                k: replay[k] for k in ("by_kernel", "all_kernels",
+                                       "device_ms")}
+            _print_top(f"{label} {program}", replay)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not graphs:
+            phase_kernels(torch, torch.device("cuda"), record, path_calls,
+                          launches, main_path_only=True, seen=seen,
+                          tag=f"{label}: ")
+            del path_calls
+    if runs["captured"] != runs["eager"]:
+        raise AssertionError(f"{label}: captured tokens or rns_ops differ "
+                             "from the eager serve's")
+    return numbers, runs["captured"][0]
+
+
+def _bucketed_cell(torch, model, label, kw, launches, record, seen, *,
+                   solo=()):
+    """The bucketed Engine on BUCKETED_SERVE's 8 x 33 prompts, eager
+    (recorded and checked as in :func:`_continuous_cell`) then captured
+    (``prefill(8,33)=1 decode(8)=1``, the eager tokens, a replayed decode
+    step's kernel nodes the eager step's launches); the rows ``solo``
+    served alone (B = 1) on the captured engine: their tokens and final
+    state planes bit-equal to the batch's.  Returns (numbers, tokens,
+    prompts)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.models.model import STATE_PLANES
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    B, T, new = (BUCKETED_SERVE[k] for k in ("batch", "prompt_len", "new"))
+    prompts = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (B, T)).astype(np.int32)
+    names = (f"prefill({B},{T})", f"decode({B})")
+    rns = model.cfg.rns is not None
+    numbers, toks, step_lc = {}, {}, None
+    for graphs in (False, True):
+        mode = "captured" if graphs else "eager"
+        _reset_launches()
+        log: list = []
+        path_calls: dict = {}
+        in_step: dict = {}
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if not graphs and rns:
+                stack.enter_context(_recording(torch, path_calls, None,
+                                               in_step))
+            stack.enter_context(_engine_runs(log, in_step))
+            engine = Engine(model, ServeConfig(max_cache=T + new + 8,
+                                               max_new_tokens=new, **kw),
+                            device="cuda", graphs=graphs)
+            toks[mode] = engine.generate(prompts).tolist()
+            t_gen = time.perf_counter()
+            engine.generate(prompts)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t_gen
+        caps = engine.captures()
+        if caps != {n: int(graphs) for n in names}:
+            raise AssertionError(f"{label} {mode}: captures {caps}")
+        numbers[mode] = {
+            "setup_and_run_s": time.perf_counter() - t0,
+            "tokens_per_s": B * new / warm,
+            "ttft_p50_s": engine.last_stats["ttft_s"],
+            "decode_step_ms_median": 1e3 * statistics.median(
+                engine.last_stats["step_time_s"]),
+            "captures": caps}
+        ops = engine.programs[names[1]].ops.as_dict()
+        if not graphs:
+            launches[label] = dict(_launches())
+            steps = [lc for prog, lc in log if prog == names[1]]
+            step_lc = steps[0]
+            if any(lc != step_lc for lc in steps) or not _launch_ops_agree(
+                    ops, step_lc) or (rns and not any(step_lc.values())):
+                raise AssertionError(f"{label}: decode step launches "
+                                     f"{steps[:2]}, rns_ops {ops}")
+            numbers["eager"]["rns_kernels_per_decode_step"] = sum(
+                step_lc.values())
+        else:
+            if solo:
+                batch = {n: getattr(engine._caches[B], n).clone()
+                         for n in STATE_PLANES
+                         if getattr(engine._caches[B], n) is not None}
+                for b in solo:
+                    one = engine.generate(prompts[b:b + 1]).tolist()[0]
+                    if one != toks[mode][b]:
+                        raise AssertionError(f"{label}: row {b} alone gave "
+                                             "other tokens than in the "
+                                             "batch")
+                    for n, planes in batch.items():
+                        alone = getattr(engine._caches[1], n)
+                        if not torch.equal(alone[:, 0], planes[:, b]):
+                            raise AssertionError(
+                                f"{label}: row {b}'s final {n} alone "
+                                "differs from the batch's")
+                numbers["solo_rows_equal"] = list(solo)
+            replay = _replay_kernels(torch, engine, names[1])
+            if replay["by_kernel"] != {k: n for k, n in step_lc.items()
+                                       if n}:
+                raise AssertionError(f"{label}: a replayed decode step ran "
+                                     f"{replay['by_kernel']}, the eager "
+                                     f"step {step_lc}")
+            numbers["captured"]["rns_kernels_per_decode_step"] = \
+                replay["rns_kernels"]
+            numbers["captured"]["replayed_step"] = {
+                k: replay[k] for k in ("by_kernel", "all_kernels",
+                                       "device_ms")}
+            _print_top(f"{label} {names[1]}", replay)
+        numbers[mode]["rns_ops_per_decode_step"] = ops
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if path_calls:
+            phase_kernels(torch, torch.device("cuda"), record, path_calls,
+                          launches, main_path_only=True, seen=seen,
+                          tag=f"{label}: ")
+            del path_calls
+    if toks["captured"] != toks["eager"]:
+        raise AssertionError(f"{label}: captured tokens differ from eager")
+    return numbers, toks["captured"], prompts
+
+
+def _serve_cells(torch, cells, launches, record, *, solo=()):
+    """Serve each cell of ``cells`` (an arch's cells together, its model
+    drawn once and freed before the next arch's), printing each cell's
+    numbers with the card's name and power limit and each model's peak
+    device memory.  Returns ({label: numbers}, {label: tokens})."""
+    import gc
+
+    smi = _smi()
+    out, tokens, seen = {}, {}, set()
+    by_arch: dict = {}
+    for label, cell in cells.items():
+        by_arch.setdefault(cell[0], []).append((label, cell))
+    for arch, group in by_arch.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, changed = _arch_model(arch)
+        torch.cuda.synchronize()
+        cfg0 = model.cfg
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"  {arch}: d_model {cfg0.d_model}, depth {cfg0.n_layers}, "
+              f"{n_params} parameters ({4 * n_params / 2**30:.1f} GiB "
+              f"float32) drawn in {time.perf_counter() - t0:.1f}s; "
+              f"changed from the published config: {changed or 'nothing'}")
+        for label, (_, targets, engine, kw) in group:
+            model.cfg = (dataclasses.replace(cfg0, rns=None)
+                         if targets is None else
+                         dataclasses.replace(cfg0, rns_targets=targets))
+            if engine == "continuous":
+                numbers, toks = _continuous_cell(torch, model, label, kw,
+                                                 launches, record, seen)
+            else:
+                numbers, toks, _ = _bucketed_cell(
+                    torch, model, label, kw, launches, record, seen,
+                    solo=solo)
+            numbers["changed"] = changed
+            out[label], tokens[label] = numbers, toks
+            _print_numbers(label, numbers)
+            print(f"  {label}: on {smi}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        out[f"{arch} max_memory_allocated"] = peak
+        print(f"  {arch} max_memory_allocated {peak} bytes "
+              f"({peak / 2**30:.2f} GiB) on {smi}")
+    return out, tokens
+
+
+def phase_serve_archs(torch, launches, record):
+    """tinyllama-1.1b and granite-3-8b (full depth), qwen2.5-32b (depth 8,
+    q/k/v bias) and Llama-4-Scout (depth 2, dropless) at their published
+    widths through the engines (ARCH_CELLS): eager then captured, every
+    distinct kernel input checked against its plain version while the
+    model is on the card; qwen's chunked tokens equal its whole-prompt
+    ones, Scout's bucketed tokens its ContinuousEngine's."""
+    out, tokens = _serve_cells(torch, ARCH_CELLS, launches, record)
+    if tokens["serve_archs_qwen_chunked"] != tokens["serve_archs_qwen"]:
+        raise AssertionError("qwen2.5-32b: chunked greedy tokens differ "
+                             "from the whole-prompt serve's")
+    # the bucketed 8 x 33 rows against ContinuousEngine on the same
+    # prompts: served on a fresh draw of the same model
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+
+    model, _ = _arch_model("llama4-scout-17b-a16e")
+    B, T, new = (BUCKETED_SERVE[k] for k in ("batch", "prompt_len", "new"))
+    prompts = np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (B, T)).astype(np.int32)
+    res, _ = ContinuousEngine(model, ServeConfig(
+        max_cache=T + new + 8, max_new_tokens=new, page_size=16,
+        max_seqs=B), device="cuda").run(list(prompts))
+    if _tokens(res) != tokens["serve_archs_scout_bucketed"]:
+        raise AssertionError("llama4-scout: bucketed greedy tokens differ "
+                             "from the ContinuousEngine's")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  serve_archs: qwen chunked = whole-prompt tokens; Scout "
+          "bucketed = ContinuousEngine tokens")
+    return out
+
+
+def phase_serve_ssm(torch, launches, record):
+    """rwkv6-7b (depth 32) and jamba-v0.1-52b (depth 8, dropless) at their
+    published widths through the bucketed Engine (SSM_CELLS: float,
+    per-op rns9, and fused for Jamba), eager then captured; rows
+    SOLO_ROWS of the 8 x 33 batch served alone give the same tokens and
+    bit-equal final state planes; ContinuousEngine refuses both archs
+    with the JAX engine's message."""
+    from repro_torch.configs.base import at_depth, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+
+    for arch in ("rwkv6-7b", "jamba-v0.1-52b"):
+        cfg = at_depth(get_config(arch), 8)
+        try:
+            ContinuousEngine(Model(cfg, device="meta"), ServeConfig(),
+                             device="meta")
+        except NotImplementedError as e:
+            if not str(e).startswith("continuous batching pages attn/mla "
+                                     f"caches only; {arch} has layer "
+                                     "types"):
+                raise
+            print(f"  {arch}: ContinuousEngine refuses: {e}")
+        else:
+            raise AssertionError(f"{arch}: ContinuousEngine did not refuse")
+    out, _ = _serve_cells(torch, SSM_CELLS, launches, record,
+                          solo=SOLO_ROWS)
+    return out
+
+
+def phase_kernels(torch, dev, record, calls, launches, *,
+                  main_path_only=False, seen=None, tag=""):
     """The six RNS kernels bit for bit on the inputs the serves gave
     them, at every candidate tiling and on boundary cases; flash_attention
     within tolerance on ragged and full-width shapes; times of the
-    main-path inputs and of flash at full width.  Fills ``record``."""
+    main-path inputs and of flash at full width.  Fills ``record``.
+
+    ``main_path_only``: just the serves' own inputs (each checked and
+    timed, its eager time not taken), skipping the calls whose keys are in
+    the set ``seen`` and adding the others to it -- what [serve_archs] and
+    [serve_ssm] run on each cell's calls while its model is on the card;
+    the launch counts are left as they are.  ``tag`` heads each case's
+    label (the cell that gave the input)."""
     import torch.nn.functional as F
 
     from repro_torch.analysis.kernel_audit import fused_ring
@@ -1532,7 +1974,8 @@ def phase_kernels(torch, dev, record, calls, launches):
     if not calls:
         raise AssertionError("no main-path calls recorded: the serves did "
                              "not run, so there are no main-path inputs")
-    _reset_launches()
+    if not main_path_only:
+        _reset_launches()
     g = torch.Generator(device=dev).manual_seed(0)
     mods = _kernel_mods()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1558,8 +2001,9 @@ def phase_kernels(torch, dev, record, calls, launches):
             b, by = _bound(nbytes, ops, rate)
             entry.update(ms=_time_ms(torch, fn, 20),
                          plain_ms=_time_ms(torch, plain, 5),
-                         bound_ms=b, bound_by=by, library_ms=None,
-                         eager_ms=_eager_ms(torch, fn, 50))
+                         bound_ms=b, bound_by=by, library_ms=None)
+            if not main_path_only:
+                entry["eager_ms"] = _eager_ms(torch, fn, 50)
             if note is not None:
                 entry["bound_note"] = note
             if library is not None:
@@ -1627,13 +2071,17 @@ def phase_kernels(torch, dev, record, calls, launches):
             else " -> rns_normalize") + " in one graph"
 
     # ---- the main paths' own inputs: every distinct call of the serves
-    for entry in sorted(calls.values(),
-                        key=lambda e: (e["kernel"], -e["calls"])):
+    for key, entry in sorted(calls.items(),
+                             key=lambda e: (e[1]["kernel"], -e[1]["calls"])):
+        if seen is not None:
+            if key in seen:
+                continue
+            seen.add(key)
         kernel, prof, args, kw = (entry["kernel"], entry["profile"],
                                   entry["args"], entry["kw"])
         K = get_profile(prof).n_digits
         label, nbytes, ops, rate = _cost(torch, kernel, K, args, kw)
-        label = f"{get_profile(prof).name} {label}"
+        label = f"{tag}{get_profile(prof).name} {label}"
         library = None
         if kernel == "rns_matmul":
             a, b = args
@@ -1648,6 +2096,12 @@ def phase_kernels(torch, dev, record, calls, launches):
              unfused=(unfused_chain(kernel, prof, args, kw)
                       if kernel.startswith("rns_fused") else None))
 
+    if main_path_only:
+        torch.cuda.synchronize()
+        if bad:
+            raise AssertionError("kernels disagree with their plain "
+                                 "versions:\n" + "\n".join(bad))
+        return
     # ---- every candidate tiling, on each kernel's most called input
     heads = {}
     for entry in sorted(calls.values(), key=lambda e: -e["calls"]):
@@ -2831,11 +3285,16 @@ def main() -> int:
             ("serve_tuned", lambda: phase_serve_tuned(torch, launches, calls,
                                                       untuned)),
             ("serve_mla", lambda: phase_serve_mla(torch, launches, calls)),
-            ("kernels", lambda: phase_kernels(torch, dev, record, calls,
-                                              launches)),
+            # the recorded inputs' copies are freed once checked: the
+            # largest models come last
+            ("kernels", lambda: (phase_kernels(torch, dev, record, calls,
+                                               launches), calls.clear())),
             ("identity", lambda: phase_identity(torch)),
             ("fractional", lambda: phase_fractional(torch, dev, record,
-                                                    launches))]:
+                                                    launches)),
+            ("serve_archs", lambda: phase_serve_archs(torch, launches,
+                                                      record)),
+            ("serve_ssm", lambda: phase_serve_ssm(torch, launches, record))]:
         if only is not None and name not in only:
             continue
         print(f"[{name}]", flush=True)

@@ -1,10 +1,14 @@
 """Architectures ported so far (exact public configs) + reduced smoke twins.
 
-``smollm-135m`` (GQA, dense MLP, tied embedding), ``deepseek-v2-236b``
-(MLA attention, MoE MLP with shared experts, untied) and
-``llama4-scout-17b-a16e`` (GQA, MoE with a shared expert, untied); the
-other architectures of ``repro.configs.all_archs`` come with the slices
-that port their layers.
+The dense GQA models ``smollm-135m`` (tied embedding), ``tinyllama-1.1b``,
+``granite-3-8b`` and ``qwen2.5-32b`` (a bias on q/k/v);
+``deepseek-v2-236b`` (MLA attention, MoE MLP with shared experts) and
+``llama4-scout-17b-a16e`` (GQA, MoE with a shared expert); the
+attention-free ``rwkv6-7b`` (RWKV-6 time-mix and channel-mix, layernorm)
+and the hybrid ``jamba-v0.1-52b`` (Mamba layers with one GQA layer a
+period of 8, MoE every other layer, no positions).  The encoder-decoder
+and frontend architectures of ``repro.configs.all_archs`` come with a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -13,14 +17,39 @@ import dataclasses
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, register
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.ssm import SSMConfig
+
+
+def _llama_like(arch_id, L, d, H, Hk, dff, vocab, *, d_head=None,
+                qkv_bias=False, tie=False, **kw) -> ModelConfig:
+    return ModelConfig(
+        arch_id=arch_id, family="dense", n_layers=L, d_model=d, n_heads=H,
+        n_kv_heads=Hk, d_head=d_head or d // H, d_ff=dff, vocab=vocab,
+        qkv_bias=qkv_bias, tie_embeddings=tie, **kw)
+
+
+def qwen25_32b() -> ModelConfig:
+    # [hf:Qwen/Qwen2.5-32B-style scaling; QKV bias per Qwen2 family]
+    return _llama_like("qwen2.5-32b", 64, 5120, 40, 8, 27648, 152064,
+                       d_head=128, qkv_bias=True, rope_theta=1_000_000.0)
 
 
 def smollm_135m() -> ModelConfig:
     # [hf:HuggingFaceTB/SmolLM-135M]
-    return ModelConfig(
-        arch_id="smollm-135m", n_layers=30, d_model=576,
-        n_heads=9, n_kv_heads=3, d_head=64, d_ff=1536, vocab=49152,
-        tie_embeddings=True)
+    return _llama_like("smollm-135m", 30, 576, 9, 3, 1536, 49152,
+                       d_head=64, tie=True)
+
+
+def tinyllama_11b() -> ModelConfig:
+    # [arXiv:2401.02385]
+    return _llama_like("tinyllama-1.1b", 22, 2048, 32, 4, 5632, 32000,
+                       d_head=64)
+
+
+def granite_3_8b() -> ModelConfig:
+    # [hf:ibm-granite/granite-3.0 family]
+    return _llama_like("granite-3-8b", 40, 4096, 32, 8, 12800, 49155,
+                       d_head=128, rope_theta=10_000_000.0)
 
 
 def llama4_scout() -> ModelConfig:
@@ -45,10 +74,39 @@ def deepseek_v2_236b() -> ModelConfig:
         moe=MoEConfig(n_experts=160, top_k=6, d_ff_expert=1536, n_shared=2))
 
 
+def jamba_52b() -> ModelConfig:
+    # [arXiv:2403.19887] attn:mamba 1:7 (attn @ offset 4, period 8);
+    # MoE every 2 layers (offset 1), 16 experts top-2.
+    L = 32
+    return ModelConfig(
+        arch_id="jamba-v0.1-52b", family="hybrid", n_layers=L, d_model=4096,
+        n_heads=32, n_kv_heads=8, d_head=128, d_ff=14336, vocab=65536,
+        layer_types=tuple("attn" if i % 8 == 4 else "mamba"
+                          for i in range(L)),
+        mlp_types=tuple("moe" if i % 2 == 1 else "dense" for i in range(L)),
+        pos_emb="none",
+        ssm=SSMConfig(kind="mamba", d_state=16, d_conv=4, expand=2),
+        moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=14336))
+
+
+def rwkv6_7b() -> ModelConfig:
+    # [arXiv:2404.05892] Finch: data-dependent decay, attn-free
+    L = 32
+    return ModelConfig(
+        arch_id="rwkv6-7b", family="ssm", n_layers=L, d_model=4096,
+        n_heads=64, n_kv_heads=64, d_head=64, d_ff=14336, vocab=65536,
+        layer_types=("rwkv",) * L, mlp_types=("channelmix",) * L,
+        pos_emb="none", norm="layernorm",
+        ssm=SSMConfig(kind="rwkv6", head_dim=64, impl="chunked", chunk=64))
+
+
 def _smoke_of(full: ModelConfig, **over) -> ModelConfig:
     """The JAX package's smoke twin: 4 layers, width 64, vocab 256; a
     uniform layer program keeps its type, MoE shrinks to 4 experts
-    (dropless: ``capacity_factor`` 8 >= E/k) and MLA to ranks 32/48."""
+    (dropless: ``capacity_factor`` 8 >= E/k), MLA to ranks 32/48 and an
+    SSM to state 4, head 16, chunks of 32 -- with the default
+    ``impl="scan"``, so the RWKV-6 twin runs the stepwise recurrence
+    where the full config runs the chunked one (as in JAX)."""
     base = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
                 d_ff=128, vocab=256)
     base.update(over)
@@ -66,11 +124,34 @@ def _smoke_of(full: ModelConfig, **over) -> ModelConfig:
         base.setdefault("mla", MLAConfig(
             kv_lora_rank=32, q_lora_rank=48, qk_nope_dim=16, qk_rope_dim=8,
             v_dim=16))
+    if full.ssm:
+        base.setdefault("ssm", SSMConfig(
+            kind=full.ssm.kind, d_state=4, d_conv=4, expand=2, head_dim=16,
+            chunk=32))
     return dataclasses.replace(full, **base)
 
 
+def _smoke_jamba() -> ModelConfig:
+    L = 8
+    return _smoke_of(
+        jamba_52b(), n_layers=L,
+        layer_types=tuple("attn" if i % 4 == 2 else "mamba"
+                          for i in range(L)),
+        mlp_types=tuple("moe" if i % 2 == 1 else "dense" for i in range(L)),
+        n_heads=4, n_kv_heads=2)
+
+
+def _smoke_rwkv() -> ModelConfig:
+    return _smoke_of(rwkv6_7b(), n_heads=4, n_kv_heads=4, d_head=16)
+
+
 ALL = {
+    "jamba-v0.1-52b": (jamba_52b, _smoke_jamba),
+    "qwen2.5-32b": (qwen25_32b, lambda: _smoke_of(qwen25_32b())),
     "smollm-135m": (smollm_135m, lambda: _smoke_of(smollm_135m())),
+    "tinyllama-1.1b": (tinyllama_11b, lambda: _smoke_of(tinyllama_11b())),
+    "granite-3-8b": (granite_3_8b, lambda: _smoke_of(granite_3_8b())),
+    "rwkv6-7b": (rwkv6_7b, _smoke_rwkv),
     "llama4-scout-17b-a16e": (llama4_scout,
                               lambda: _smoke_of(llama4_scout())),
     "deepseek-v2-236b": (deepseek_v2_236b, lambda: _smoke_of(

@@ -1,5 +1,6 @@
 """Model configuration and the architecture registry (the decoder-only
-families ported so far: GQA or MLA attention, dense or MoE MLPs)."""
+families ported so far: GQA or MLA attention, Mamba or RWKV-6 layers,
+dense, MoE or channel-mix MLPs)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,14 @@ from typing import Callable
 
 from repro_torch.core.rns_matmul import RnsDotConfig
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.ssm import SSMConfig
 
-__all__ = ["MLAConfig", "ModelConfig", "at_depth", "register",
-           "get_config"]
+__all__ = ["MLAConfig", "ModelConfig", "SSMConfig", "at_depth", "register",
+           "get_config", "list_archs"]
+
+#: position schemes: rotary on q/k, none (the recurrences carry order);
+#: sinusoidal absolute positions come with the encoder-decoder slice
+POS_EMB = ("rope", "none", "sinusoidal")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,11 +38,13 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab: int
-    family: str = "dense"                  # dense|moe (ported so far)
+    family: str = "dense"                  # dense|moe|ssm|hybrid
     # per-layer programs (len == n_layers; empty: all attn / all dense)
-    layer_types: tuple[str, ...] = ()      # attn|mla
-    mlp_types: tuple[str, ...] = ()        # dense|moe
+    layer_types: tuple[str, ...] = ()      # attn|mla|mamba|rwkv
+    mlp_types: tuple[str, ...] = ()        # dense|moe|channelmix
+    qkv_bias: bool = False                 # a bias on q, k and v (Qwen2)
     rope_theta: float = 10000.0
+    pos_emb: str = "rope"                  # rope|none (sinusoidal: 3d)
     # encoder-decoder and modality frontends: later slices of the port
     # (models/model.py and the continuous engine refuse them)
     enc_dec: bool = False
@@ -48,6 +56,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
+    ssm: SSMConfig | None = None
     # numerics / paper technique: the RNS datapath on these targets
     rns: RnsDotConfig | None = None
     rns_targets: str = "mlp"               # mlp|attn|all
@@ -67,6 +76,8 @@ class ModelConfig:
             object.__setattr__(self, "mlp_types", ("dense",) * self.n_layers)
         assert len(self.layer_types) == self.n_layers
         assert len(self.mlp_types) == self.n_layers
+        if self.pos_emb not in POS_EMB:
+            raise ValueError(f"pos_emb={self.pos_emb!r}: one of {POS_EMB}")
 
     @property
     def period(self) -> int:
@@ -110,3 +121,10 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
     if arch_id not in reg:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return reg[arch_id]()
+
+
+def list_archs() -> list[str]:
+    """The architectures the port registers, sorted."""
+    import repro_torch.configs.all_archs  # noqa: F401  (populates registry)
+
+    return sorted(_REGISTRY)

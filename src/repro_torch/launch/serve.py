@@ -12,9 +12,14 @@ width of smollm-135m, on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --rns rns9 --full --requests 6 --prompt-lens 7,33,120 --new 16
 
-Without ``--full`` it serves the reduced smoke twin, as the JAX CLI
-does.  ``--device cpu`` runs the plain PyTorch path instead of the
-kernels.  ``--rns-backend cuda_fused --resident-weights`` serves through
+``--arch`` takes any architecture the port registers
+(``configs.base.list_archs()``): ``rwkv6-7b`` and ``jamba-v0.1-52b``
+have recurrent layers and serve through the bucketed engine only
+(``--continuous`` exits with the engine's refusal, as the JAX CLI does);
+``qwen2.5-32b`` carries its q/k/v bias.  Without ``--full`` it serves the
+reduced smoke twin, as the JAX CLI does.  ``--device cpu`` runs the
+plain PyTorch path instead of the kernels.  ``--rns-backend cuda_fused
+--resident-weights`` serves through
 the fused kernels on MLP weights encoded once at build; add
 ``--per-layer-profiles`` to encode each layer on the narrowest profile
 that holds it.  On the card the engine captures its prefill and its
@@ -40,7 +45,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core.rns_matmul import RnsDotConfig
 from repro_torch.models.model import init_model
 from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
@@ -148,7 +153,7 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=list_archs())
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV cache "
                          "(default: the bucketed engine)")
@@ -210,7 +215,15 @@ def main(argv=None):
     if not args.continuous:
         _bucketed(args)
         return
-    engine, res, stats = serve(
+    try:
+        engine, res, stats = _serve_continuous(args)
+    except NotImplementedError as e:    # the engine's refusal
+        raise SystemExit(f"{args.arch}: {e}") from None
+    _report(args, engine, res, stats)
+
+
+def _serve_continuous(args):
+    return serve(
         args.arch, full=args.full, rns=args.rns, requests=args.requests,
         prompt_lens=args.prompt_lens.split(","), new=args.new,
         page_size=args.page_size, max_seqs=args.max_seqs,
@@ -223,6 +236,9 @@ def main(argv=None):
         spec_decode=args.spec_decode, spec_k=args.spec_k,
         window_tokens=args.window_tokens, device=args.device,
         graphs=not args.eager)
+
+
+def _report(args, engine, res, stats):
     if args.per_layer_profiles:
         from collections import Counter
 
@@ -275,7 +291,8 @@ def _bucketed(args):
         per_layer_profiles=args.per_layer_profiles,
         window_tokens=args.window_tokens, device=args.device,
         graphs=not args.eager)
-    print(f"generated {out.shape} tokens in {stats['first']['wall_s']:.2f}s "
+    print(f"{args.arch}: generated {out.shape} tokens in "
+          f"{stats['first']['wall_s']:.2f}s "
           f"({stats['first']['tokens_per_s']:.1f} tok/s incl. build)")
     print(f"warm: {stats['warm']['tokens_per_s']:.1f} tok/s, "
           f"ttft={stats['ttft_s']:.3f}s")

@@ -173,7 +173,9 @@ def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None):
 
 
 class Attention(nn.Module):
-    """GQA projection weights: wq [d, H*D], wk/wv [d, Hk*D], wo [H*D, d]."""
+    """GQA projection weights: wq [d, H*D], wk/wv [d, Hk*D], wo [H*D, d],
+    and under ``cfg.qkv_bias`` the biases bq [H*D], bk/bv [Hk*D] (zero
+    at build, as JAX's ``init_gqa`` draws them)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -182,24 +184,39 @@ class Attention(nn.Module):
         self.wk = _param(torch.empty(d, Hk * D, device=device))
         self.wv = _param(torch.empty(d, Hk * D, device=device))
         self.wo = _param(torch.empty(H * D, d, device=device))
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = _param(torch.zeros(H * D, device=device))
+            self.bk = _param(torch.zeros(Hk * D, device=device))
+            self.bv = _param(torch.zeros(Hk * D, device=device))
 
 
-def _multi_proj(x, ws, rns):
+def _multi_proj(x, ws, rns, bs=None):
     """Several projections of ``x``; ONE shared forward conversion on the
-    RNS path."""
+    RNS path.  ``bs``: a bias (or None) each, added to its product after
+    the conversion, as JAX's ``_multi_proj`` does."""
     if rns is None:
-        return tuple(matmul_rows(x, w) for w in ws)
-    ys = rns_multi_dot(x.to(torch.float32),
-                       tuple(w.to(torch.float32) for w in ws), rns)
-    return tuple(y.to(x.dtype) for y in ys)
+        ys = tuple(matmul_rows(x, w) for w in ws)
+    else:
+        ys = tuple(y.to(x.dtype) for y in rns_multi_dot(
+            x.to(torch.float32), tuple(w.to(torch.float32) for w in ws),
+            rns))
+    if bs is None:
+        return ys
+    return tuple(y if b is None else y + b.to(y.dtype)
+                 for y, b in zip(ys, bs))
 
 
 def gqa_qkv(p: Attention, x, cfg, positions, rns=None):
+    """q [B, T, H, D], k, v [B, T, Hk, D]; q and k rotated when
+    ``cfg.pos_emb`` is rope (JAX's ``use_rope``)."""
     B, T, _ = x.shape
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = _multi_proj(x, (p.wq, p.wk, p.wv), rns)
-    q = rope(q.reshape(B, T, H, D), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, T, Hk, D), positions, cfg.rope_theta)
+    q, k, v = _multi_proj(x, (p.wq, p.wk, p.wv), rns, (p.bq, p.bk, p.bv))
+    q, k = q.reshape(B, T, H, D), k.reshape(B, T, Hk, D)
+    if cfg.pos_emb == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, T, Hk, D)
 
 

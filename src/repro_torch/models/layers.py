@@ -44,7 +44,8 @@ from repro_torch.core.tensor import (RnsTensor, rt_decode, rt_dot, rt_encode,
                                      rt_matmul_decode, rt_mul)
 
 __all__ = ["ROW_BLOCK", "matmul_rows", "bmm_rows", "tree_sum",
-           "init_normal_", "linear", "RMSNorm", "rmsnorm", "embed", "unembed", "act_fn",
+           "init_normal_", "linear", "RMSNorm", "rmsnorm", "LayerNorm",
+           "layernorm", "norm", "embed", "unembed", "act_fn",
            "MLP", "mlp", "mlp_rns_deferred", "mlp_rns_resident_perop"]
 
 
@@ -119,13 +120,14 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 def init_normal_(module: nn.Module, generator: torch.Generator,
                  skip=()) -> None:
-    """Draw every parameter of ``module`` from N(0, 1/d_in), ``d_in`` its
+    """Draw every matrix of ``module`` from N(0, 1/d_in), ``d_in`` its
     next-to-last dim (a weight [d_in, d_out], an expert stack [E, d_in,
-    d_out]) -- the JAX package's ``init_linear`` scale; norms' scales
-    (names ending in ``scale``) and the names in ``skip`` are left."""
+    d_out]) -- the JAX package's ``init_linear`` scale; vectors (norms'
+    scales and biases, projection biases: as built) and the names in
+    ``skip`` are left."""
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith("scale") or name in skip:
+            if p.ndim < 2 or name in skip:
                 continue
             p.normal_(0.0, 1.0 / math.sqrt(p.shape[-2]), generator=generator)
 
@@ -183,6 +185,37 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rmsnorm(self.scale, x)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm over the last dim with float32 statistics, the mean and
+    the variance each a :func:`tree_sum` (batch-invariant)."""
+    xf = x.to(torch.float32)
+    d = xf.shape[-1]
+    mu = (tree_sum(xf, -1) / d)[..., None]
+    var = (tree_sum(torch.square(xf - mu), -1) / d)[..., None]
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = _param(torch.ones(d, device=device))
+        self.bias = _param(torch.zeros(d, device=device))
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x)
+
+
+def norm(kind: str, d: int, device=None) -> nn.Module:
+    """The config's norm (``cfg.norm``): RMSNorm or LayerNorm."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, device)
+    if kind == "layernorm":
+        return LayerNorm(d, device)
+    raise ValueError(f"norm={kind!r}")
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

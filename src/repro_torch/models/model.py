@@ -1,6 +1,7 @@
-"""Public model API of the slice: init, the bucketed engine's prefill
-into a dense cache, ragged prefill, decode over a dense or a paged cache,
-the speculative-verify window and the packed mixed-phase step."""
+"""Public model API of the slice: init, parameter counts, the bucketed
+engine's prefill into a dense cache (with the recurrent layers' states),
+ragged prefill, decode over a dense or a paged cache, the
+speculative-verify window and the packed mixed-phase step."""
 
 from __future__ import annotations
 
@@ -11,42 +12,44 @@ from torch import nn
 
 from repro_torch.core.quantize import token_mask
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (RMSNorm, _param, embed, init_normal_,
-                                       linear, unembed)
+from repro_torch.models.layers import (_param, embed, init_normal_, linear,
+                                       norm, unembed)
 
-__all__ = ["Model", "init_model", "DenseKV", "make_cache", "plane_shapes",
-           "stack_planes", "set_cache_lengths", "prefill", "prefill_ragged",
-           "decode_step", "decode_window", "mixed_step"]
+__all__ = ["Model", "init_model", "count_params", "count_params_analytic",
+           "DenseKV", "make_cache", "plane_shapes", "stack_planes",
+           "set_cache_lengths", "prefill", "prefill_ragged", "decode_step",
+           "decode_window", "mixed_step"]
 
 #: the cache planes of each layer type, in the order its prefill returns
-#: them (``transformer.apply_blocks``)
-PLANES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope")}
+#: them (``transformer.apply_blocks``, nested tuples flattened)
+PLANES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"),
+          "mamba": ("h", "conv"), "rwkv": ("S", "x_tm", "x_cm")}
+#: the recurrent layers' planes: one state a row, no sequence axis
+STATE_PLANES = frozenset({"h", "conv", "S", "x_tm", "x_cm"})
 
 
 def _check_supported(cfg):
-    """The port has the causal, rmsnorm, decoder-only model with GQA or
-    MLA attention, dense or MoE MLPs, tied or untied head (smollm-135m,
-    deepseek-v2-236b, llama4-scout-17b-a16e); the rest are later
-    slices."""
+    """The port has the causal decoder-only model: GQA (rope or no
+    positions, optional q/k/v bias) or MLA attention, Mamba or RWKV-6
+    layers, dense, MoE or channel-mix MLPs, rmsnorm or layernorm, tied or
+    untied head.  Encoder-decoder models, modality frontends, non-causal
+    attention and sinusoidal positions come with slice 3d."""
     later = []
-    if cfg.norm != "rmsnorm":
-        later.append(f"norm={cfg.norm!r}")
     if not cfg.causal:
         later.append("non-causal attention")
     if cfg.enc_dec:
         later.append("enc_dec")
     if cfg.frontend is not None:
         later.append(f"frontend={cfg.frontend!r}")
-    bad = sorted(set(cfg.layer_types) - set(PLANES))
-    if bad:
-        later.append(f"layer types {bad} (SSM / hybrid)")
-    bad = sorted(set(cfg.mlp_types) - {"dense", "moe"})
-    if bad:
-        later.append(f"MLP types {bad}")
+    if cfg.pos_emb == "sinusoidal":
+        later.append("pos_emb='sinusoidal'")
     if later:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(later)} come with later slices of "
-            "the port (ROADMAP A)")
+            f"{cfg.arch_id}: {', '.join(later)} come with slice 3d of the "
+            "port (ROADMAP A)")
+    bad = sorted(set(cfg.mlp_types) - {"dense", "moe", "channelmix"})
+    if bad:
+        raise ValueError(f"{cfg.arch_id}: unknown MLP types {bad}")
 
 
 class Model(nn.Module):
@@ -61,7 +64,7 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(
             tf.Block(cfg, lt, mt, device)
             for lt, mt in zip(cfg.layer_types, cfg.mlp_types))
-        self.final_norm = RMSNorm(cfg.d_model, device)
+        self.final_norm = norm(cfg.norm, cfg.d_model, device)
         self.lm_head = (None if cfg.tie_embeddings else
                         _param(torch.empty(cfg.d_model, cfg.vocab,
                                            device=device)))
@@ -70,15 +73,47 @@ class Model(nn.Module):
 def init_model(cfg, seed: int = 0, device="cuda") -> Model:
     """Random weights from ``seed`` with the JAX package's scales:
     embedding N(0, 0.02), projections and expert stacks N(0, 1/d_in),
-    norms one.  The generator lives on ``device`` (on the card, the full
-    model is drawn there); the same seed on another device gives other
-    numbers."""
+    norms one (and zero), biases zero; a Mamba or RWKV-6 layer draws its
+    own (``init_``: conv taps, decays, mixes, ...).  The generator lives
+    on ``device`` (on the card, the full model is drawn there); the same
+    seed on another device gives other numbers."""
     model = Model(cfg, device)
     g = torch.Generator(device=device).manual_seed(seed)
+    own = [(name, m) for name, m in model.named_modules()
+           if hasattr(m, "init_")]
+    skip = {"embed"} | {f"{name}.{p}" for name, m in own
+                        for p, _ in m.named_parameters()}
     with torch.no_grad():
         model.embed.normal_(0.0, 0.02, generator=g)     # drawn first
-    init_normal_(model, g, skip=("embed",))
+    init_normal_(model, g, skip=skip)
+    for _, m in own:
+        m.init_(g)
     return model
+
+
+def count_params(cfg) -> tuple[int, int]:
+    """(total, active) parameter counts, as JAX's ``count_params``: the
+    model is built on the ``meta`` device (no memory), and a parameter
+    counts as routed when its path has ``moe`` and ``wi``/``wg``/``wo``
+    (the shared experts too, as in JAX); active keeps ``top_k /
+    n_experts`` of the routed ones."""
+    model = Model(cfg, device="meta")
+    total = routed = 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        keys = name.split(".")
+        if "moe" in keys and any(k in ("wi", "wg", "wo") for k in keys):
+            routed += p.numel()
+    active = total
+    if cfg.moe is not None and routed:
+        frac = cfg.moe.top_k / cfg.moe.n_experts
+        active = total - routed + int(routed * frac)
+    return total, active
+
+
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    total, active = count_params(cfg)
+    return active if active_only else total
 
 
 def _logits(model: Model, h):
@@ -92,24 +127,47 @@ def _logits(model: Model, h):
 class DenseKV:
     """The bucketed engine's decode cache: the GQA layers' K/V ``[n_attn,
     B, S_max, Hk, D]``, the MLA layers' latents ``c_kv`` [n_mla, B,
-    S_max, r] and ``k_rope`` [n_mla, B, S_max, dr] (None where the model
-    has no such layer) and the rows' ``lengths`` [B]."""
+    S_max, r] and ``k_rope`` [n_mla, B, S_max, dr], the Mamba layers'
+    states ``h`` [n_mamba, B, d_in, N] and ``conv`` [n_mamba, B, K-1,
+    d_in], the RWKV layers' ``S`` [n_rwkv, B, H, D, D] and previous
+    tokens ``x_tm``, ``x_cm`` [n_rwkv, B, 1, d] (None where the model has
+    no such layer), the rows' ``lengths`` [B] and ``dtype``, the cache
+    dtype the K/V and latent planes are held in.
+
+    The state planes are float32.  ``conv``, ``x_tm`` and ``x_cm`` hold
+    the prefill's values rounded to ``dtype`` and a decode step's in
+    float32: JAX writes them to the cache at its dtype, and its decode
+    step's concatenate with the float32 activations promotes them, so
+    from the first step on they are float32 there too."""
 
     k: torch.Tensor | None
     v: torch.Tensor | None
     lengths: torch.Tensor       # [B] int64
     c_kv: torch.Tensor | None = None
     k_rope: torch.Tensor | None = None
+    h: torch.Tensor | None = None
+    conv: torch.Tensor | None = None
+    S: torch.Tensor | None = None
+    x_tm: torch.Tensor | None = None
+    x_cm: torch.Tensor | None = None
+    dtype: torch.dtype = torch.float32
 
 
 def plane_shapes(cfg) -> dict[str, tuple[int, tuple[int, ...]]]:
     """{plane name: (layers of its type, one token's shape)} for the
-    layer types ``cfg`` has (JAX's ``_layer_cache_shape``)."""
+    layer types ``cfg`` has (JAX's ``_layer_cache_shape``); a state
+    plane's (``STATE_PLANES``) shape is one row's."""
     feat = {"k": (cfg.n_kv_heads, cfg.d_head),
             "v": (cfg.n_kv_heads, cfg.d_head)}
     if cfg.mla is not None:
         feat["c_kv"] = (cfg.mla.kv_lora_rank,)
         feat["k_rope"] = (cfg.mla.qk_rope_dim,)
+    if cfg.ssm is not None:
+        d_in, D = cfg.ssm.expand * cfg.d_model, cfg.ssm.head_dim
+        feat.update(h=(d_in, cfg.ssm.d_state),
+                    conv=(cfg.ssm.d_conv - 1, d_in),
+                    S=(cfg.d_model // D, D, D), x_tm=(1, cfg.d_model),
+                    x_cm=(1, cfg.d_model))
     out = {}
     for lt, names in PLANES.items():
         n = cfg.layer_types.count(lt)
@@ -118,27 +176,39 @@ def plane_shapes(cfg) -> dict[str, tuple[int, tuple[int, ...]]]:
     return out
 
 
+def _flat(y) -> tuple:
+    """A layer's prefill planes as a flat tuple (RWKV's ((S, x_tm),
+    x_cm) nesting undone)."""
+    if not isinstance(y, tuple):
+        return (y,)
+    return tuple(t for part in y for t in _flat(part))
+
+
 def stack_planes(cfg, ys) -> dict[str, torch.Tensor]:
     """Prefill's per-layer planes (``apply_blocks``' ``ys``) stacked per
-    name: {"k": [n_attn, B, T, Hk, D], "c_kv": [n_mla, B, T, r], ...}."""
+    name: {"k": [n_attn, B, T, Hk, D], "c_kv": [n_mla, B, T, r], "h":
+    [n_mamba, B, d_in, N], ...}."""
     out = {}
     for lt, names in PLANES.items():
         idx = [i for i, t in enumerate(cfg.layer_types) if t == lt]
         for j, name in enumerate(names if idx else ()):
-            out[name] = torch.stack([ys[i][j] for i in idx])
+            out[name] = torch.stack([_flat(ys[i])[j] for i in idx])
     return out
 
 
 def make_cache(cfg, B: int, S_max: int, *, dtype=torch.float32,
                device="cuda") -> DenseKV:
     """Zero dense decode cache, lengths 0: the planes of every layer
-    type the model has."""
-    planes = {name: torch.zeros((n, B, S_max) + feat, dtype=dtype,
-                                device=device)
-              for name, (n, feat) in plane_shapes(cfg).items()}
+    type the model has (state planes in float32)."""
+    planes = {}
+    for name, (n, feat) in plane_shapes(cfg).items():
+        state = name in STATE_PLANES
+        planes[name] = torch.zeros(
+            (n, B) + (() if state else (S_max,)) + feat,
+            dtype=torch.float32 if state else dtype, device=device)
     return DenseKV(k=planes.pop("k", None), v=planes.pop("v", None),
                    lengths=torch.zeros((B,), dtype=torch.int64,
-                                       device=device), **planes)
+                                       device=device), dtype=dtype, **planes)
 
 
 def set_cache_lengths(cache, lengths):
@@ -174,7 +244,12 @@ def prefill(model: Model, cfg, tokens: torch.Tensor, S_max: int, *,
                            device=tokens.device)
     for name, planes in stack_planes(cfg, ys).items():
         dst = getattr(cache, name)
-        dst[:, :, :T] = planes.to(dst.dtype)
+        if name in ("h", "S"):
+            dst.copy_(planes)
+        elif name in STATE_PLANES:
+            dst.copy_(planes.to(cache.dtype))
+        else:
+            dst[:, :, :T] = planes.to(dst.dtype)
     cache.lengths.fill_(T)
     return logits, cache
 
@@ -184,7 +259,8 @@ def prefill_ragged(model: Model, cfg, tokens: torch.Tensor,
                    lengths: torch.Tensor):
     """Mixed-length prefill: tokens [B, Tpad] right-padded, per-row
     ``lengths`` [B].  Returns (logits at each row's last prompt token
-    [B, V], per-layer (k, v) planes [B, Tpad, Hk, D]).
+    [B, V], per-layer (k, v) planes [B, Tpad, Hk, D]).  Attention layers
+    only: a recurrent layer's state would run on through the padding.
 
     On the RNS path every prompt token quantizes on its own (row, token)
     absmax grid (a per-token :class:`token_mask`), invariant to padding.
@@ -201,8 +277,9 @@ def prefill_ragged(model: Model, cfg, tokens: torch.Tensor,
 @torch.inference_mode()
 def decode_step(model: Model, cfg, token: torch.Tensor, cache, active=None):
     """token [B, 1] -> logits [B, V]; writes the token's KV into ``cache``
-    (paged, or the bucketed engine's :class:`DenseKV`) and advances the
-    lengths of ``active`` rows, in place.
+    (paged, or the bucketed engine's :class:`DenseKV`), and the recurrent
+    layers' new states into a dense cache's state planes, and advances
+    the lengths of ``active`` rows, in place.
 
     On the RNS path ``active`` is the per-row quantization mask, so each
     row's grid is its own (a batched step is bit-identical per row to a

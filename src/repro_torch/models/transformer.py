@@ -1,7 +1,8 @@
 """The decoder stack: a Python loop over layers (the JAX package scans over
 stacked periods; eager PyTorch needs no scan).  A layer is GQA or MLA
-attention followed by a dense or a MoE MLP, as its config's
-``layer_types`` / ``mlp_types`` say."""
+attention, a Mamba layer or an RWKV-6 time-mix, followed by a dense or a
+MoE MLP or (RWKV) the channel-mix, as its config's ``layer_types`` /
+``mlp_types`` say."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import MLP, RMSNorm, mlp
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import MLP, mlp, norm
 
 __all__ = ["Block", "layer_slots", "apply_blocks"]
 
@@ -23,21 +25,34 @@ def _rns_for(cfg, target: str):
 
 
 class Block(nn.Module):
-    """One attention + MLP layer (pre-norm, residual): ``attn`` an
-    :class:`~repro_torch.models.attention.Attention` (GQA) or an
-    :class:`~repro_torch.models.attention.MLA`; ``mlp`` an :class:`MLP`,
-    or ``moe`` a :class:`~repro_torch.models.moe.MoE`."""
+    """One layer (pre-norm, residual), with JAX's parameter names: ``ln1``
+    and the mixer -- ``attn`` an :class:`~repro_torch.models.attention.
+    Attention` (GQA) or :class:`~repro_torch.models.attention.MLA`,
+    ``mamba`` a :class:`~repro_torch.models.ssm.Mamba` or ``rwkv`` an
+    :class:`~repro_torch.models.ssm.RWKV6` --; then ``ln2`` and ``mlp``
+    an :class:`MLP` or ``moe`` a :class:`~repro_torch.models.moe.MoE`.
+    An RWKV layer has no ``ln2``: its channel-mix lives in ``rwkv`` with
+    its own norm ``rwkv.ln_cm``.  Norms follow ``cfg.norm``."""
 
     def __init__(self, cfg, layer_type: str = "attn",
                  mlp_type: str = "dense", device=None):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, device)
-        self.attn = (attn.MLA(cfg, device) if layer_type == "mla"
-                     else attn.Attention(cfg, device))
-        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.ln1 = norm(cfg.norm, cfg.d_model, device)
+        if layer_type == "mla":
+            self.attn = attn.MLA(cfg, device)
+        elif layer_type == "attn":
+            self.attn = attn.Attention(cfg, device)
+        elif layer_type == "mamba":
+            self.mamba = ssm_lib.Mamba(cfg.d_model, cfg.ssm, device)
+        elif layer_type == "rwkv":
+            self.rwkv = ssm_lib.RWKV6(cfg.d_model, cfg.ssm, cfg.d_ff, device)
+        else:
+            raise ValueError(layer_type)
+        if mlp_type in ("dense", "moe"):
+            self.ln2 = norm(cfg.norm, cfg.d_model, device)
         if mlp_type == "moe":
             self.moe = moe_lib.MoE(cfg.d_model, cfg.moe, device)
-        else:
+        elif mlp_type == "dense":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, device)
 
 
@@ -81,29 +96,83 @@ def _attend(blk: Block, hn, cfg, *, mode: str, cache, slot: int, packed,
     return y, None
 
 
+def _dense_state(cache, name: str):
+    """The bucketed engine's state plane ``name`` [n, B, ...] of a
+    :class:`~repro_torch.models.model.DenseKV`; a paged cache has none
+    (the continuous engine refuses recurrent layers)."""
+    if hasattr(cache, "block_table"):
+        raise NotImplementedError("recurrent layers decode over the "
+                                  "bucketed engine's dense cache only")
+    return getattr(cache, name)
+
+
+def _mix(blk: Block, hn, cfg, *, mode: str, cache, slot: int, packed, rns_a,
+         rns_m):
+    """The layer's mixer: (y, prefill cache planes or None).  A decode
+    step of a recurrent layer reads its state planes and writes the new
+    state back in place; its prefill returns the state in JAX's order:
+    ``(h_last, conv_tail)``, ``(S, x_tm)`` (the channel-mix's ``x_cm``
+    joins it in :func:`_apply_layer`)."""
+    if hasattr(blk, "attn"):
+        return _attend(blk, hn, cfg, mode=mode, cache=cache, slot=slot,
+                       packed=packed, rns=rns_a)
+    decode = mode == "decode"
+    if hasattr(blk, "mamba"):
+        names = ("h", "conv")
+        state = tuple(_dense_state(cache, n)[slot] for n in names) \
+            if decode else (None, None)
+        y, new = ssm_lib.mamba_seq(blk.mamba, hn, cfg.ssm, rns=rns_m,
+                                   h0=state[0], conv0=state[1])
+    else:
+        names = ("S", "x_tm")
+        state = tuple(_dense_state(cache, n)[slot] for n in names) \
+            if decode else None
+        y, new = ssm_lib.rwkv6_timemix(blk.rwkv, hn, cfg.ssm, rns=rns_m,
+                                       state=state)
+    if not decode:
+        return y, new
+    for name, t in zip(names, new):
+        getattr(cache, name)[slot].copy_(t)
+    return y, None
+
+
 def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
                  packed=None):
     """Returns (h, prefill cache planes or None); a MoE block's aux loss
     (a training term) is dropped."""
     rns_a, rns_m = _rns_for(cfg, "attn"), _rns_for(cfg, "mlp")
-    y, planes = _attend(blk, blk.ln1(h), cfg, mode=mode, cache=cache,
-                        slot=slot, packed=packed, rns=rns_a)
+    y, planes = _mix(blk, blk.ln1(h), cfg, mode=mode, cache=cache,
+                     slot=slot, packed=packed, rns_a=rns_a, rns_m=rns_m)
     h = h + y
-    hn = blk.ln2(h)
     if hasattr(blk, "moe"):
-        y, _aux = moe_lib.moe_ffn(blk.moe, hn, cfg.moe, act=cfg.act,
+        y, _aux = moe_lib.moe_ffn(blk.moe, blk.ln2(h), cfg.moe, act=cfg.act,
                                   rns=rns_m)
+    elif hasattr(blk, "mlp"):
+        y = mlp(blk.mlp, blk.ln2(h), gated=cfg.gated_mlp, act=cfg.act,
+                rns=rns_m)
+    elif hasattr(blk, "rwkv"):                  # channel-mix
+        state = (_dense_state(cache, "x_cm")[slot] if mode == "decode"
+                 else None)
+        y, x_cm = ssm_lib.rwkv6_channelmix(blk.rwkv, blk.rwkv.ln_cm(h),
+                                           rns=rns_m, state=state)
+        if mode == "decode":
+            cache.x_cm[slot].copy_(x_cm)
+        else:
+            planes = (planes, x_cm)
     else:
-        y = mlp(blk.mlp, hn, gated=cfg.gated_mlp, act=cfg.act, rns=rns_m)
+        return h, planes
     return h + y, planes
 
 
 def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None):
     """Run every layer.  ``mode``: "prefill" (returns each layer's cache
-    planes: (k, v) of a GQA layer, (c_kv, k_rope) of an MLA layer) or
+    planes: (k, v) of a GQA layer, (c_kv, k_rope) of an MLA layer,
+    (h_last, conv_tail) of a Mamba layer, ((S, x_tm), x_cm) of an RWKV
+    layer) or
     "decode" (against ``cache``, in place: a paged cache, [R, W] tokens
     with W > 1 being a speculative-verify window, or the bucketed
-    engine's dense cache, one token a row).  ``packed`` (decode mode): a
+    engine's dense cache, one token a row, which also holds the
+    recurrent layers' states).  ``packed`` (decode mode): a
     ``(seg, pos, dec)`` triple of [N] tensors giving every token of the
     [1, N, d] stream its own row, absolute position and phase -- the
     mixed chunked-prefill/decode layout."""

@@ -50,9 +50,12 @@ Each step reports the RNS primitive calls of its phases (``rns_ops``),
 as the JAX engine does: the decode (or verify) program's tallies plus
 the prefill program's once per admitted prompt, or the mixed program's
 every step when chunked, each taken once when the program is built.  The port
-tallies every call of every layer, so for smollm-135m that is
-``n_layers`` times what the JAX engine reports, whose trace-time tally
-sees its layer ``scan`` body once (ROADMAP C.3).
+tallies every call of every layer, so that is the number of periods
+(``n_layers // period``; ``n_layers`` for smollm-135m) times what the
+JAX engine reports, whose trace-time tally sees its layer ``scan`` body
+-- one period -- once (ROADMAP C.3).  The continuous engine pages
+attention caches only and refuses the recurrent (RWKV-6, Mamba) layers
+with the JAX engine's message; the bucketed engine serves them.
 
 ``ServeConfig(rns_backend="cuda_fused", rns_defer=True,
 resident_weights=True)`` serves the fused path: MLP weights encoded once
@@ -284,8 +287,13 @@ class Engine(_Programs):
     the card, eager with ``graphs=False`` or on the CPU.  Each decode
     row quantizes on its own grid (the step's ``active`` mask is all
     ones), so a row's tokens do not depend on its batch (ROADMAP C.11).
-    Frontend and encoder-decoder prompts, digit sharding and the
-    exactness audit are later slices of the port."""
+    It serves every decoder-only model of the port, the recurrent
+    (RWKV-6, Mamba) layers too: their states live in the dense cache's
+    state planes, which the prefill writes and each decode step updates
+    in place (a row frozen at eos goes on updating its state with its
+    frozen token, as in JAX).  Frontend and encoder-decoder prompts,
+    digit sharding and the exactness audit are later slices of the
+    port."""
 
     def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda",
                  graphs: bool = True):
@@ -350,7 +358,9 @@ class Engine(_Programs):
     def rns_op_counts(self, B: int = 1, T: int = 8) -> dispatch.OpCounts:
         """RNS primitive calls of one [B, T] prefill: the (B, T) prefill
         program's tally, taken when it is built.  The port tallies every
-        layer's calls: ``n_layers`` times the JAX engine's (ROADMAP C.3)."""
+        layer's calls, the JAX engine one traced period of its layer scan:
+        the port's count is JAX's times the periods (``n_layers //
+        period``; ROADMAP C.3)."""
         name, _ = self._bucket(B, T, decode=False)
         return self.programs[name].ops
 

@@ -344,12 +344,13 @@ def make_paged_cache(cfg, pcfg: PagedCacheConfig, *, device="cuda",
     has (JAX's ``_layer_pages``), its pages in ``dtype``
     (``ServeConfig.cache_dtype``; writes round to it, reads upcast
     exactly to float32)."""
-    from repro_torch.models.model import plane_shapes
+    from repro_torch.models.model import STATE_PLANES, plane_shapes
 
     pools = {POOLS[name]: torch.zeros(
                  (n, pcfg.n_pages, pcfg.page_size) + feat, dtype=dtype,
                  device=device)
-             for name, (n, feat) in plane_shapes(cfg).items()}
+             for name, (n, feat) in plane_shapes(cfg).items()
+             if name not in STATE_PLANES}
     return PagedKV(
         k_pages=pools.pop("k_pages", None),
         v_pages=pools.pop("v_pages", None),

@@ -293,18 +293,17 @@ def test_engines_match_jax(twins, jax_serves, arch, path):
 
 
 def test_untied_head_and_unported_families_refused(twins):
-    """The untied head is a float ``lm_head`` [d, V]; families still to
-    port are named when a model is built."""
+    """The untied head is a float ``lm_head`` [d, V]; what is still to
+    port (slice 3d) is named when a model is built."""
     _, _, cfg, model = twins["deepseek-v2-236b"]
     assert model.lm_head.shape == (cfg.d_model, cfg.vocab)
-    for over, word in ((dict(norm="layernorm"), "norm"),
-                       (dict(causal=False), "causal"),
-                       (dict(layer_types=("mamba",) * 4), "mamba"),
-                       (dict(mlp_types=("channelmix",) * 4), "channelmix"),
+    for over, word in ((dict(causal=False), "causal"),
                        (dict(enc_dec=True), "enc_dec"),
-                       (dict(frontend="vision"), "frontend")):
-        with pytest.raises(NotImplementedError, match=word):
+                       (dict(frontend="vision"), "frontend"),
+                       (dict(pos_emb="sinusoidal"), "sinusoidal")):
+        with pytest.raises(NotImplementedError, match=word) as e:
             M.Model(dataclasses.replace(cfg, **over), device="cpu")
+        assert "slice 3d" in str(e.value)
 
 
 # ------------------------------------------------------------ on the card --
