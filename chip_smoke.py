@@ -186,16 +186,29 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 chunked tokens equal its whole-prompt ones, Scout's
                 bucketed tokens its ContinuousEngine's; each model's
                 peak memory;
-  [serve_ssm]   rwkv6-7b at full width and depth 32 and jamba-v0.1-52b at
+  [serve_ssm]   rwkv6-7b at full width and depth 16 and jamba-v0.1-52b at
                 full width, depth 8 (one period), capacity 8, through the
                 bucketed Engine on 8 x 33 prompts, 16 new tokens: float,
                 per-op rns9 and (Jamba) fused resident, checked as in
                 [serve_archs]; rows 0 and 5 served alone give the
                 batch's tokens and bit-equal final state planes; the
                 ContinuousEngine refuses both with the JAX engine's
-                message.  These two run last, after [kernels] has freed
+                message.  These two run after [kernels] has freed
                 the other serves' recorded inputs: Jamba's 49.5 GiB of
                 weights is the largest model the port holds.
+  [serve_encdec] whisper-medium (24 encoder + 24 decoder layers over
+                1500 frames, cross-attention, sinusoidal positions) and
+                paligemma-3b (18 layers behind 256 patch embeddings) at
+                full width and depth, random weights from seed 0,
+                through the bucketed Engine on 8 x 33 prompts with their
+                frontend frames (N(0, 1), drawn after the prompts from
+                the seed-0 generator): whisper float, per-op rns9 and
+                fused resident, paligemma per-op, ``rns_targets="all"``
+                and fused resident, checked as in [serve_archs] (the new
+                B.1-B.6 inputs -- the encoder's 8 x 1500 rows, the 8 x
+                289 prefix rows, d_ff 16384 -- bit for bit); rows 0 and
+                5 alone give the batch's tokens; the ContinuousEngine
+                refuses both with the JAX engine's message.
 
 Then it prints the card's name and power limit, the peak device memory,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -367,9 +380,20 @@ LOGIT_TOL = 0.05
 def _time_ms(torch, fn, iters: int) -> float:
     """Device time of one call of ``fn``: ``iters`` calls captured in a
     CUDA graph and replayed between CUDA events, so that the host's
-    launch overhead (Python, ctypes) stays out of the number."""
-    for _ in range(3):              # warm: build, table caches, allocator
+    launch overhead (Python, ctypes) stays out of the number.  A call
+    slower than 1 ms / ``iters`` is captured as many times as take about
+    1 ms (once at least): the largest main-path inputs (whisper's 8 x
+    1500 encoder rows) would otherwise take seconds a timing."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):              # warm: build, table caches, allocator
         fn()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = max(1, min(iters, int(1.0 / max(start.elapsed_time(end),
+                                            1e-3))))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -380,8 +404,6 @@ def _time_ms(torch, fn, iters: int) -> float:
         for _ in range(iters):
             fn()
     graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     reps = 5
     start.record()
     for _ in range(reps):
@@ -1547,15 +1569,17 @@ def _mla_bucketed(torch, model, cfg, launches, calls):
 
 # [serve_archs] and [serve_ssm]: the dense archs with the q/k/v bias,
 # Llama-4-Scout, RWKV-6 and Jamba at their published widths
-# (configs/all_archs.py).  Depth: tinyllama 22 of 22, granite 40 of 40,
-# rwkv6 32 of 32 (4.1, 31.2, 28.1 GiB of float32 weights); qwen2.5-32b 8
-# of 64 (20.3 GiB; whole 122.1), Scout 2 of 48 (24.1 GiB), Jamba 8 of 32
-# (one period: 7 mamba + 1 attention layer, 4 MoE; 49.5 GiB).
+# (configs/all_archs.py).  Depth: tinyllama 22 of 22, granite 40 of 40
+# (4.1, 31.2 GiB of float32 weights); rwkv6 16 of 32 (14.1 GiB; whole
+# 28.1, cut to keep the run's time within its limit once
+# [serve_encdec] came); qwen2.5-32b 8 of 64 (20.3 GiB; whole 122.1),
+# Scout 2 of 48 (24.1 GiB), Jamba 8 of 32 (one period: 7 mamba + 1
+# attention layer, 4 MoE; 49.5 GiB).
 # label -> (arch, depth (None: all), rns_targets (None: float), engine,
 # ServeConfig overrides).  An arch's cells share one model, drawn once,
 # the fused cell last (it encodes the dense MLPs resident in place).
 ARCH_DEPTH = {"qwen2.5-32b": 8, "llama4-scout-17b-a16e": 2,
-              "jamba-v0.1-52b": 8}
+              "jamba-v0.1-52b": 8, "rwkv6-7b": 16}
 # >= E / k: dropless, so chunked and bucketed tokens can equal
 # whole-prompt ones (the published 1.25 drops tokens a prompt's chunks
 # keep)
@@ -1587,6 +1611,20 @@ SSM_CELLS = {
 }
 # rows of the 8 x 33 batch served again alone (batch invariance)
 SOLO_ROWS = (0, 5)
+# whisper-medium (24 + 24 layers over 1500 frames) and paligemma-3b (18
+# layers behind 256 patch embeddings) at full width and depth, through
+# the bucketed Engine on 8 x 33 prompts with their frames (seed 0); the
+# fused cell of an arch last (it encodes the MLPs resident in place)
+ENCDEC_CELLS = {
+    "serve_encdec_whisper_float": ("whisper-medium", None, "bucketed", {}),
+    "serve_encdec_whisper": ("whisper-medium", "mlp", "bucketed", {}),
+    "serve_encdec_whisper_fused": ("whisper-medium", "mlp", "bucketed",
+                                   FUSED_SERVE),
+    "serve_encdec_paligemma": ("paligemma-3b", "mlp", "bucketed", {}),
+    "serve_encdec_paligemma_all": ("paligemma-3b", "all", "bucketed", {}),
+    "serve_encdec_paligemma_fused": ("paligemma-3b", "mlp", "bucketed",
+                                     FUSED_SERVE),
+}
 
 
 def _arch_model(arch: str):
@@ -1731,13 +1769,14 @@ def _continuous_cell(torch, model, label, kw, launches, record, seen):
 
 def _bucketed_cell(torch, model, label, kw, launches, record, seen, *,
                    solo=()):
-    """The bucketed Engine on BUCKETED_SERVE's 8 x 33 prompts, eager
-    (recorded and checked as in :func:`_continuous_cell`) then captured
-    (``prefill(8,33)=1 decode(8)=1``, the eager tokens, a replayed decode
-    step's kernel nodes the eager step's launches); the rows ``solo``
-    served alone (B = 1) on the captured engine: their tokens and final
-    state planes bit-equal to the batch's.  Returns (numbers, tokens,
-    prompts)."""
+    """The bucketed Engine on BUCKETED_SERVE's 8 x 33 prompts (with a
+    model's frontend frames), eager (recorded and checked as in
+    :func:`_continuous_cell`) then captured (``prefill(8,33)=1
+    decode(8)=1``, the eager tokens, a replayed decode step's kernel
+    nodes the eager step's launches), each one generate after its
+    programs are built; the rows ``solo`` served alone (B = 1) on the
+    captured engine: their tokens and final state planes bit-equal to
+    the batch's.  Returns (numbers, tokens, prompts)."""
     import gc
 
     import numpy as np
@@ -1745,11 +1784,21 @@ def _bucketed_cell(torch, model, label, kw, launches, record, seen, *,
     from repro_torch.models.model import STATE_PLANES
     from repro_torch.serve.engine import Engine, ServeConfig
 
+    from repro_torch.data.pipeline import make_frontend_stub
+
     B, T, new = (BUCKETED_SERVE[k] for k in ("batch", "prompt_len", "new"))
-    prompts = np.random.default_rng(0).integers(
-        0, model.cfg.vocab, (B, T)).astype(np.int32)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    # a frontend's frames: drawn after the prompts from the same
+    # generator, as the CLI draws them; a prefix model's rows hold them
+    frames, F = None, 0
+    if cfg.frontend is not None:
+        frames = make_frontend_stub(rng, B, cfg.n_frontend_tokens,
+                                    cfg.d_model)
+        F = 0 if cfg.enc_dec else cfg.n_frontend_tokens
     names = (f"prefill({B},{T})", f"decode({B})")
-    rns = model.cfg.rns is not None
+    rns = cfg.rns is not None
     numbers, toks, step_lc = {}, {}, None
     for graphs in (False, True):
         mode = "captured" if graphs else "eager"
@@ -1763,12 +1812,14 @@ def _bucketed_cell(torch, model, label, kw, launches, record, seen, *,
                 stack.enter_context(_recording(torch, path_calls, None,
                                                in_step))
             stack.enter_context(_engine_runs(log, in_step))
-            engine = Engine(model, ServeConfig(max_cache=T + new + 8,
+            engine = Engine(model, ServeConfig(max_cache=F + T + new + 8,
                                                max_new_tokens=new, **kw),
                             device="cuda", graphs=graphs)
-            toks[mode] = engine.generate(prompts).tolist()
+            # the programs built (warmed; captured) first, so one warm
+            # generate gives both the tokens and the numbers
+            engine._bucket(B, T)
             t_gen = time.perf_counter()
-            engine.generate(prompts)
+            toks[mode] = engine.generate(prompts, frontend=frames).tolist()
             torch.cuda.synchronize()
             warm = time.perf_counter() - t_gen
         caps = engine.captures()
@@ -1798,7 +1849,9 @@ def _bucketed_cell(torch, model, label, kw, launches, record, seen, *,
                          for n in STATE_PLANES
                          if getattr(engine._caches[B], n) is not None}
                 for b in solo:
-                    one = engine.generate(prompts[b:b + 1]).tolist()[0]
+                    one = engine.generate(
+                        prompts[b:b + 1], frontend=None if frames is None
+                        else frames[b:b + 1]).tolist()[0]
                     if one != toks[mode][b]:
                         raise AssertionError(f"{label}: row {b} alone gave "
                                              "other tokens than in the "
@@ -1922,7 +1975,7 @@ def phase_serve_archs(torch, launches, record):
 
 
 def phase_serve_ssm(torch, launches, record):
-    """rwkv6-7b (depth 32) and jamba-v0.1-52b (depth 8, dropless) at their
+    """rwkv6-7b (depth 16) and jamba-v0.1-52b (depth 8, dropless) at their
     published widths through the bucketed Engine (SSM_CELLS: float,
     per-op rns9, and fused for Jamba), eager then captured; rows
     SOLO_ROWS of the 8 x 33 batch served alone give the same tokens and
@@ -1946,6 +1999,36 @@ def phase_serve_ssm(torch, launches, record):
         else:
             raise AssertionError(f"{arch}: ContinuousEngine did not refuse")
     out, _ = _serve_cells(torch, SSM_CELLS, launches, record,
+                          solo=SOLO_ROWS)
+    return out
+
+
+def phase_serve_encdec(torch, launches, record):
+    """whisper-medium and paligemma-3b at their published widths and
+    depths through the bucketed Engine (ENCDEC_CELLS: whisper float,
+    per-op rns9 and fused; paligemma per-op, ``rns_targets="all"`` and
+    fused), each prompt with its frontend's frames, eager then captured
+    (the same tokens and rns_ops, one capture a program, a replayed
+    decode step's kernel nodes the eager step's launches, every distinct
+    kernel input checked against its plain version while the model is on
+    the card); rows SOLO_ROWS served alone give the batch's tokens;
+    ContinuousEngine refuses both archs with the JAX engine's message."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+
+    want = "continuous batching is decoder-only (no enc-dec / frontend)"
+    for arch in ("whisper-medium", "paligemma-3b"):
+        try:
+            ContinuousEngine(Model(get_config(arch), device="meta"),
+                             ServeConfig(), device="meta")
+        except NotImplementedError as e:
+            if str(e) != want:
+                raise
+            print(f"  {arch}: ContinuousEngine refuses: {e}")
+        else:
+            raise AssertionError(f"{arch}: ContinuousEngine did not refuse")
+    out, _ = _serve_cells(torch, ENCDEC_CELLS, launches, record,
                           solo=SOLO_ROWS)
     return out
 
@@ -3294,7 +3377,9 @@ def main() -> int:
                                                     launches)),
             ("serve_archs", lambda: phase_serve_archs(torch, launches,
                                                       record)),
-            ("serve_ssm", lambda: phase_serve_ssm(torch, launches, record))]:
+            ("serve_ssm", lambda: phase_serve_ssm(torch, launches, record)),
+            ("serve_encdec", lambda: phase_serve_encdec(torch, launches,
+                                                        record))]:
         if only is not None and name not in only:
             continue
         print(f"[{name}]", flush=True)

@@ -6,9 +6,11 @@ The dense GQA models ``smollm-135m`` (tied embedding), ``tinyllama-1.1b``,
 ``llama4-scout-17b-a16e`` (GQA, MoE with a shared expert); the
 attention-free ``rwkv6-7b`` (RWKV-6 time-mix and channel-mix, layernorm)
 and the hybrid ``jamba-v0.1-52b`` (Mamba layers with one GQA layer a
-period of 8, MoE every other layer, no positions).  The encoder-decoder
-and frontend architectures of ``repro.configs.all_archs`` come with a
-later slice of the port.
+period of 8, MoE every other layer, no positions); the encoder-decoder
+``whisper-medium`` (24 + 24 layers over 1500 precomputed audio frames,
+sinusoidal positions, layernorm, a plain gelu MLP, a bias on q/k/v) and
+``paligemma-3b`` (a gemma decoder behind 256 precomputed patch
+embeddings, one KV head, scaled embeddings, tied head).
 """
 
 from __future__ import annotations
@@ -50,6 +52,26 @@ def granite_3_8b() -> ModelConfig:
     # [hf:ibm-granite/granite-3.0 family]
     return _llama_like("granite-3-8b", 40, 4096, 32, 8, 12800, 49155,
                        d_head=128, rope_theta=10_000_000.0)
+
+
+def whisper_medium() -> ModelConfig:
+    # [arXiv:2212.04356] enc-dec, 24+24 layers, conv frontend stubbed:
+    # precomputed 1500-frame embeddings at d_model
+    return ModelConfig(
+        arch_id="whisper-medium", family="audio", n_layers=24, d_model=1024,
+        n_heads=16, n_kv_heads=16, d_head=64, d_ff=4096, vocab=51865,
+        qkv_bias=True, pos_emb="sinusoidal", norm="layernorm", act="gelu",
+        gated_mlp=False, enc_dec=True, n_enc_layers=24, frontend="audio",
+        n_frontend_tokens=1500)
+
+
+def paligemma_3b() -> ModelConfig:
+    # [arXiv:2407.07726] SigLIP stub (256 patch embeddings) + gemma backbone
+    return ModelConfig(
+        arch_id="paligemma-3b", family="vlm", n_layers=18, d_model=2048,
+        n_heads=8, n_kv_heads=1, d_head=256, d_ff=16384, vocab=257216,
+        act="gelu_tanh", tie_embeddings=True, emb_scale=True,
+        frontend="vision", n_frontend_tokens=256)
 
 
 def llama4_scout() -> ModelConfig:
@@ -101,14 +123,17 @@ def rwkv6_7b() -> ModelConfig:
 
 
 def _smoke_of(full: ModelConfig, **over) -> ModelConfig:
-    """The JAX package's smoke twin: 4 layers, width 64, vocab 256; a
-    uniform layer program keeps its type, MoE shrinks to 4 experts
+    """The JAX package's smoke twin: 4 layers, width 64, vocab 256, 8
+    frontend embeddings and 2 encoder layers where the full config has
+    them; a uniform layer program keeps its type, MoE shrinks to 4 experts
     (dropless: ``capacity_factor`` 8 >= E/k), MLA to ranks 32/48 and an
     SSM to state 4, head 16, chunks of 32 -- with the default
     ``impl="scan"``, so the RWKV-6 twin runs the stepwise recurrence
     where the full config runs the chunked one (as in JAX)."""
     base = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
-                d_ff=128, vocab=256)
+                d_ff=128, vocab=256,
+                n_frontend_tokens=8 if full.n_frontend_tokens else 0,
+                n_enc_layers=2 if full.enc_dec else 0)
     base.update(over)
     L = base["n_layers"]
     if len(set(full.layer_types)) == 1:
@@ -146,11 +171,14 @@ def _smoke_rwkv() -> ModelConfig:
 
 
 ALL = {
+    "whisper-medium": (whisper_medium, lambda: _smoke_of(whisper_medium())),
     "jamba-v0.1-52b": (jamba_52b, _smoke_jamba),
     "qwen2.5-32b": (qwen25_32b, lambda: _smoke_of(qwen25_32b())),
     "smollm-135m": (smollm_135m, lambda: _smoke_of(smollm_135m())),
     "tinyllama-1.1b": (tinyllama_11b, lambda: _smoke_of(tinyllama_11b())),
     "granite-3-8b": (granite_3_8b, lambda: _smoke_of(granite_3_8b())),
+    "paligemma-3b": (paligemma_3b, lambda: _smoke_of(paligemma_3b(),
+                                                     n_kv_heads=1)),
     "rwkv6-7b": (rwkv6_7b, _smoke_rwkv),
     "llama4-scout-17b-a16e": (llama4_scout,
                               lambda: _smoke_of(llama4_scout())),

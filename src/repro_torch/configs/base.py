@@ -1,6 +1,7 @@
-"""Model configuration and the architecture registry (the decoder-only
-families ported so far: GQA or MLA attention, Mamba or RWKV-6 layers,
-dense, MoE or channel-mix MLPs)."""
+"""Model configuration and the architecture registry: decoder-only
+models (GQA or MLA attention, Mamba or RWKV-6 layers, dense, MoE or
+channel-mix MLPs), encoder-decoder models and models with a modality
+frontend (precomputed frame or patch embeddings)."""
 
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from repro_torch.models.ssm import SSMConfig
 __all__ = ["MLAConfig", "ModelConfig", "SSMConfig", "at_depth", "register",
            "get_config", "list_archs"]
 
-#: position schemes: rotary on q/k, none (the recurrences carry order);
-#: sinusoidal absolute positions come with the encoder-decoder slice
+#: position schemes: rotary on q/k, sinusoidal absolute positions added
+#: to the stream, none (the recurrences carry order)
 POS_EMB = ("rope", "none", "sinusoidal")
 
 
@@ -38,22 +39,31 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab: int
-    family: str = "dense"                  # dense|moe|ssm|hybrid
+    family: str = "dense"                  # dense|moe|ssm|hybrid|audio|vlm
     # per-layer programs (len == n_layers; empty: all attn / all dense)
     layer_types: tuple[str, ...] = ()      # attn|mla|mamba|rwkv
     mlp_types: tuple[str, ...] = ()        # dense|moe|channelmix
     qkv_bias: bool = False                 # a bias on q, k and v (Qwen2)
     rope_theta: float = 10000.0
-    pos_emb: str = "rope"                  # rope|none (sinusoidal: 3d)
-    # encoder-decoder and modality frontends: later slices of the port
-    # (models/model.py and the continuous engine refuse them)
-    enc_dec: bool = False
-    frontend: str | None = None            # audio|vision
+    pos_emb: str = "rope"                  # rope|sinusoidal|none
     norm: str = "rmsnorm"
     act: str = "silu"
     gated_mlp: bool = True
     causal: bool = True
     tie_embeddings: bool = False
+    emb_scale: bool = False                # gemma: embeddings * sqrt(d)
+    # encoder-decoder: an encoder stack of n_enc_layers over the frontend
+    # frames, cross-attention in every decoder attention layer.
+    # ``enc_causal`` is carried and, as in the JAX package, never read:
+    # the encoder's attention follows ``causal`` (ROADMAP C.15)
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_causal: bool = False
+    # modality frontend stub: n_frontend_tokens precomputed embeddings
+    # [B, F, d] a prompt brings (the encoder's frames, or a prefix of
+    # the decoder stream)
+    frontend: str | None = None            # audio|vision
+    n_frontend_tokens: int = 0
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
@@ -93,9 +103,10 @@ class ModelConfig:
 
 
 def at_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
-    """``cfg`` cut (or extended, periodically) to ``n_layers`` layers:
-    ``layer_types`` and ``mlp_types`` follow the depth, as the config
-    requires."""
+    """``cfg`` cut (or extended, periodically) to ``n_layers`` decoder
+    layers: ``layer_types`` and ``mlp_types`` follow the depth, as the
+    config requires.  An encoder stack (``n_enc_layers``) keeps its
+    depth."""
     return dataclasses.replace(
         cfg, n_layers=n_layers,
         layer_types=tuple(cfg.layer_types[i % cfg.n_layers]

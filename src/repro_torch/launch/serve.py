@@ -14,9 +14,14 @@ width of smollm-135m, on the card:
 
 ``--arch`` takes any architecture the port registers
 (``configs.base.list_archs()``): ``rwkv6-7b`` and ``jamba-v0.1-52b``
-have recurrent layers and serve through the bucketed engine only
-(``--continuous`` exits with the engine's refusal, as the JAX CLI does);
-``qwen2.5-32b`` carries its q/k/v bias.  Without ``--full`` it serves the
+have recurrent layers, ``whisper-medium`` an encoder and
+``paligemma-3b`` a prefix of patch embeddings, and these serve through
+the bucketed engine only (``--continuous`` exits with the engine's
+refusal, as the JAX CLI does); ``qwen2.5-32b`` carries its q/k/v bias.
+The frontend's embeddings are N(0, 1) stubs drawn after the prompts from
+the same generator, as the JAX CLI draws them, and the bucketed cache
+counts paligemma's 256 prefix positions (the JAX CLI's does not, and
+fails at full width: ROADMAP C.16).  Without ``--full`` it serves the
 reduced smoke twin, as the JAX CLI does.  ``--device cpu`` runs the
 plain PyTorch path instead of the kernels.  ``--rns-backend cuda_fused
 --resident-weights`` serves through
@@ -47,6 +52,7 @@ import numpy as np
 
 from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core.rns_matmul import RnsDotConfig
+from repro_torch.data.pipeline import make_frontend_stub
 from repro_torch.models.model import init_model
 from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
 
@@ -88,16 +94,25 @@ def serve_bucketed(arch: str = "smollm-135m", *, full: bool = False,
     """Build the model (:func:`build_model`) and generate for ``batch``
     random prompts of ``prompt_len`` tokens (seed 0), or the [B, T]
     ``prompts`` when given, through the bucketed :class:`Engine`: once
-    (its programs built, captured on the card) and once more warm.
-    Returns (engine, tokens [B, new], stats) with each call's wall
-    seconds and tokens/s, and the warm call's TTFT and step times."""
+    (its programs built, captured on the card) and once more warm.  A
+    model with a frontend takes stub embeddings [B, F, d] drawn after the
+    prompts from the same generator; the cache holds a prefix model's F
+    positions too.  Returns (engine,
+    tokens [B, new], stats) with each call's wall seconds and tokens/s,
+    and the warm call's TTFT and step times."""
     model = build_model(arch, full=full, rns=rns, device=device)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
     if prompts is None:
-        rng = np.random.default_rng(0)
-        prompts = rng.integers(0, model.cfg.vocab, (batch, prompt_len))
+        prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
     prompts = np.asarray(prompts, np.int32)
+    frontend, F = None, 0
+    if cfg.frontend is not None:
+        frontend = make_frontend_stub(rng, prompts.shape[0],
+                                      cfg.n_frontend_tokens, cfg.d_model)
+        F = 0 if cfg.enc_dec else cfg.n_frontend_tokens
     engine = Engine(model, ServeConfig(
-        max_cache=max_cache or prompts.shape[1] + new + 8,
+        max_cache=max_cache or F + prompts.shape[1] + new + 8,
         max_new_tokens=new, rns_backend=rns_backend, rns_defer=rns_defer,
         resident_weights=resident_weights,
         per_layer_profiles=per_layer_profiles,
@@ -105,7 +120,7 @@ def serve_bucketed(arch: str = "smollm-135m", *, full: bool = False,
     stats = {}
     for run in ("first", "warm"):
         t0 = time.perf_counter()
-        out = engine.generate(prompts)
+        out = engine.generate(prompts, frontend=frontend)
         dt = time.perf_counter() - t0
         stats[run] = {"wall_s": dt, "tokens_per_s": out.size / dt}
     stats.update(engine.last_stats, captures=engine.captures())

@@ -1,8 +1,10 @@
 """GQA attention with RoPE and DeepSeek-V2's multi-head latent attention
 (MLA): prefill, one-token decode over a dense or a paged cache, the
-speculative-verify window and the packed mixed-phase step.  Plain
-PyTorch, as in the JAX package, whose model paths compute attention
-outside any Pallas kernel.
+speculative-verify window and the packed mixed-phase step; and the
+encoder-decoder's pieces: non-causal self-attention, cross-attention
+over the encoder's output at prefill and :func:`cross_decode` over its
+cached planes.  Plain PyTorch, as in the JAX package, whose model paths
+compute attention outside any Pallas kernel.
 
 ``cfg.attn_window`` (a sliding window) narrows every one of them alike:
 query ``q`` attends keys ``[q - window + 1, q]``, the rest weigh exactly
@@ -27,12 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.quantize import current_token_mask, token_mask
 from repro_torch.core.rns_matmul import rns_multi_dot
 from repro_torch.models.layers import (RMSNorm, _param, bmm_rows, linear,
                                        matmul_rows, tree_sum)
 
 __all__ = ["rope", "lane_attention", "Attention", "gqa_qkv", "gqa_attend",
-           "gqa_decode", "gqa_decode_paged", "gqa_decode_paged_window",
+           "cross_decode", "gqa_decode", "gqa_decode_paged",
+           "gqa_decode_paged_window",
            "gqa_decode_packed", "MLA", "mla_qkv", "mla_attend",
            "mla_decode", "mla_decode_paged", "mla_decode_paged_window",
            "mla_decode_packed"]
@@ -76,6 +80,12 @@ LANE_BLOCK = 64
 LANE_ELEMS = 1 << 26
 #: keys summed as one tree in :func:`lane_attention` (a page's worth)
 KEY_BLOCK = 16
+#: elements one pass may hold in a whole-prompt prefill
+#: (:func:`gqa_attend`): fewer, larger passes over long key axes
+PREFILL_LANE_ELEMS = 1 << 30
+#: a causal prefill's lanes go to :func:`lane_attention` in runs of this
+#: many, each over the keys up to its last lane's position only
+CAUSAL_LANES = 256
 
 
 def _key_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,7 +106,8 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None):
+def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None,
+                   lane_block=LANE_BLOCK, lane_elems=LANE_ELEMS):
     """Each lane's query against its own keys: q [N, H, D], k [N or 1, S,
     Hk, D] (1: every lane reads the same keys), v [N or 1, S, Hk, Dv],
     ``lengths`` [N] valid keys per lane.  Returns out [N, H, Dv] in q's
@@ -118,7 +129,7 @@ def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None):
     (:func:`_key_sum`), the keys zero-padded to whole blocks; masked
     keys weigh exactly 0 and the max is exact.  So a lane's result does
     not depend on the other lanes, on how many lanes one pass takes
-    (``LANE_BLOCK``, fewer where the products would pass ``LANE_ELEMS``
+    (``lane_block``, fewer where the products would pass ``lane_elems``
     elements), or on how many masked keys follow its valid ones.  A
     masked key's value is set to 0 as well, not only its probability, so
     that a recycled or trash page holding a non-finite value cannot turn
@@ -141,7 +152,7 @@ def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None):
     scale = _scale(scale_dim or sum(t.shape[-1] for t in qs), qs[0].device)
     keys = torch.arange(Sp, device=qs[0].device)
     widest = max([_pow2(t.shape[-1]) for t in qs] + [Dv])
-    step = max(1, min(LANE_BLOCK, LANE_ELEMS // (H * Sp * widest)))
+    step = max(1, min(lane_block, lane_elems // (H * Sp * widest)))
     outs = []
     for i in range(0, N, step):
         n = min(step, N - i)
@@ -220,19 +231,67 @@ def gqa_qkv(p: Attention, x, cfg, positions, rns=None):
     return q, k, v.reshape(B, T, Hk, D)
 
 
-def gqa_attend(p: Attention, x, cfg, *, rns=None):
-    """Causal self-attention over a whole (padded) prompt; returns
-    (y, (k, v)) so the caller can fill the KV cache.  Every prompt token
-    is a lane of :func:`lane_attention` over the prompt's own keys, as a
-    packed chunk's tokens are over their row's pages."""
+def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None):
+    """Self-attention over a whole (padded) prompt, causal unless
+    ``cfg.causal`` is False, or, with ``xkv`` [B, Tk, d] (the encoder's
+    output), cross-attention: q from ``x`` through ``wq``, k and v from
+    ``xkv`` through ``wk``/``wv`` with one shared conversion, no mask and
+    no rope.  Returns (y, (k, v)) so the caller can fill the cache.
+
+    Every query token is a lane of :func:`lane_attention` over its row's
+    keys, as a packed chunk's tokens are over their row's pages: a causal
+    lane sees the keys up to its own position, any other lane all ``Tk``
+    of them.  A row's causal lanes go in runs of ``CAUSAL_LANES``, each
+    run over the keys its last lane sees (the keys after a lane's own
+    weigh exactly 0 and add exact zeros, so a lane's floats are those of
+    one call over all keys: whisper's causal encoder reads 58% of its
+    1500 x 1500 scores); the lanes of a call go through in as few passes
+    as ``PREFILL_LANE_ELEMS`` allows (the result does not depend on
+    it)."""
     B, T, _ = x.shape
-    positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    q, k, v = gqa_qkv(p, x, cfg, positions, rns)
-    lengths = torch.arange(1, T + 1, device=x.device)
-    out = torch.stack([lane_attention(q[b], k[b:b + 1], v[b:b + 1], lengths,
-                                      cfg.attn_window)
-                       for b in range(B)])
+    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if xkv is None:
+        positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        q, k, v = gqa_qkv(p, x, cfg, positions, rns)
+        Tk, causal = T, cfg.causal
+    else:
+        q = linear(p.wq, x, rns, b=p.bq).reshape(B, T, H, D)
+        # under a prompt's per-row grids (an enc-dec prefill on the RNS
+        # path) the encoder's output takes one grid a row too
+        rows = None if current_token_mask() is None else torch.ones(
+            xkv.shape[:2], dtype=torch.bool, device=xkv.device)
+        with token_mask(rows):
+            k, v = _multi_proj(xkv, (p.wk, p.wv), rns, (p.bk, p.bv))
+        Tk, causal = xkv.shape[1], False
+        k, v = k.reshape(B, Tk, Hk, D), v.reshape(B, Tk, Hk, D)
+    # runs of (first lane, end lane, keys read)
+    if causal:
+        lengths = torch.arange(1, T + 1, device=x.device)
+        runs = [(i, min(i + CAUSAL_LANES, T), min(i + CAUSAL_LANES, T))
+                for i in range(0, T, CAUSAL_LANES)]
+    else:
+        lengths = torch.full((T,), Tk, device=x.device)
+        runs = [(0, T, Tk)]
+    window = cfg.attn_window if causal else None
+    out = torch.stack([torch.cat([
+        lane_attention(q[b, i:j], k[b:b + 1, :n], v[b:b + 1, :n],
+                       lengths[i:j], window, lane_block=j - i,
+                       lane_elems=PREFILL_LANE_ELEMS)
+        for i, j, n in runs]) for b in range(B)])
     return linear(p.wo, out.reshape(B, T, -1), rns), (k, v)
+
+
+def cross_decode(p: Attention, x, cfg, cache, layer: int, *, rns=None):
+    """One-token cross-attention against attention layer ``layer``'s
+    encoder planes of a dense cache (``cache.xk``/``cache.xv`` [L, B, Te,
+    Hk, D], written by the prefill and read-only after): each row's
+    query through ``wq`` against all ``Te`` of its frames."""
+    B = x.shape[0]
+    q = linear(p.wq, x, rns, b=p.bq).reshape(B, cfg.n_heads, cfg.d_head)
+    xk, xv = cache.xk[layer], cache.xv[layer]
+    lengths = torch.full((B,), xk.shape[1], device=x.device)
+    out = lane_attention(q, xk, xv, lengths)
+    return linear(p.wo, out.reshape(B, 1, -1), rns)
 
 
 def gqa_decode(p: Attention, x, cfg, cache, layer: int, *, rns=None):

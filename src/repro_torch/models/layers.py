@@ -28,9 +28,11 @@ they are.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -45,7 +47,8 @@ from repro_torch.core.tensor import (RnsTensor, rt_decode, rt_dot, rt_encode,
 
 __all__ = ["ROW_BLOCK", "matmul_rows", "bmm_rows", "tree_sum",
            "init_normal_", "linear", "RMSNorm", "rmsnorm", "LayerNorm",
-           "layernorm", "norm", "embed", "unembed", "act_fn",
+           "layernorm", "norm", "embed", "unembed", "sinusoidal_positions",
+           "act_fn",
            "MLP", "mlp", "mlp_rns_deferred", "mlp_rns_resident_perop"]
 
 
@@ -225,6 +228,24 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: x @ table.T."""
     return matmul_rows(x, table.T)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_table(length: int, d: int, device: torch.device):
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos * (1.0 / (10000 ** (2 * dim / d)))
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(out.astype(np.float32), device=device)
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """The [length, d] float32 table of absolute positions, ``sin`` then
+    ``cos`` halves: computed in float64 on the host, as numpy does in
+    the JAX package, and rounded once to float32 (a float32 table
+    computed on the card gives other bits).  Cached per device, so that
+    a captured step reads a table copied there before its capture."""
+    return _sinusoid_table(length, d, torch.device(device or "cpu"))
 
 
 def act_fn(name: str):

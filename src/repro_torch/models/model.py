@@ -1,19 +1,22 @@
 """Public model API of the slice: init, parameter counts, the bucketed
-engine's prefill into a dense cache (with the recurrent layers' states),
-ragged prefill, decode over a dense or a paged cache, the
-speculative-verify window and the packed mixed-phase step."""
+engine's prefill into a dense cache (with the recurrent layers' states
+and an encoder-decoder's cross planes; a frontend's embeddings ahead of
+the prompt or through the encoder), ragged prefill, decode over a dense
+or a paged cache, the speculative-verify window and the packed
+mixed-phase step."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.quantize import token_mask
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (_param, embed, init_normal_, linear,
-                                       norm, unembed)
+                                       norm, sinusoidal_positions, unembed)
 
 __all__ = ["Model", "init_model", "count_params", "count_params_analytic",
            "DenseKV", "make_cache", "plane_shapes", "stack_planes",
@@ -26,35 +29,23 @@ PLANES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"),
           "mamba": ("h", "conv"), "rwkv": ("S", "x_tm", "x_cm")}
 #: the recurrent layers' planes: one state a row, no sequence axis
 STATE_PLANES = frozenset({"h", "conv", "S", "x_tm", "x_cm"})
+#: an encoder-decoder model's cross planes (its attention layers' k and
+#: v of the encoder's output): ``Te`` frames a row, not ``S_max``
+CROSS_PLANES = ("xk", "xv")
 
 
 def _check_supported(cfg):
-    """The port has the causal decoder-only model: GQA (rope or no
-    positions, optional q/k/v bias) or MLA attention, Mamba or RWKV-6
-    layers, dense, MoE or channel-mix MLPs, rmsnorm or layernorm, tied or
-    untied head.  Encoder-decoder models, modality frontends, non-causal
-    attention and sinusoidal positions come with slice 3d."""
-    later = []
-    if not cfg.causal:
-        later.append("non-causal attention")
-    if cfg.enc_dec:
-        later.append("enc_dec")
-    if cfg.frontend is not None:
-        later.append(f"frontend={cfg.frontend!r}")
-    if cfg.pos_emb == "sinusoidal":
-        later.append("pos_emb='sinusoidal'")
-    if later:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(later)} come with slice 3d of the "
-            "port (ROADMAP A)")
+    """Every config of the port builds; an unknown MLP type does not."""
     bad = sorted(set(cfg.mlp_types) - {"dense", "moe", "channelmix"})
     if bad:
         raise ValueError(f"{cfg.arch_id}: unknown MLP types {bad}")
 
 
 class Model(nn.Module):
-    """Decoder-only LM: embedding, ``n_layers`` blocks, final norm and
-    the head: the embedding transposed (tied) or ``lm_head`` [d, V]."""
+    """The LM: embedding, ``n_layers`` decoder blocks, final norm and the
+    head: the embedding transposed (tied) or ``lm_head`` [d, V].  An
+    encoder-decoder model also has ``enc_blocks`` (``n_enc_layers``
+    encoder layers) and ``enc_norm``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -68,6 +59,12 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         _param(torch.empty(cfg.d_model, cfg.vocab,
                                            device=device)))
+        self.enc_blocks = self.enc_norm = None
+        if cfg.enc_dec:
+            self.enc_blocks = nn.ModuleList(
+                tf.Block(cfg, "attn", "__enc__", device)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = norm(cfg.norm, cfg.d_model, device)
 
 
 def init_model(cfg, seed: int = 0, device="cuda") -> Model:
@@ -123,12 +120,68 @@ def _logits(model: Model, h):
     return linear(model.lm_head, h)
 
 
+def _embed_tokens(model: Model, cfg, tokens):
+    """The tokens' embeddings, times ``sqrt(d_model)`` rounded to float32
+    under ``cfg.emb_scale`` (gemma)."""
+    h = embed(model.embed, tokens)
+    if cfg.emb_scale:
+        h = h * float(np.float32(np.sqrt(cfg.d_model)))
+    return h
+
+
+def _add_abs_pos(cfg, h):
+    """``h`` [B, T, d] plus the sinusoidal rows 0 .. T-1 (sinusoidal
+    positions only)."""
+    if cfg.pos_emb != "sinusoidal":
+        return h
+    return h + sinusoidal_positions(h.shape[1], cfg.d_model,
+                                    h.device).to(h.dtype)[None]
+
+
+def _add_pos_at(cfg, h, pos, cache):
+    """``h`` [R, W, d] plus the sinusoidal rows at ``pos`` [R, W], from a
+    table of as many rows as a row of the dense or paged ``cache`` holds
+    (built once per device)."""
+    if cfg.pos_emb != "sinusoidal":
+        return h
+    if hasattr(cache, "block_table"):
+        capacity = cache.block_table.shape[-1] * cache.k_pages.shape[2]
+    else:
+        capacity = cache.k.shape[2]
+    table = sinusoidal_positions(capacity, cfg.d_model, h.device)
+    return h + table[pos].to(h.dtype)
+
+
+def _row_grids(cfg, x):
+    """A per-row quantization mask for ``x`` [B, T, ...] on the RNS path
+    (one grid a row over all its positions), else none."""
+    if cfg.rns is None:
+        return token_mask(None)
+    return token_mask(torch.ones(x.shape[:2], dtype=torch.bool,
+                                 device=x.device))
+
+
+def _encode(model: Model, cfg, frames):
+    """The encoder over the frontend's frames [B, Te, d]: sinusoidal
+    positions, ``enc_blocks``, ``enc_norm``.  Its attention follows
+    ``cfg.causal``, as JAX's does (``enc_causal`` is never read, ROADMAP
+    C.15).  On the RNS path every conversion of the encoder's stream
+    takes one grid a row over all its frames."""
+    with _row_grids(cfg, frames):
+        h = _add_abs_pos(cfg, frames)
+        h, _ = tf.apply_blocks(model.enc_blocks, h, cfg, mode="prefill",
+                               enc=True)
+        return model.enc_norm(h)
+
+
 @dataclasses.dataclass
 class DenseKV:
     """The bucketed engine's decode cache: the GQA layers' K/V ``[n_attn,
     B, S_max, Hk, D]``, the MLA layers' latents ``c_kv`` [n_mla, B,
-    S_max, r] and ``k_rope`` [n_mla, B, S_max, dr], the Mamba layers'
-    states ``h`` [n_mamba, B, d_in, N] and ``conv`` [n_mamba, B, K-1,
+    S_max, r] and ``k_rope`` [n_mla, B, S_max, dr], an encoder-decoder
+    model's cross planes ``xk``/``xv`` [n_attn, B, Te, Hk, D] (the
+    encoder output's k and v, written by the prefill, read-only after),
+    the Mamba layers' states ``h`` [n_mamba, B, d_in, N] and ``conv`` [n_mamba, B, K-1,
     d_in], the RWKV layers' ``S`` [n_rwkv, B, H, D, D] and previous
     tokens ``x_tm``, ``x_cm`` [n_rwkv, B, 1, d] (None where the model has
     no such layer), the rows' ``lengths`` [B] and ``dtype``, the cache
@@ -150,6 +203,8 @@ class DenseKV:
     S: torch.Tensor | None = None
     x_tm: torch.Tensor | None = None
     x_cm: torch.Tensor | None = None
+    xk: torch.Tensor | None = None
+    xv: torch.Tensor | None = None
     dtype: torch.dtype = torch.float32
 
 
@@ -157,8 +212,8 @@ def plane_shapes(cfg) -> dict[str, tuple[int, tuple[int, ...]]]:
     """{plane name: (layers of its type, one token's shape)} for the
     layer types ``cfg`` has (JAX's ``_layer_cache_shape``); a state
     plane's (``STATE_PLANES``) shape is one row's."""
-    feat = {"k": (cfg.n_kv_heads, cfg.d_head),
-            "v": (cfg.n_kv_heads, cfg.d_head)}
+    feat = {name: (cfg.n_kv_heads, cfg.d_head)
+            for name in ("k", "v") + CROSS_PLANES}
     if cfg.mla is not None:
         feat["c_kv"] = (cfg.mla.kv_lora_rank,)
         feat["k_rope"] = (cfg.mla.qk_rope_dim,)
@@ -169,11 +224,19 @@ def plane_shapes(cfg) -> dict[str, tuple[int, tuple[int, ...]]]:
                     S=(cfg.d_model // D, D, D), x_tm=(1, cfg.d_model),
                     x_cm=(1, cfg.d_model))
     out = {}
-    for lt, names in PLANES.items():
+    for lt, names in _planes(cfg).items():
         n = cfg.layer_types.count(lt)
         if n:
             out.update({name: (n, feat[name]) for name in names})
     return out
+
+
+def _planes(cfg) -> dict[str, tuple[str, ...]]:
+    """PLANES, with an encoder-decoder model's cross planes after its
+    attention layers' k and v."""
+    if not cfg.enc_dec:
+        return PLANES
+    return dict(PLANES, attn=PLANES["attn"] + CROSS_PLANES)
 
 
 def _flat(y) -> tuple:
@@ -189,7 +252,7 @@ def stack_planes(cfg, ys) -> dict[str, torch.Tensor]:
     name: {"k": [n_attn, B, T, Hk, D], "c_kv": [n_mla, B, T, r], "h":
     [n_mamba, B, d_in, N], ...}."""
     out = {}
-    for lt, names in PLANES.items():
+    for lt, names in _planes(cfg).items():
         idx = [i for i, t in enumerate(cfg.layer_types) if t == lt]
         for j, name in enumerate(names if idx else ()):
             out[name] = torch.stack([_flat(ys[i])[j] for i in idx])
@@ -197,14 +260,18 @@ def stack_planes(cfg, ys) -> dict[str, torch.Tensor]:
 
 
 def make_cache(cfg, B: int, S_max: int, *, dtype=torch.float32,
-               device="cuda") -> DenseKV:
+               device="cuda", enc_frames: int | None = None) -> DenseKV:
     """Zero dense decode cache, lengths 0: the planes of every layer
-    type the model has (state planes in float32)."""
+    type the model has (state planes in float32; an encoder-decoder
+    model's cross planes ``enc_frames`` long, default
+    ``cfg.n_frontend_tokens``)."""
     planes = {}
     for name, (n, feat) in plane_shapes(cfg).items():
         state = name in STATE_PLANES
+        seq = (enc_frames or cfg.n_frontend_tokens if name in CROSS_PLANES
+               else S_max)
         planes[name] = torch.zeros(
-            (n, B) + (() if state else (S_max,)) + feat,
+            (n, B) + (() if state else (seq,)) + feat,
             dtype=torch.float32 if state else dtype, device=device)
     return DenseKV(k=planes.pop("k", None), v=planes.pop("v", None),
                    lengths=torch.zeros((B,), dtype=torch.int64,
@@ -220,37 +287,71 @@ def set_cache_lengths(cache, lengths):
 
 @torch.inference_mode()
 def prefill(model: Model, cfg, tokens: torch.Tensor, S_max: int, *,
-            cache_dtype=torch.float32, cache: DenseKV | None = None):
+            frontend: torch.Tensor | None = None, cache_dtype=torch.float32,
+            cache: DenseKV | None = None):
     """Run equal-length prompts ``tokens`` [B, T] and fill a dense decode
     cache.  Returns (logits at the last prompt token [B, V], cache).
 
+    ``frontend`` [B, F, d]: the prompts' precomputed embeddings.  An
+    encoder-decoder model runs its encoder over them (the cross planes
+    take the encoder output's k and v; the rows' lengths are T); a
+    frontend model puts them ahead of the tokens' embeddings (lengths F +
+    T).
+
     ``cache``: a dense cache of B rows and ``S_max`` positions to fill in
-    place (its positions past T keep what they held; ``lengths`` masks
-    them), else a new one.  On the RNS path every prompt token quantizes
-    on its own grid (an all-ones per-token :class:`token_mask`): the grid
-    :func:`prefill_ragged` and :func:`mixed_step` give it too.
+    place (its positions past the prompt keep what they held; ``lengths``
+    masks them), else a new one.  On the RNS path every prompt token of a
+    decoder-only prompt quantizes on its own grid (an all-ones per-token
+    :class:`token_mask`): the grid :func:`prefill_ragged` and
+    :func:`mixed_step` give it too.  A prompt with a frontend quantizes
+    on one grid a row over all its positions, and the encoder's stream
+    and output likewise over their frames: at B = 1 the JAX package's
+    whole-tensor grid, and a row of a batch that row served alone
+    (ROADMAP C.11).
     """
     B, T = tokens.shape
-    if T > S_max:
-        raise ValueError(f"prompt length {T} > cache capacity {S_max}")
-    mask = (torch.ones((B, T), dtype=torch.bool, device=tokens.device)
-            if cfg.rns is not None else None)
-    with token_mask(mask, per_token=True):
-        h = embed(model.embed, tokens)
-        h, ys = tf.apply_blocks(model.blocks, h, cfg, mode="prefill")
+    if cfg.enc_dec and frontend is None:
+        raise ValueError(f"{cfg.arch_id}: an encoder-decoder prompt needs "
+                         "its frontend frames")
+    mixes = cfg.enc_dec or (cfg.frontend is not None
+                            and frontend is not None)
+    F = frontend.shape[1] if mixes and not cfg.enc_dec else 0
+    if T + F > S_max:
+        raise ValueError(f"prompt length {T + F} > cache capacity {S_max}")
+    h = _embed_tokens(model, cfg, tokens)
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = _encode(model, cfg, frontend.to(h.dtype))
+    elif F:
+        h = torch.cat([frontend.to(h.dtype), h], dim=1)
+    if mixes:
+        grids = _row_grids(cfg, h)
+    else:
+        grids = token_mask(torch.ones((B, T), dtype=torch.bool,
+                                      device=tokens.device)
+                           if cfg.rns is not None else None,
+                           per_token=True)
+    with grids:
+        h = _add_abs_pos(cfg, h)
+        h, ys = tf.apply_blocks(model.blocks, h, cfg, mode="prefill",
+                                enc_out=enc_out)
         logits = _logits(model, h[:, -1:])[:, 0]
     if cache is None:
         cache = make_cache(cfg, B, S_max, dtype=cache_dtype,
-                           device=tokens.device)
+                           device=tokens.device,
+                           enc_frames=None if enc_out is None
+                           else enc_out.shape[1])
     for name, planes in stack_planes(cfg, ys).items():
         dst = getattr(cache, name)
         if name in ("h", "S"):
             dst.copy_(planes)
         elif name in STATE_PLANES:
             dst.copy_(planes.to(cache.dtype))
+        elif name in CROSS_PLANES:
+            dst.copy_(planes.to(dst.dtype))
         else:
-            dst[:, :, :T] = planes.to(dst.dtype)
-    cache.lengths.fill_(T)
+            dst[:, :, :T + F] = planes.to(dst.dtype)
+    cache.lengths.fill_(T + F)
     return logits, cache
 
 
@@ -268,7 +369,7 @@ def prefill_ragged(model: Model, cfg, tokens: torch.Tensor,
     B, Tpad = tokens.shape
     valid = torch.arange(Tpad, device=tokens.device)[None, :] < lengths[:, None]
     with token_mask(valid if cfg.rns is not None else None, per_token=True):
-        h = embed(model.embed, tokens)
+        h = _add_abs_pos(cfg, _embed_tokens(model, cfg, tokens))
         h, ys = tf.apply_blocks(model.blocks, h, cfg, mode="prefill")
         h_last = h[torch.arange(B, device=h.device), lengths - 1][:, None]
         return _logits(model, h_last)[:, 0], ys
@@ -281,6 +382,10 @@ def decode_step(model: Model, cfg, token: torch.Tensor, cache, active=None):
     layers' new states into a dense cache's state planes, and advances
     the lengths of ``active`` rows, in place.
 
+    A sinusoidal-position model adds each row's position at its length
+    (a table built once per device; an encoder-decoder model's
+    cross-attention reads the cache's cross planes).
+
     On the RNS path ``active`` is the per-row quantization mask, so each
     row's grid is its own (a batched step is bit-identical per row to a
     solo one).
@@ -288,7 +393,8 @@ def decode_step(model: Model, cfg, token: torch.Tensor, cache, active=None):
     mask = active[:, None] if (active is not None
                                and cfg.rns is not None) else None
     with token_mask(mask):
-        h = embed(model.embed, token)
+        h = _add_pos_at(cfg, _embed_tokens(model, cfg, token),
+                        cache.lengths[:, None], cache)
         h, _ = tf.apply_blocks(model.blocks, h, cfg, mode="decode",
                                cache=cache)
         logits = _logits(model, h)[:, 0]
@@ -319,7 +425,11 @@ def decode_window(model: Model, cfg, tokens: torch.Tensor, cache,
     if active is not None and cfg.rns is not None:
         mask = active[:, None].expand(R, W)
     with token_mask(mask, per_token=True):
-        h = embed(model.embed, tokens)
+        h = _embed_tokens(model, cfg, tokens)
+        if cfg.pos_emb == "sinusoidal":
+            pos = cache.lengths[:, None] + torch.arange(
+                W, device=tokens.device)
+            h = _add_pos_at(cfg, h, pos, cache)
         h, _ = tf.apply_blocks(model.blocks, h, cfg, mode="decode",
                                cache=cache)
         return _logits(model, h)
@@ -347,7 +457,8 @@ def mixed_step(model: Model, cfg, tokens, seg, pos, dec, valid, cache):
     """
     mask = valid[None] if cfg.rns is not None else None
     with token_mask(mask, per_token=True):
-        h = embed(model.embed, tokens[None])
+        h = _add_pos_at(cfg, _embed_tokens(model, cfg, tokens[None]),
+                        pos[None], cache)
         h, _ = tf.apply_blocks(model.blocks, h, cfg, mode="decode",
                                cache=cache, packed=(seg, pos, dec))
         return _logits(model, h)[0]

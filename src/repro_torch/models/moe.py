@@ -1,15 +1,16 @@
 """Mixture-of-Experts: top-k router, capacity dispatch, shared experts.
 
-The port of ``repro.models.moe`` with its ``"gather"`` dispatch (the one
-every config uses); ``dispatch="scatter"`` is a later slice (ROADMAP
-A.10).  The routing is JAX's to the integer: top-k through a stable
-descending sort (``jax.lax.top_k`` puts the lower index first on ties),
-each (token, expert) entry's slot its rank among the row's entries for
-that expert in token order (JAX's stable argsort over the flat ``[S*k]``
-ids), entries at or past the row's capacity ``C = max(1, int(S * k / E *
-capacity_factor))`` dropped, the kept outputs weighted by their
-(renormalized) router probability and added per token in expert order
-(JAX's scatter-add over the ``[E, C]`` slots), then the shared expert.
+The port of ``repro.models.moe`` with both of its dispatches.  The
+routing is JAX's to the integer: top-k through a stable descending sort
+(``jax.lax.top_k`` puts the lower index first on ties), each (token,
+expert) entry's slot its rank among the row's entries for that expert in
+token order (JAX's stable argsort over the flat ``[S*k]`` ids), entries
+at or past the row's capacity ``C = max(1, int(S * k / E *
+capacity_factor))`` dropped.  The kept outputs are weighted by their
+(renormalized) router probability and added per token: in expert order
+with ``dispatch="gather"`` (JAX's scatter-add over the ``[E, C]``
+slots), in the order of the token's k picks with ``dispatch="scatter"``
+(JAX's sum over the picks); then the shared expert.
 
 The routed experts are float on the RNS path too (JAX computes them as
 einsums); only the shared MLP takes ``rns``.  Every float sum is
@@ -48,7 +49,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_norm_topk: bool = True   # renormalize top-k probs to sum to 1
     aux_loss_weight: float = 0.01
-    dispatch: str = "gather"    # "scatter": a later slice of the port
+    dispatch: str = "gather"    # gather|scatter: the combine's order
 
 
 class MoE(nn.Module):
@@ -110,23 +111,13 @@ def route(p: MoE, x: torch.Tensor, cfg: MoEConfig):
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
             rns=None):
-    """x [B, S, d] -> (y [B, S, d], aux scalar), JAX's ``moe_ffn`` with
-    the gather dispatch.  ``rns`` applies to the shared MLP only."""
-    if cfg.dispatch != "gather":
-        raise NotImplementedError(
-            f"MoE dispatch={cfg.dispatch!r}: the port has the 'gather' "
-            "dispatch; 'scatter' is a later slice (ROADMAP A.10)")
+    """x [B, S, d] -> (y [B, S, d], aux scalar), JAX's ``moe_ffn``.
+    ``rns`` applies to the shared MLP only."""
+    if cfg.dispatch not in ("gather", "scatter"):
+        raise ValueError(f"MoE dispatch={cfg.dispatch!r}: gather|scatter")
     B, S, d = x.shape
     E = cfg.n_experts
     top_i, top_p, keep, aux = route(p, x, cfg)
-    # each token's weight for every expert: its (renormalized) router
-    # probability where routed and kept, else 0 (top-k ids are distinct,
-    # so at most one of its k entries names an expert: an exact sum)
-    onehot = top_i[..., None] == torch.arange(E, device=x.device)
-    hit = onehot & keep[..., None]                             # [B,S,k,E]
-    gate = (torch.where(keep, top_p, 0.0)[..., None] * hit).sum(dim=2)
-    routed = hit.any(dim=2).reshape(B * S, E).T[..., None]     # [E,N,1]
-    gate = gate.reshape(B * S, E).T[..., None]
     # every expert over every token: [E, N, d] through the stacks, one
     # fixed-shape batched matmul per block of rows (``bmm_rows``); the
     # rows padded once before the expansion over experts (a view)
@@ -135,13 +126,33 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, act: str = "silu",
     xs = xs[None].expand(E, -1, -1)
     f = act_fn(act) if act == "silu" else act_fn("gelu")
     h = f(bmm_rows(xs, p.wg)) * bmm_rows(xs, p.wi)
-    out = bmm_rows(h, p.wo)[:, :N].to(torch.float32) * gate   # [E, N, d]
-    # added per token in expert order, as JAX's scatter-add over the
-    # [E, C] slots: 0 + c_e1 + c_e2 + ..., an unrouted expert adding
-    # nothing
-    y = torch.zeros((B * S, d), dtype=torch.float32, device=x.device)
-    for e in range(E):
-        y = torch.where(routed[e], y + out[e], y)
+    out = bmm_rows(h, p.wo)[:, :N].to(torch.float32)          # [E, N, d]
+    if cfg.dispatch == "scatter":
+        # each token's k picks in rank order, a dropped pick adding an
+        # exact 0 (JAX's sum over the [B, S, k, d] gathered outputs)
+        picks = top_i.reshape(N, -1)
+        w = torch.where(keep, top_p, 0.0).reshape(N, -1)
+        tok = torch.arange(N, device=x.device)
+        y = None
+        for j in range(picks.shape[1]):
+            got = out[picks[:, j], tok] * w[:, j, None]
+            y = got if y is None else y + got
+    else:
+        # each token's weight for every expert: its (renormalized) router
+        # probability where routed and kept, else 0 (top-k ids are
+        # distinct, so at most one of its k entries names an expert: an
+        # exact sum)
+        onehot = top_i[..., None] == torch.arange(E, device=x.device)
+        hit = onehot & keep[..., None]                         # [B,S,k,E]
+        gate = (torch.where(keep, top_p, 0.0)[..., None] * hit).sum(dim=2)
+        routed = hit.any(dim=2).reshape(N, E).T[..., None]     # [E,N,1]
+        out = out * gate.reshape(N, E).T[..., None]
+        # added per token in expert order, as JAX's scatter-add over the
+        # [E, C] slots: 0 + c_e1 + c_e2 + ..., an unrouted expert adding
+        # nothing
+        y = torch.zeros((N, d), dtype=torch.float32, device=x.device)
+        for e in range(E):
+            y = torch.where(routed[e], y + out[e], y)
     y = y.reshape(B, S, d)
     if p.shared is not None:
         y = y + mlp(p.shared, x, gated=True, act=act, rns=rns)

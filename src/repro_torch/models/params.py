@@ -2,10 +2,13 @@
 
 ``repro.models.model.init_model`` returns a parameter tree (GQA or MLA
 attention, Mamba or RWKV-6 layers, dense or MoE MLPs, an ``lm_head`` when
-untied) whose blocks are stacked per period
-(``repro/models/transformer.py:93``): leaf ``blocks["l{j}"][...]`` has a
-leading ``n_layers // period`` dim, and layer ``i`` is entry ``i //
-period`` of sub-layer ``l{i % period}``.  :func:`params_from_jax` takes
+untied; an encoder-decoder's ``enc_blocks``, ``enc_norm`` and each
+decoder attention layer's ``lnx`` and ``xattn``) whose blocks are
+stacked per period (``repro/models/transformer.py:93``): leaf
+``blocks["l{j}"][...]`` has a leading ``n_layers // period`` dim, and
+layer ``i`` is entry ``i // period`` of sub-layer ``l{i % period}``;
+the encoder stack's period is 1 (``enc_blocks["l0"]``, one entry a
+layer).  :func:`params_from_jax` takes
 that tree as numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``),
 undoes the stacking and fills the port's modules; it fails unless every
 entry of every leaf landed in a parameter.  The port itself never
@@ -67,17 +70,33 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> Model:
         if hasattr(ln, "bias"):
             put(ln.bias, *path, "bias", at=at)
 
+    def put_gqa(a, *path, at):
+        for name in ("wq", "wk", "wv", "wo"):
+            put(getattr(a, name), *path, name, "w", at=at)
+        for name in ("q", "k", "v"):
+            b = getattr(a, "b" + name)
+            if b is not None:
+                put(b, *path, "w" + name, "b", at=at)
+
+    layers = [(blk, ("blocks", f"l{i % p}"), i // p)
+              for i, blk in enumerate(model.blocks)]
+    if model.enc_blocks is not None:
+        layers += [(blk, ("enc_blocks", "l0"), i)
+                   for i, blk in enumerate(model.enc_blocks)]
     with torch.no_grad():
         put(model.embed, "embed", "table")
         put_norm(model.final_norm, "final_norm", at=None)
         if model.lm_head is not None:
             put(model.lm_head, "lm_head", "w")
-        for i, blk in enumerate(model.blocks):
-            lp = ("blocks", f"l{i % p}")
-            at = i // p
+        if model.enc_norm is not None:
+            put_norm(model.enc_norm, "enc_norm", at=None)
+        for blk, lp, at in layers:
             put_norm(blk.ln1, *lp, "ln1", at=at)
             if hasattr(blk, "ln2"):
                 put_norm(blk.ln2, *lp, "ln2", at=at)
+            if hasattr(blk, "xattn"):
+                put_norm(blk.lnx, *lp, "lnx", at=at)
+                put_gqa(blk.xattn, *lp, "xattn", at=at)
             if isinstance(getattr(blk, "attn", None), MLA):
                 for name in _MLA_LINEARS:
                     put(getattr(blk.attn, name), *lp, "attn", name, "w",
@@ -85,13 +104,7 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> Model:
                 put_norm(blk.attn.q_norm, *lp, "attn", "q_norm", at=at)
                 put_norm(blk.attn.kv_norm, *lp, "attn", "kv_norm", at=at)
             elif hasattr(blk, "attn"):
-                for name in ("wq", "wk", "wv", "wo"):
-                    put(getattr(blk.attn, name), *lp, "attn", name, "w",
-                        at=at)
-                for name in ("q", "k", "v"):
-                    b = getattr(blk.attn, "b" + name)
-                    if b is not None:
-                        put(b, *lp, "attn", "w" + name, "b", at=at)
+                put_gqa(blk.attn, *lp, "attn", at=at)
             for kind, names in (("mamba", _MAMBA), ("rwkv", _RWKV)):
                 mod = getattr(blk, kind, None)
                 if mod is None:
@@ -114,7 +127,7 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> Model:
                             at=at)
     want = set()
     for path, leaf in _leaves(tree):
-        if path[0] == "blocks":
+        if path[0] in ("blocks", "enc_blocks"):
             want |= {(path, at) for at in range(np.shape(leaf)[0])}
         else:
             want.add((path, None))

@@ -16,10 +16,11 @@ profile that still holds it (``core/moduli.narrowest_profile``).  The
 bound enters the ledger as the resident ``mag_bits`` amortized over the
 contraction, ``log2(colsum) - log2(D)``, so ``a.mag + w.mag + log2(D)``
 gives back ``(qx-1) + log2(colsum)``.  The JAX package stacks the layers
-of one period slot (``i % period``) as one ``[P, d, n]`` master and
-selects once for the stack, the worst case over its layers; the port
-keeps one block a layer and gives every block of a slot the slot's
-profile and ``mag_bits``.
+of one period slot (``i % period``) of a stack as one ``[P, d, n]``
+master and selects once for it, the worst case over its layers; the
+port keeps one block a layer and gives every block of a slot the slot's
+profile and ``mag_bits``.  An encoder-decoder model's encoder is a stack
+of its own (period 1: one slot), apart from the decoder's.
 
 The port of ``repro.models.resident`` without masters dropped, the
 traced train-step attach or a digit mesh (later slices).
@@ -61,11 +62,15 @@ def _mlps(model):
             if isinstance(m, MLP)]
 
 
-def _layer_of(path: str) -> int:
-    """The layer of a model's MLP (``blocks.<i>.mlp``, ``blocks.<i>.moe.
-    shared``); 0 for an MLP outside a model's blocks."""
+def _layer_of(path: str) -> tuple[str, int]:
+    """(stack, layer) of a model's MLP: ``blocks.<i>.mlp`` and
+    ``blocks.<i>.moe.shared`` are decoder layer i, ``enc_blocks.<i>.mlp``
+    encoder layer i; an MLP outside a model's stacks is its own stack,
+    named by its path, at layer 0."""
     parts = path.split(".")
-    return int(parts[1]) if parts[0] == "blocks" and len(parts) > 1 else 0
+    if parts[0] in ("blocks", "enc_blocks") and len(parts) > 1:
+        return parts[0], int(parts[1])
+    return path, 0
 
 
 def _colsum_bits(ws, qw: int) -> float:
@@ -112,13 +117,15 @@ def encode_resident(model, cfg, *, per_layer_profiles: bool = False):
     if cfg.rns is None or cfg.rns_targets not in ("all", "mlp"):
         return model
     rns = cfg.rns
-    mlps = [(_layer_of(path), m) for path, m in _mlps(model)
-            if not m.has_bias()]
-    period = cfg.period if per_layer_profiles else 1
-    for slot in range(period):
-        members = [m for i, m in mlps if i % period == slot]
-        if not members:
+    # one group a period slot of each stack (the encoder's period is 1)
+    groups: dict = {}
+    for path, m in _mlps(model):
+        if m.has_bias():
             continue
+        stack, i = _layer_of(path)
+        period = cfg.period if stack == "blocks" else 1
+        groups.setdefault((stack, i % period), []).append(m)
+    for members in groups.values():
         if per_layer_profiles:
             prof, mags = _select_profile(members, rns,
                                          members[0].wg is not None)

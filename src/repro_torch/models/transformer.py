@@ -1,8 +1,11 @@
-"""The decoder stack: a Python loop over layers (the JAX package scans over
-stacked periods; eager PyTorch needs no scan).  A layer is GQA or MLA
-attention, a Mamba layer or an RWKV-6 time-mix, followed by a dense or a
-MoE MLP or (RWKV) the channel-mix, as its config's ``layer_types`` /
-``mlp_types`` say."""
+"""The layer stacks: a Python loop over layers (the JAX package scans over
+stacked periods; eager PyTorch needs no scan).  A decoder layer is GQA
+or MLA attention, a Mamba layer or an RWKV-6 time-mix, followed by a
+dense or a MoE MLP or (RWKV) the channel-mix, as its config's
+``layer_types`` / ``mlp_types`` say; in an encoder-decoder model each
+attention layer also cross-attends to the encoder's output.  An encoder
+layer (MLP type ``"__enc__"``, as in JAX) is self-attention and a dense
+MLP."""
 
 from __future__ import annotations
 
@@ -32,7 +35,10 @@ class Block(nn.Module):
     :class:`~repro_torch.models.ssm.RWKV6` --; then ``ln2`` and ``mlp``
     an :class:`MLP` or ``moe`` a :class:`~repro_torch.models.moe.MoE`.
     An RWKV layer has no ``ln2``: its channel-mix lives in ``rwkv`` with
-    its own norm ``rwkv.ln_cm``.  Norms follow ``cfg.norm``."""
+    its own norm ``rwkv.ln_cm``.  A decoder attention layer of an
+    encoder-decoder model has ``lnx`` and ``xattn`` (cross-attention,
+    after the self-attention, before the MLP); an encoder layer (MLP type
+    ``"__enc__"``) has none.  Norms follow ``cfg.norm``."""
 
     def __init__(self, cfg, layer_type: str = "attn",
                  mlp_type: str = "dense", device=None):
@@ -48,11 +54,14 @@ class Block(nn.Module):
             self.rwkv = ssm_lib.RWKV6(cfg.d_model, cfg.ssm, cfg.d_ff, device)
         else:
             raise ValueError(layer_type)
-        if mlp_type in ("dense", "moe"):
+        if cfg.enc_dec and layer_type == "attn" and mlp_type != "__enc__":
+            self.lnx = norm(cfg.norm, cfg.d_model, device)
+            self.xattn = attn.Attention(cfg, device)
+        if mlp_type in ("dense", "moe", "__enc__"):
             self.ln2 = norm(cfg.norm, cfg.d_model, device)
         if mlp_type == "moe":
             self.moe = moe_lib.MoE(cfg.d_model, cfg.moe, device)
-        elif mlp_type == "dense":
+        elif mlp_type in ("dense", "__enc__"):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, device)
 
 
@@ -65,7 +74,7 @@ def layer_slots(cfg) -> list[int]:
 
 def _attend(blk: Block, hn, cfg, *, mode: str, cache, slot: int, packed,
             rns):
-    """The layer's attention: (y, prefill cache planes or None)."""
+    """The layer's self-attention: (y, prefill cache planes or None)."""
     mla = isinstance(blk.attn, attn.MLA)
     if mode != "decode":
         if mla:
@@ -136,14 +145,35 @@ def _mix(blk: Block, hn, cfg, *, mode: str, cache, slot: int, packed, rns_a,
     return y, None
 
 
+def _cross(blk: Block, h, cfg, *, mode: str, cache, slot: int, enc_out,
+           rns):
+    """The decoder layer's cross-attention: (y, the prefill's encoder
+    planes (xk, xv), or None in decode mode, which reads them from the
+    dense cache)."""
+    hx = blk.lnx(h)
+    if mode == "decode":
+        if hasattr(cache, "block_table"):
+            raise NotImplementedError("cross-attention decodes over the "
+                                      "bucketed engine's dense cache only")
+        return attn.cross_decode(blk.xattn, hx, cfg, cache, slot,
+                                 rns=rns), None
+    return attn.gqa_attend(blk.xattn, hx, cfg, rns=rns, xkv=enc_out)
+
+
 def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
-                 packed=None):
+                 packed=None, enc_out=None):
     """Returns (h, prefill cache planes or None); a MoE block's aux loss
     (a training term) is dropped."""
     rns_a, rns_m = _rns_for(cfg, "attn"), _rns_for(cfg, "mlp")
     y, planes = _mix(blk, blk.ln1(h), cfg, mode=mode, cache=cache,
                      slot=slot, packed=packed, rns_a=rns_a, rns_m=rns_m)
     h = h + y
+    if hasattr(blk, "xattn"):
+        y, xkv = _cross(blk, h, cfg, mode=mode, cache=cache, slot=slot,
+                        enc_out=enc_out, rns=rns_a)
+        h = h + y
+        if mode != "decode":
+            planes = (planes, xkv)
     if hasattr(blk, "moe"):
         y, _aux = moe_lib.moe_ffn(blk.moe, blk.ln2(h), cfg.moe, act=cfg.act,
                                   rns=rns_m)
@@ -164,21 +194,25 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
     return h + y, planes
 
 
-def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None):
+def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None,
+                 enc_out=None, enc: bool = False):
     """Run every layer.  ``mode``: "prefill" (returns each layer's cache
-    planes: (k, v) of a GQA layer, (c_kv, k_rope) of an MLA layer,
-    (h_last, conv_tail) of a Mamba layer, ((S, x_tm), x_cm) of an RWKV
-    layer) or
+    planes: (k, v) of a GQA layer, ((k, v), (xk, xv)) of an
+    encoder-decoder model's, the cross planes from ``enc_out`` [B, Te,
+    d], (c_kv, k_rope) of an MLA layer, (h_last, conv_tail) of a Mamba
+    layer, ((S, x_tm), x_cm) of an RWKV layer) or
     "decode" (against ``cache``, in place: a paged cache, [R, W] tokens
     with W > 1 being a speculative-verify window, or the bucketed
     engine's dense cache, one token a row, which also holds the
     recurrent layers' states).  ``packed`` (decode mode): a
     ``(seg, pos, dec)`` triple of [N] tensors giving every token of the
     [1, N, d] stream its own row, absolute position and phase -- the
-    mixed chunked-prefill/decode layout."""
+    mixed chunked-prefill/decode layout.  ``enc``: ``blocks`` is the
+    encoder stack (its prefill planes are not kept)."""
     ys = []
-    for blk, slot in zip(blocks, layer_slots(cfg)):
+    slots = range(len(blocks)) if enc else layer_slots(cfg)
+    for blk, slot in zip(blocks, slots):
         h, planes = _apply_layer(blk, h, cfg, mode=mode, cache=cache,
-                                 slot=slot, packed=packed)
+                                 slot=slot, packed=packed, enc_out=enc_out)
         ys.append(planes)
     return h, ys

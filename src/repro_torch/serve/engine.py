@@ -54,8 +54,10 @@ tallies every call of every layer, so that is the number of periods
 (``n_layers // period``; ``n_layers`` for smollm-135m) times what the
 JAX engine reports, whose trace-time tally sees its layer ``scan`` body
 -- one period -- once (ROADMAP C.3).  The continuous engine pages
-attention caches only and refuses the recurrent (RWKV-6, Mamba) layers
-with the JAX engine's message; the bucketed engine serves them.
+attention caches of decoder-only models only and refuses the recurrent
+(RWKV-6, Mamba) layers, encoder-decoder and frontend models and
+non-causal attention with the JAX engine's messages; the bucketed engine
+serves them all.
 
 ``ServeConfig(rns_backend="cuda_fused", rns_defer=True,
 resident_weights=True)`` serves the fused path: MLP weights encoded once
@@ -287,13 +289,15 @@ class Engine(_Programs):
     the card, eager with ``graphs=False`` or on the CPU.  Each decode
     row quantizes on its own grid (the step's ``active`` mask is all
     ones), so a row's tokens do not depend on its batch (ROADMAP C.11).
-    It serves every decoder-only model of the port, the recurrent
-    (RWKV-6, Mamba) layers too: their states live in the dense cache's
-    state planes, which the prefill writes and each decode step updates
-    in place (a row frozen at eos goes on updating its state with its
-    frozen token, as in JAX).  Frontend and encoder-decoder prompts,
-    digit sharding and the exactness audit are later slices of the
-    port."""
+    It serves every model of the port: the recurrent (RWKV-6, Mamba)
+    layers' states live in the dense cache's state planes, which the
+    prefill writes and each decode step updates in place (a row frozen
+    at eos goes on updating its state with its frozen token, as in JAX);
+    a model with a frontend takes each prompt's ``n_frontend_tokens``
+    embeddings (``generate(frontend=)``) as a further input of the
+    prefill program, and an encoder-decoder model's cross planes live in
+    the dense cache beside its K/V.  Digit sharding and the exactness
+    audit are later slices of the port."""
 
     def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda",
                  graphs: bool = True):
@@ -320,33 +324,41 @@ class Engine(_Programs):
 
     def _bucket(self, B: int, T: int, *, decode: bool = True):
         """Build (once) the (B, T) prefill program and, with ``decode``,
-        the B decode program; returns their names."""
+        the B decode program; returns their names.  A model with a
+        frontend's prefill also takes the frames [B, F, d] (F the
+        config's ``n_frontend_tokens``)."""
         cache = self._cache(B)
         names = (f"prefill({B},{T})", f"decode({B})")
         new = []
+        cfg = self.cfg
 
         @torch.inference_mode()
-        def prefill(tokens):
-            logits, _ = M.prefill(self.model, self.cfg, tokens,
-                                  self.scfg.max_cache, cache=cache)
+        def prefill(tokens, frontend=None):
+            logits, _ = M.prefill(self.model, cfg, tokens,
+                                  self.scfg.max_cache, frontend=frontend,
+                                  cache=cache)
             return torch.argmax(logits, dim=-1)
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int64, device=self.device)
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
         # the prefill first: its warm-up sets the lengths the decode
         # warm-up writes at (both write only positions a later prefill
         # or step overwrites before reading)
         if names[0] not in self.programs:
-            new.append(StepProgram(names[0], prefill,
-                                   {"tokens": zeros(B, T)}))
+            inputs = {"tokens": zeros(B, T)}
+            if cfg.frontend is not None:
+                inputs["frontend"] = zeros(B, cfg.n_frontend_tokens,
+                                           cfg.d_model,
+                                           dtype=torch.float32)
+            new.append(StepProgram(names[0], prefill, inputs))
         if decode and names[1] not in self.programs:
             every_row = torch.ones((B,), dtype=torch.bool,
                                    device=self.device)
 
             @torch.inference_mode()
             def step(token):
-                logits = M.decode_step(self.model, self.cfg, token, cache,
+                logits = M.decode_step(self.model, cfg, token, cache,
                                        every_row)
                 return torch.argmax(logits, dim=-1)
 
@@ -357,33 +369,48 @@ class Engine(_Programs):
 
     def rns_op_counts(self, B: int = 1, T: int = 8) -> dispatch.OpCounts:
         """RNS primitive calls of one [B, T] prefill: the (B, T) prefill
-        program's tally, taken when it is built.  The port tallies every
-        layer's calls, the JAX engine one traced period of its layer scan:
-        the port's count is JAX's times the periods (``n_layers //
-        period``; ROADMAP C.3)."""
+        program's tally, taken when it is built (with the config's
+        ``n_frontend_tokens`` frames where the model takes a frontend;
+        the JAX engine traces an encoder-decoder prefill without frames
+        and raises, ROADMAP C.16).  The port tallies every layer's calls,
+        the JAX engine one traced period of each layer scan: the port's
+        count is JAX's times the periods (``n_layers // period``, and
+        ``n_enc_layers`` for the encoder's scan; ROADMAP C.3)."""
         name, _ = self._bucket(B, T, decode=False)
         return self.programs[name].ops
 
     def generate(self, prompts, frontend=None, max_new: int | None = None):
         """prompts [B, T] (equal lengths) -> [B, n_new] int32 greedy
-        tokens.  A row that emits ``eos_id`` repeats it from then on;
-        the batch stops when every row has.  ``last_stats`` then holds
-        the call's host times: ``ttft_s`` (the prefill, its tokens
+        tokens; ``frontend`` [B, F, d] the prompts' frame or patch
+        embeddings, which a model with a frontend needs (F its config's
+        ``n_frontend_tokens``; a prefix model's rows hold F + T prompt
+        positions).  A row that emits ``eos_id`` repeats it from then
+        on; the batch stops when every row has.  ``last_stats`` then
+        holds the call's host times: ``ttft_s`` (the prefill, its tokens
         pulled) and ``step_time_s`` (each decode step)."""
-        if frontend is not None:
-            raise NotImplementedError(
-                "frontend / encoder-decoder prompts are a later slice of "
-                "the port")
+        cfg = self.cfg
         prompts = np.asarray(prompts, np.int64)
         B, T = prompts.shape
         max_new = max_new or self.scfg.max_new_tokens
-        if T + max_new - 1 > self.scfg.max_cache:
+        inputs = {"tokens": prompts}
+        F = 0
+        if cfg.frontend is None:
+            if frontend is not None:
+                raise ValueError(f"{cfg.arch_id} has no frontend")
+        else:
+            want = (B, cfg.n_frontend_tokens, cfg.d_model)
+            if frontend is None or tuple(np.shape(frontend)) != want:
+                raise ValueError(f"{cfg.arch_id}: frontend of shape {want} "
+                                 "needed")
+            inputs["frontend"] = np.asarray(frontend, np.float32)
+            F = 0 if cfg.enc_dec else cfg.n_frontend_tokens
+        if F + T + max_new - 1 > self.scfg.max_cache:
             raise ValueError(
-                f"prompt length {T} + max_new {max_new} - 1 > max_cache "
-                f"{self.scfg.max_cache}")
+                f"prompt length {F + T} + max_new {max_new} - 1 > "
+                f"max_cache {self.scfg.max_cache}")
         pre, dec = self._bucket(B, T)
         t0 = time.perf_counter()
-        tok = self._run(pre, tokens=prompts).cpu().numpy()
+        tok = self._run(pre, **inputs).cpu().numpy()
         self.last_stats = {"ttft_s": time.perf_counter() - t0,
                            "step_time_s": []}
         done = np.zeros((B,), bool)

@@ -167,7 +167,7 @@ def test_generate_refuses_what_it_cannot_hold(smoke):
     eng, _ = _engines(smoke, "float", max_cache=12, max_new_tokens=6)
     with pytest.raises(ValueError, match="max_cache"):
         eng.generate(_batch(smoke[2].vocab, 1, 8, seed=0))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="has no frontend"):
         eng.generate(_batch(smoke[2].vocab, 1, 4, seed=0),
                      frontend=np.zeros((1, 2, 64), np.float32))
 

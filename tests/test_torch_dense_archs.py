@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs.base import get_config as j_get_config
+from repro.configs.base import list_archs as j_list_archs
 from repro.core.rns_matmul import RnsDotConfig as JRnsDotConfig
 from repro.models import attention as jattn
 from repro.models import model as JM
@@ -61,7 +62,8 @@ RANGES = {"smollm-135m": (0.10e9, 0.2e9), "tinyllama-1.1b": (0.9e9, 1.3e9),
           "granite-3-8b": (6e9, 9e9), "qwen2.5-32b": (28e9, 36e9),
           "jamba-v0.1-52b": (45e9, 60e9),
           "llama4-scout-17b-a16e": (90e9, 120e9),
-          "deepseek-v2-236b": (200e9, 260e9), "rwkv6-7b": (6e9, 9e9)}
+          "deepseek-v2-236b": (200e9, 260e9), "rwkv6-7b": (6e9, 9e9),
+          "paligemma-3b": (2e9, 3.5e9), "whisper-medium": (0.6e9, 1.0e9)}
 
 
 def _rns(jcfg, cfg, path):
@@ -278,12 +280,15 @@ def test_count_params_equals_jax_on_full_configs():
 
 
 def test_list_archs_and_unregistered():
+    """The port registers all ten of JAX's archs; an unknown arch raises
+    ``KeyError`` naming the registered ones."""
     assert list_archs() == sorted(
         ["smollm-135m", "tinyllama-1.1b", "granite-3-8b", "qwen2.5-32b",
          "deepseek-v2-236b", "llama4-scout-17b-a16e", "rwkv6-7b",
-         "jamba-v0.1-52b"])
+         "jamba-v0.1-52b", "whisper-medium", "paligemma-3b"])
+    assert list_archs() == j_list_archs()
     with pytest.raises(KeyError, match="whisper-medium"):
-        get_config("whisper-medium")
+        get_config("whisper-large")
     for arch in list_archs():
         full, smoke = get_config(arch), get_config(arch, smoke=True)
         j = j_get_config(arch)

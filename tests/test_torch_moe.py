@@ -152,15 +152,22 @@ def test_moe_ties_take_the_lower_expert_and_rns_shared():
 
 def test_moe_init_scales_and_scatter_refused():
     """``init_moe`` draws JAX's scales (wi/wg 1/sqrt(d), wo 1/sqrt(F));
-    ``dispatch="scatter"`` is a later slice and raises."""
+    ``dispatch="scatter"`` is no longer refused: it computes JAX's
+    scatter combine (the k picks in rank order), equal to the gather
+    dispatch within float order; an unknown dispatch raises."""
     cfg = moe.MoEConfig(n_experts=8, top_k=2, d_ff_expert=256, n_shared=1)
     p = moe.init_moe(64, cfg, seed=1, device="cpu")
     for name, d_in in (("wi", 64), ("wg", 64), ("wo", 256), ("router", 64)):
         std = float(getattr(p, name).std())
         assert abs(std * np.sqrt(d_in) - 1) < 0.05, name
-    x = torch.zeros((1, 2, 64))
-    with pytest.raises(NotImplementedError, match="scatter"):
-        moe.moe_ffn(p, x, dataclasses.replace(cfg, dispatch="scatter"))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, 6, 64)).astype(np.float32))
+    y, _ = moe.moe_ffn(p, x, dataclasses.replace(cfg, dispatch="scatter"))
+    yg, _ = moe.moe_ffn(p, x, cfg)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, yg, rtol=0, atol=Y_ATOL)
+    with pytest.raises(ValueError, match="dispatch"):
+        moe.moe_ffn(p, x, dataclasses.replace(cfg, dispatch="other"))
 
 
 # ---------------------------------------------------- the smoke twins ----
@@ -293,17 +300,32 @@ def test_engines_match_jax(twins, jax_serves, arch, path):
 
 
 def test_untied_head_and_unported_families_refused(twins):
-    """The untied head is a float ``lm_head`` [d, V]; what is still to
-    port (slice 3d) is named when a model is built."""
-    _, _, cfg, model = twins["deepseek-v2-236b"]
+    """The untied head is a float ``lm_head`` [d, V]; the configs the
+    port refused before slice 3d (non-causal, enc-dec, frontend,
+    sinusoidal positions) now build, and ``ContinuousEngine`` refuses the
+    enc-dec, frontend and non-causal ones with the JAX engine's
+    messages."""
+    jcfg, jparams, cfg, model = twins["deepseek-v2-236b"]
     assert model.lm_head.shape == (cfg.d_model, cfg.vocab)
-    for over, word in ((dict(causal=False), "causal"),
-                       (dict(enc_dec=True), "enc_dec"),
-                       (dict(frontend="vision"), "frontend"),
-                       (dict(pos_emb="sinusoidal"), "sinusoidal")):
-        with pytest.raises(NotImplementedError, match=word) as e:
-            M.Model(dataclasses.replace(cfg, **over), device="cpu")
-        assert "slice 3d" in str(e.value)
+    base = get_config("smollm-135m", smoke=True)
+    jbase = j_get_config("smollm-135m", smoke=True)
+    scfg = dict(max_cache=32, page_size=8, max_seqs=2)
+    for over in (dict(causal=False),
+                 dict(enc_dec=True, n_enc_layers=2, n_frontend_tokens=8),
+                 dict(frontend="vision", n_frontend_tokens=8),
+                 dict(pos_emb="sinusoidal")):
+        m = M.Model(dataclasses.replace(base, **over), device="cpu")
+        assert len(m.blocks) == base.n_layers
+        if over.get("enc_dec"):
+            assert len(m.enc_blocks) == 2 and hasattr(m.blocks[0], "xattn")
+        if "pos_emb" in over:
+            continue
+        with pytest.raises(NotImplementedError) as theirs:
+            JEngine({}, dataclasses.replace(jbase, **over),
+                    JServeConfig(**scfg))
+        with pytest.raises(NotImplementedError) as ours:
+            ContinuousEngine(m, ServeConfig(**scfg), device="cpu")
+        assert str(ours.value) == str(theirs.value)
 
 
 # ------------------------------------------------------------ on the card --
