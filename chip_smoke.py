@@ -196,10 +196,11 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 message.  These two run after [kernels] has freed
                 the other serves' recorded inputs: Jamba's 49.5 GiB of
                 weights is the largest model the port holds.
-  [serve_encdec] whisper-medium (24 encoder + 24 decoder layers over
-                1500 frames, cross-attention, sinusoidal positions) and
-                paligemma-3b (18 layers behind 256 patch embeddings) at
-                full width and depth, random weights from seed 0,
+  [serve_encdec] whisper-medium (12 encoder + 12 decoder layers of its
+                24 + 24, over 1500 frames, cross-attention, sinusoidal
+                positions) and paligemma-3b (18 layers behind 256 patch
+                embeddings, whole) at full width, random weights from
+                seed 0,
                 through the bucketed Engine on 8 x 33 prompts with their
                 frontend frames (N(0, 1), drawn after the prompts from
                 the seed-0 generator): whisper float, per-op rns9 and
@@ -209,6 +210,33 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 289 prefix rows, d_ff 16384 -- bit for bit); rows 0 and
                 5 alone give the batch's tokens; the ContinuousEngine
                 refuses both with the JAX engine's message.
+  [train]       training at published width (last): smollm-135m whole,
+                random weights from seed 0, [8, 128] tokens a step from
+                SyntheticLM over 1024 ids, AdamW as the train CLI sets
+                it, every step one captured CUDA graph (forward,
+                backward with every layer recomputed, AdamW in place):
+                float, 20 steps, the loss down by 0.3, the first 3 equal
+                to 3 eager steps bit for bit; per-op rns9 at 16 bits with
+                the RNS backward, 5 steps, step 1's loss and every
+                gradient on the kernels bit-equal to the plain versions
+                (``backend="reference"``) on the card, the loss within
+                1e-4 of the CPU port's, ``measure_rns_ops`` = JAX's x 30;
+                ``cuda_fused``, 3 steps, bit-equal to per-op; fused
+                deferred with resident weights, 3 steps (B.5 and B.6
+                forward, the float backward; the masters move, the
+                optimizer's state holds no digits), its loss within 1e-4
+                of the CPU port's; tinyllama-1.1b whole, float and per-op,
+                ``grad_accum=2``, 2 steps each; a Trainer resumed from
+                its step-3 checkpoint bit-equal at step 4 to an
+                uninterrupted one; every distinct B.1-B.6 input of the
+                eager steps checked and timed (transposed operands and
+                contractions over 1024 tokens among them).  Per path:
+                step ms captured and eager, tokens/s, RNS kernels a step
+                (the graph's kernel nodes), peak GiB.  The CPU port's
+                step 1 (per-op loss and gradients, the deferred loss:
+                minutes of the plain MRC) runs in a child process on
+                cores of its own, started at [train]'s beginning with
+                the seed-0 weights and read at its end.
 
 Then it prints the card's name and power limit, the peak device memory,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -221,6 +249,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -229,6 +258,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -1579,7 +1609,7 @@ def _mla_bucketed(torch, model, cfg, launches, calls):
 # ServeConfig overrides).  An arch's cells share one model, drawn once,
 # the fused cell last (it encodes the dense MLPs resident in place).
 ARCH_DEPTH = {"qwen2.5-32b": 8, "llama4-scout-17b-a16e": 2,
-              "jamba-v0.1-52b": 8, "rwkv6-7b": 16}
+              "jamba-v0.1-52b": 8, "rwkv6-7b": 16, "whisper-medium": 12}
 # >= E / k: dropless, so chunked and bucketed tokens can equal
 # whole-prompt ones (the published 1.25 drops tokens a prompt's chunks
 # keep)
@@ -1611,8 +1641,9 @@ SSM_CELLS = {
 }
 # rows of the 8 x 33 batch served again alone (batch invariance)
 SOLO_ROWS = (0, 5)
-# whisper-medium (24 + 24 layers over 1500 frames) and paligemma-3b (18
-# layers behind 256 patch embeddings) at full width and depth, through
+# whisper-medium (12 + 12 of its 24 + 24 layers over 1500 frames, cut for
+# the run's time when [train] came) and paligemma-3b (18 layers behind
+# 256 patch embeddings, whole) at full width, through
 # the bucketed Engine on 8 x 33 prompts with their frames (seed 0); the
 # fused cell of an arch last (it encodes the MLPs resident in place)
 ENCDEC_CELLS = {
@@ -1628,7 +1659,8 @@ ENCDEC_CELLS = {
 
 
 def _arch_model(arch: str):
-    """``arch`` at its published width, depth ARCH_DEPTH (else all), MoE
+    """``arch`` at its published width, depth ARCH_DEPTH (else all; an
+    encoder-decoder's encoder cut alike), MoE
     dropless (ARCH_CAPACITY), rns9 (qx = qw = 8) on the MLPs and the
     recurrent layers' projections, random weights from seed 0 drawn on
     the card.  Returns (model, the changes to the published config)."""
@@ -1641,6 +1673,10 @@ def _arch_model(arch: str):
     if arch in ARCH_DEPTH:
         cfg = at_depth(cfg, ARCH_DEPTH[arch])
         changed["n_layers"] = f"{full.n_layers} -> {cfg.n_layers}"
+        if cfg.enc_dec:             # the encoder stack too
+            cfg = dataclasses.replace(cfg, n_enc_layers=ARCH_DEPTH[arch])
+            changed["n_enc_layers"] = (f"{full.n_enc_layers} -> "
+                                       f"{cfg.n_enc_layers}")
     if arch in ARCH_CAPACITY:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=ARCH_CAPACITY[arch]))
@@ -3257,6 +3293,517 @@ def phase_fractional(torch, dev, record, launches):
     print("[fractional] ok")
 
 
+# ------------------------------------------------------------- [train] ----
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BIG = "tinyllama-1.1b"
+#: the corpus: SyntheticLM over the first 1024 token ids (the models'
+#: logits still span their whole vocabulary).  Over all 49152 of
+#: smollm-135m's ids a 20-step run has nothing to learn: 20 k tokens
+#: of a near-uniform chain; its loss went 10.933 -> 10.974 (PERF.md)
+TRAIN_DATA = dict(vocab=1024, seq_len=128, global_batch=8)
+TRAIN_STEPS = 20
+#: the float run's loss must fall at least this much over its steps
+TRAIN_LOSS_DROP = 0.3
+#: the RNS datapath of the train CLI's ``--rns``: rns9, 16-bit
+#: activations, weights and gradients, the backward's products in RNS
+TRAIN_RNS = dict(profile="rns9", qx=16, qw=16, qg=16, backward_rns=True)
+#: JAX's op count of one smollm-135m loss evaluation on the per-op rns9
+#: path at 16 bits over [8, 128] tokens: traced once, one scanned layer
+#: (ROADMAP C.3), from
+#:   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import dataclasses, \
+#:   jax.numpy as jnp; from repro.configs.base import get_config; \
+#:   from repro.core.rns_matmul import RnsDotConfig as R; \
+#:   from repro.train.train_step import measure_rns_ops as m; \
+#:   c = dataclasses.replace(get_config('smollm-135m'), rns=R(qx=16, \
+#:   qw=16, qg=16), rns_targets='mlp'); \
+#:   print(m(c, {'tokens': jnp.zeros((8, 128), jnp.int32)}))"
+JAX_TRAIN_RNS_OPS = {"converts": 5, "matmuls": 3, "normalizes": 3,
+                     "fused": 0, "fallbacks": 0, "weight_converts": 3}
+#: step-1 loss on the card against the CPU port's on the same params and
+#: batch (float32 sums in other orders; 16-bit requantizations)
+TRAIN_CPU_TOL = 1e-4
+#: the kernels each RNS path must launch
+TRAIN_KERNELS = {
+    "rns": ("rns_convert", "rns_matmul", "rns_normalize"),
+    "fused": ("rns_convert", "rns_matmul", "rns_normalize", "rns_fused_dot"),
+    "deferred": ("rns_convert", "rns_fused_encode_matmul",
+                 "rns_fused_matmul_normalize", "rns_fused_dot")}
+
+
+def _train_cfg(arch: str, kind: str):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.rns_matmul import RnsDotConfig
+
+    cfg = get_config(arch)
+    if kind == "float":
+        return cfg
+    backend = "cuda" if kind == "rns" else "cuda_fused"
+    r = RnsDotConfig(**TRAIN_RNS, backend=backend, defer=kind == "deferred")
+    return dataclasses.replace(cfg, rns=r, rns_targets="mlp")
+
+
+def _host_state(torch, state: dict) -> list:
+    """Every parameter, m, v and the step of a train state, copied to the
+    host, in one order."""
+    from repro_torch.train.train_step import state_tree
+
+    t = state_tree(state)
+    return [x.detach().cpu() for x in (
+        *t["params"].values(), *t["opt"]["m"].values(),
+        *t["opt"]["v"].values(), t["opt"]["step"])]
+
+
+def _state_equal(torch, a, b) -> bool:
+    """Two train states (or their ``_host_state``) bit-equal: every
+    parameter, m, v and the step."""
+    a = a if isinstance(a, list) else _host_state(torch, a)
+    b = b if isinstance(b, list) else _host_state(torch, b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _loss_grads(torch, model, cfg, batch):
+    """(loss, {name: gradient}) of one eager loss evaluation."""
+    from repro_torch.models import model as M
+
+    params = dict(model.named_parameters())
+    loss, _ = M.loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _grad_diff(torch, got: dict, want: dict) -> tuple[float, str]:
+    """The largest |got - want| over all gradients, and its tensor."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        d = float((got[k].float().cpu() - w.float().cpu()).abs().max())
+        if d > worst:
+            worst, where = d, k
+    return worst, where
+
+
+#: the CPU port's step-1 check: its inputs, outputs and log
+TRAIN_CPU_DIR = ROOT / "build" / "train_cpu_check"
+
+
+def _split_cores() -> tuple[list[int], list[int]]:
+    """(this process's cores, the CPU check's) while the check runs: the
+    first quarter (at least 2) keeps the card's host loop, the check takes
+    the rest.  With fewer than 4 cores both share all of them."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 4:
+        return cores, cores
+    keep = max(2, len(cores) // 4)
+    return cores[:keep], cores[keep:]
+
+
+def _start_train_cpu_check(torch):
+    """Draw smollm-135m's seed-0 weights on the card (those [train]
+    draws) and the first batch, write them under TRAIN_CPU_DIR, and start
+    the CPU port's step 1 on them in a child process
+    (``--train-cpu-check``, on the cores :func:`_split_cores` gives it):
+    minutes of the plain MRC over [9, 1024, 1536] residues, run while the
+    card trains.  This thread moves to the other cores until
+    :func:`_stop_train_cpu_check`.  Returns the process."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import train_step as ts
+
+    shutil.rmtree(TRAIN_CPU_DIR, ignore_errors=True)
+    TRAIN_CPU_DIR.mkdir(parents=True)
+    model = ts.init_train_state(_train_cfg(TRAIN_ARCH, "rns"), 0,
+                                torch.device("cuda"))["model"]
+    tokens = SyntheticLM(DataConfig(**TRAIN_DATA)).batch(0)["tokens"]
+    torch.save({"masters": {n: p.detach().cpu()
+                            for n, p in model.named_parameters()},
+                "tokens": torch.as_tensor(tokens)}, TRAIN_CPU_DIR / "in.pt")
+    log = open(TRAIN_CPU_DIR / "log.txt", "w")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--train-cpu-check"], stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+    proc.all_cores = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, _split_cores()[0])
+    return proc
+
+
+def _stop_train_cpu_check(proc):
+    """Kill the child if it still runs; this thread gets its cores back."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    os.sched_setaffinity(0, proc.all_cores)
+
+
+def _finish_train_cpu_check(torch, proc) -> dict:
+    """Wait for the child (at most 15 min) and load what it wrote."""
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        _stop_train_cpu_check(proc)
+    if rc != 0:
+        tail = (TRAIN_CPU_DIR / "log.txt").read_text()[-3000:]
+        raise AssertionError(f"[train] the CPU check exited {rc}:\n{tail}")
+    return torch.load(TRAIN_CPU_DIR / "out.pt")
+
+
+def train_cpu_check() -> int:
+    """``--train-cpu-check``: the CPU port (plain versions, no remat) on
+    TRAIN_CPU_DIR's weights and batch: smollm-135m's per-op rns9 loss and
+    gradients and the fused deferred resident path's loss, in two threads
+    (each has serial stretches the other's ops fill), on the cores
+    :func:`_split_cores` leaves it.  No CUDA."""
+    cores = _split_cores()[1]
+    os.sched_setaffinity(0, cores)  # before torch starts its threads
+    os.nice(19)                     # the card's host loop comes first
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(len(cores))
+
+    from repro_torch.models import model as M
+    from repro_torch.models.resident import attach_resident
+
+    inp = torch.load(TRAIN_CPU_DIR / "in.pt")
+    batch = {"tokens": inp["tokens"]}
+    out: dict = {}
+
+    def cpu_model(c):
+        m = M.Model(c, device="cpu")
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p.copy_(inp["masters"][n])
+        return m
+
+    def plain(kind):
+        c = _train_cfg(TRAIN_ARCH, kind)
+        return dataclasses.replace(c, remat="none", rns=dataclasses.replace(
+            c.rns, backend="reference"))
+
+    def rns():
+        t0 = time.perf_counter()
+        c = plain("rns")
+        out["rns"] = _loss_grads(torch, cpu_model(c).requires_grad_(True),
+                                 c, batch)
+        out["rns_s"] = time.perf_counter() - t0
+
+    def deferred():
+        t0 = time.perf_counter()
+        d = plain("deferred")
+        with torch.no_grad():
+            out["deferred"] = M.loss_fn(attach_resident(cpu_model(d), d), d,
+                                        batch)[0]
+        out["deferred_s"] = time.perf_counter() - t0
+
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception:           # reported through the exit code
+            errors.append(traceback.format_exc())
+
+    threads = [threading.Thread(target=run, args=(fn,))
+               for fn in (rns, deferred)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        print("\n".join(errors), file=sys.stderr)
+        return 1
+    torch.save(out, TRAIN_CPU_DIR / "out.pt")
+    return 0
+
+
+def _kernel_nodes(graph) -> dict:
+    """The RNS kernel nodes of a captured graph, by kernel."""
+    nodes: dict = {}
+    for name in _graph_kernel_names(graph):
+        kind = _kernel_kind(name)
+        if kind is not None:
+            nodes[kind] = nodes.get(kind, 0) + 1
+    return nodes
+
+
+def _train_path(torch, label: str, cfg, steps: int, launches: dict, *,
+                eager: int = 0, resident: bool = False, data=None,
+                compare: bool = True):
+    """``steps`` captured steps of ``cfg`` from the seed-0 weights (counts
+    from 0 before, read after: the python-counted launches of the warm-up
+    and capture plus the graph's kernel nodes times the replays after
+    the first), and ``eager`` eager steps from the same weights (timed;
+    with ``compare``, held to the captured ones bit for bit).  Returns
+    (numbers, captured state, TrainStep)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import train_step as ts
+
+    data = data or SyntheticLM(DataConfig(**TRAIN_DATA))
+    opt = AdamWConfig(lr=3e-3, warmup_steps=max(10, steps // 20),
+                      total_steps=steps)
+    dev = torch.device("cuda")
+    out = {"steps": steps, "tokens_per_step": TRAIN_DATA["seq_len"]
+           * TRAIN_DATA["global_batch"], "grad_accum": cfg.grad_accum,
+           "remat": cfg.remat}
+    gc.collect()                    # the previous path's state and graph
+    torch.cuda.empty_cache()
+    eager_state = eager_losses = None
+    if eager:
+        eager_state = ts.init_train_state(cfg, 0, dev)
+        step = ts.make_train_step(cfg, opt, resident_weights=resident,
+                                  graphs=False)
+        times, eager_losses = [], []
+        for i in range(eager):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(eager_state, data.batch(i))
+            eager_losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        out["step_ms_eager"] = statistics.median(times) * 1e3
+        eager_state = _host_state(torch, eager_state) if compare else None
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(cfg, 0, dev)
+    step = ts.make_train_step(cfg, opt, resident_weights=resident)
+    _reset_launches()
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, data.batch(i))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if compare and eager and i + 1 == eager:
+            if losses != eager_losses or not _state_equal(torch, state,
+                                                          eager_state):
+                raise AssertionError(
+                    f"[train] {label}: captured steps {losses} differ "
+                    f"from eager {eager_losses}")
+            out["captured_equals_eager_steps"] = eager
+            del eager_state
+    counted = _launches()
+    nodes = _kernel_nodes(step.program.graph)
+    launches[f"train_{label}"] = {
+        k: counted[k] + nodes.get(k, 0) * (steps - 1) for k in counted}
+    if step.captures != 1:
+        raise AssertionError(f"[train] {label}: {step.captures} captures")
+    med = statistics.median(times[1:]) * 1e3
+    out.update(step_ms_captured=med, first_step_s=times[0],
+               tokens_per_s=out["tokens_per_step"] / med * 1e3,
+               rns_kernels_per_step=sum(nodes.values()), by_kernel=nodes,
+               all_kernel_nodes=len(_graph_kernel_names(step.program.graph)),
+               captures=step.captures, losses=losses,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out, state, step
+
+
+def phase_train(torch, launches: dict, record: dict):
+    """[train] (:func:`_train_paths`) beside the CPU port's step 1 in a
+    child process (:func:`_start_train_cpu_check`), killed if [train]
+    fails before reading it."""
+    proc = _start_train_cpu_check(torch)
+    try:
+        return _train_paths(torch, launches, record, proc)
+    finally:
+        _stop_train_cpu_check(proc)
+
+
+def _train_paths(torch, launches: dict, record: dict, proc):
+    """Training at published width (A slice 4a): smollm-135m whole, float
+    (20 captured steps, the loss down by 0.3; the first 3 equal 3 eager
+    steps bit for bit), per-op rns9 at 16 bits with the RNS backward (the
+    first step's loss and gradients on the kernels bit-equal to
+    ``backend="reference"`` on the card, the loss within TRAIN_CPU_TOL of
+    the CPU port's, ``measure_rns_ops`` = JAX's x 30), the same on
+    ``cuda_fused`` (bit-equal to per-op), fused deferred with resident
+    weights (B.5 and B.6 forward, the float backward; masters move, the
+    optimizer holds no digits); tinyllama-1.1b whole, float and per-op,
+    ``grad_accum=2``; a resumed run bit-equal to an uninterrupted one;
+    every distinct B.1-B.6 call of the eager steps bit-equal to its plain
+    version, checked and timed.  ``proc``: the CPU port's step 1, read
+    last."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.resident import attach_resident
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    smi = _smi()
+    data = SyntheticLM(DataConfig(**TRAIN_DATA))
+    batch0 = {"tokens": torch.as_tensor(data.batch(0)["tokens"], device=dev)}
+    results, calls = {}, {}
+
+    def report(label, out):
+        out["card"] = smi
+        results[label] = out
+        print(json.dumps({f"train_{label}": out}), flush=True)
+
+    cfg = _train_cfg(TRAIN_ARCH, "rns")
+    ref = dataclasses.replace(cfg, rns=dataclasses.replace(
+        cfg.rns, backend="reference"))
+    dcfg = _train_cfg(TRAIN_ARCH, "deferred")
+    model = ts.init_train_state(cfg, 0, dev)["model"]
+    masters = torch.load(TRAIN_CPU_DIR / "in.pt")["masters"]
+    if not all(torch.equal(p.detach().cpu(), masters[n])
+               for n, p in model.named_parameters()):
+        raise AssertionError("[train] the CPU check's weights are not the "
+                             "seed-0 weights drawn here")
+    del masters
+
+    # 1. float: 20 captured steps, the first 3 = 3 eager steps
+    out = _train_path(torch, "float", _train_cfg(TRAIN_ARCH, "float"),
+                      TRAIN_STEPS, launches, eager=3, data=data)[0]
+    drop = out["losses"][0] - out["losses"][-1]
+    out["loss_drop"] = drop
+    report("float", out)
+    if not drop >= TRAIN_LOSS_DROP:
+        raise AssertionError(f"[train] float: loss fell {drop} < "
+                             f"{TRAIN_LOSS_DROP} in {TRAIN_STEPS} steps")
+
+    # 2.-4. step 1 of per-op rns9, fused and fused deferred resident on
+    # the card: the kernels' loss and gradients vs the plain versions on
+    # the card, fused vs per-op; op counts vs JAX
+    with _recording(torch, calls):
+        loss_k, grads_k = _loss_grads(torch, model, cfg, batch0)
+    loss_r, grads_r = _loss_grads(torch, model, ref, batch0)
+    bad = [k for k in grads_k if not torch.equal(grads_k[k], grads_r[k])]
+    if not torch.equal(loss_k, loss_r) or bad:
+        raise AssertionError(f"[train] rns: kernels vs reference on the "
+                             f"card: loss {float(loss_k)} / {float(loss_r)}, "
+                             f"{len(bad)} gradients differ, e.g. {bad[:3]}")
+    del grads_r
+    ops = ts.measure_rns_ops(model, cfg, batch0).as_dict()
+    want = {k: v * cfg.n_layers for k, v in JAX_TRAIN_RNS_OPS.items()}
+    if ops != want:
+        raise AssertionError(f"[train] measure_rns_ops {ops}, JAX x "
+                             f"{cfg.n_layers}: {want}")
+    fcfg = _train_cfg(TRAIN_ARCH, "fused")
+    with _recording(torch, calls):
+        loss_f, grads_f = _loss_grads(torch, model, fcfg, batch0)
+    bad = [k for k in grads_k if not torch.equal(grads_k[k], grads_f[k])]
+    if not torch.equal(loss_k, loss_f) or bad:
+        raise AssertionError(f"[train] fused vs per-op: loss {float(loss_f)}"
+                             f" / {float(loss_k)}, {len(bad)} gradients "
+                             f"differ, e.g. {bad[:3]}")
+    del grads_f
+    attach_resident(model, dcfg)
+    with _recording(torch, calls):
+        loss_d, _ = _loss_grads(torch, model, dcfg, batch0)
+    del model
+
+    # the captured runs of paths 2-4
+    out = _train_path(torch, "rns", cfg, 5, launches, eager=1,
+                      data=data)[0]
+    out.update(kernels_equal_reference=True, measure_rns_ops=ops)
+    report("rns", out)
+    rns_losses = out["losses"]
+    out = _train_path(torch, "fused", fcfg, 3, launches, eager=1,
+                      data=data)[0]
+    report("fused", out)
+    if out["losses"] != rns_losses[:3]:
+        raise AssertionError(f"[train] fused losses {out['losses']} != "
+                             f"per-op {rns_losses[:3]}")
+    out, state = _train_path(torch, "deferred", dcfg, 3, launches,
+                             eager=1, resident=True, data=data)[:2]
+    init = ts.init_train_state(dcfg, 0, dev)["model"]
+    moved = sum(not torch.equal(p, init.get_parameter(n))
+                for n, p in state["model"].named_parameters())
+    names = set(state["opt"]["m"])
+    params = {n for n, _ in state["model"].named_parameters()}
+    out.update(masters_moved=moved, opt_state_tensors=len(names))
+    report("deferred", out)
+    if moved != len(params) or names != params or any(
+            n.endswith(("_digits", "_scale")) for n in names):
+        raise AssertionError(f"[train] deferred: {moved} of {len(params)} "
+                             "masters moved, or digits in the opt state")
+    if out["losses"][0] != float(loss_d):
+        raise AssertionError(f"[train] deferred: captured step-1 loss "
+                             f"{out['losses'][0]} vs eager {float(loss_d)}")
+    del state, init
+    for label, kernels in TRAIN_KERNELS.items():
+        idle = [k for k in kernels if not launches[f"train_{label}"][k]]
+        if idle:
+            raise AssertionError(f"[train] {label}: {idle} never launched")
+
+    # 5. tinyllama-1.1b whole, grad_accum=2: float and per-op
+    for kind in ("float", "rns"):
+        big = _train_cfg(TRAIN_BIG, kind)
+        out = _train_path(torch, f"tinyllama_{kind}", big, 2, launches,
+                          eager=1, compare=False)[0]
+        report(f"tinyllama_{kind}", out)
+        print(f"  tinyllama {kind}: peak {out['peak_gib']:.2f} GiB on {smi}")
+        torch.cuda.empty_cache()
+
+    # 6. resume: 3 steps, a new Trainer restores step 3 and takes step 4
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=4)
+
+    def trainer(d, total, every=3):
+        return Trainer(cfg, opt, TrainerConfig(
+            total_steps=total, ckpt_every=every, ckpt_dir=str(d),
+            log_every=100, async_ckpt=False),
+            DataConfig(**TRAIN_DATA), device=dev)
+
+    replayed: dict = {}
+
+    def run(t):
+        # the counters see each Trainer's warm-up and capture; its graph's
+        # kernel nodes run once a step, the first step's replay counted
+        state, hist = t.run()
+        for k, n in _kernel_nodes(t.step_fn.program.graph).items():
+            replayed[k] = replayed.get(k, 0) + n * (len(hist) - 1)
+        return state, hist
+
+    _reset_launches()
+    state_a, hist_a = run(trainer(ckdir / "a", 4, every=4))
+    run(trainer(ckdir / "b", 3))
+    state_b, hist_b = run(trainer(ckdir / "b", 4))
+    counted = _launches()
+    launches["train_resume"] = {k: counted[k] + replayed.get(k, 0)
+                                for k in counted}
+    if hist_b != hist_a[3:] or not _state_equal(torch, state_a, state_b):
+        raise AssertionError(f"[train] resume: {hist_b} vs {hist_a[3:]}")
+    report("resume", {"uninterrupted": hist_a, "resumed_step_4": hist_b,
+                      "bit_equal": True})
+    del state_a, state_b
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # 7. every distinct B.1-B.6 call of the eager steps, bit for bit
+    for a, n in ((1024, 576), (1024, 1536)):
+        x = torch.randn((a, n), device=dev)
+        print(f"  contiguous copy of a transposed [{n},{a}] float32 view: "
+              f"{_time_ms(torch, lambda x=x: x.T.contiguous(), 20):.5f} ms "
+              f"on {smi}")
+    phase_kernels(torch, dev, record, calls, launches, main_path_only=True,
+                  seen=set(), tag="train ")
+    calls.clear()
+
+    # the CPU port's step 1 (the child process started with [train])
+    cpu_out = _finish_train_cpu_check(torch, proc)
+    loss_c, grads_c = cpu_out["rns"]
+    gdiff, gwhere = _grad_diff(torch, grads_k, grads_c)
+    check = {"rns_loss_card": float(loss_k), "rns_loss_cpu": float(loss_c),
+             "rns_loss_diff": abs(float(loss_k) - float(loss_c)),
+             "rns_max_grad_diff": gdiff, "rns_max_grad_diff_at": gwhere,
+             "rns_cpu_s": cpu_out["rns_s"],
+             "deferred_loss_card": float(loss_d),
+             "deferred_loss_cpu": float(cpu_out["deferred"]),
+             "deferred_loss_diff": abs(float(loss_d)
+                                       - float(cpu_out["deferred"])),
+             "deferred_cpu_s": cpu_out["deferred_s"]}
+    report("cpu", check)
+    if not (check["rns_loss_diff"] <= TRAIN_CPU_TOL
+            and check["deferred_loss_diff"] <= TRAIN_CPU_TOL):
+        raise AssertionError(f"[train] card vs CPU: {check}")
+    return results
+
+
 def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
     matmul_src = "src/repro_torch/kernels/rns_matmul/csrc/rns_matmul.cu"
     mma_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused_mma.cu"
@@ -3296,7 +3843,8 @@ def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
                        default={})
             by_path = {path: run.get(name, 0) for path, run in
                        launches.items()
-                       if path.startswith("serve") or path == "fractional"}
+                       if path.startswith(("serve", "train"))
+                       or path == "fractional"}
             n = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src,
@@ -3323,6 +3871,8 @@ def main() -> int:
         print("chip_smoke.py: run it from the root of a checkout "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--train-cpu-check"]:
+        return train_cpu_check()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -3379,7 +3929,8 @@ def main() -> int:
                                                       record)),
             ("serve_ssm", lambda: phase_serve_ssm(torch, launches, record)),
             ("serve_encdec", lambda: phase_serve_encdec(torch, launches,
-                                                        record))]:
+                                                        record)),
+            ("train", lambda: phase_train(torch, launches, record))]:
         if only is not None and name not in only:
             continue
         print(f"[{name}]", flush=True)

@@ -33,7 +33,8 @@ def _llama_like(arch_id, L, d, H, Hk, dff, vocab, *, d_head=None,
 def qwen25_32b() -> ModelConfig:
     # [hf:Qwen/Qwen2.5-32B-style scaling; QKV bias per Qwen2 family]
     return _llama_like("qwen2.5-32b", 64, 5120, 40, 8, 27648, 152064,
-                       d_head=128, qkv_bias=True, rope_theta=1_000_000.0)
+                       d_head=128, qkv_bias=True, rope_theta=1_000_000.0,
+                       grad_accum=4)
 
 
 def smollm_135m() -> ModelConfig:
@@ -45,13 +46,13 @@ def smollm_135m() -> ModelConfig:
 def tinyllama_11b() -> ModelConfig:
     # [arXiv:2401.02385]
     return _llama_like("tinyllama-1.1b", 22, 2048, 32, 4, 5632, 32000,
-                       d_head=64)
+                       d_head=64, grad_accum=2)
 
 
 def granite_3_8b() -> ModelConfig:
     # [hf:ibm-granite/granite-3.0 family]
     return _llama_like("granite-3-8b", 40, 4096, 32, 8, 12800, 49155,
-                       d_head=128, rope_theta=10_000_000.0)
+                       d_head=128, rope_theta=10_000_000.0, grad_accum=4)
 
 
 def whisper_medium() -> ModelConfig:
@@ -62,7 +63,7 @@ def whisper_medium() -> ModelConfig:
         n_heads=16, n_kv_heads=16, d_head=64, d_ff=4096, vocab=51865,
         qkv_bias=True, pos_emb="sinusoidal", norm="layernorm", act="gelu",
         gated_mlp=False, enc_dec=True, n_enc_layers=24, frontend="audio",
-        n_frontend_tokens=1500)
+        n_frontend_tokens=1500, grad_accum=2)
 
 
 def paligemma_3b() -> ModelConfig:
@@ -71,7 +72,7 @@ def paligemma_3b() -> ModelConfig:
         arch_id="paligemma-3b", family="vlm", n_layers=18, d_model=2048,
         n_heads=8, n_kv_heads=1, d_head=256, d_ff=16384, vocab=257216,
         act="gelu_tanh", tie_embeddings=True, emb_scale=True,
-        frontend="vision", n_frontend_tokens=256)
+        frontend="vision", n_frontend_tokens=256, grad_accum=2)
 
 
 def llama4_scout() -> ModelConfig:
@@ -81,7 +82,8 @@ def llama4_scout() -> ModelConfig:
         arch_id="llama4-scout-17b-a16e", family="moe", n_layers=L,
         d_model=5120, n_heads=40, n_kv_heads=8, d_head=128, d_ff=8192,
         vocab=202048, rope_theta=500_000.0, mlp_types=("moe",) * L,
-        moe=MoEConfig(n_experts=16, top_k=1, d_ff_expert=8192, n_shared=1))
+        moe=MoEConfig(n_experts=16, top_k=1, d_ff_expert=8192, n_shared=1),
+        grad_accum=8)
 
 
 def deepseek_v2_236b() -> ModelConfig:
@@ -93,7 +95,8 @@ def deepseek_v2_236b() -> ModelConfig:
         layer_types=("mla",) * L, mlp_types=("moe",) * L,
         mla=MLAConfig(kv_lora_rank=512, q_lora_rank=1536, qk_nope_dim=128,
                       qk_rope_dim=64, v_dim=128),
-        moe=MoEConfig(n_experts=160, top_k=6, d_ff_expert=1536, n_shared=2))
+        moe=MoEConfig(n_experts=160, top_k=6, d_ff_expert=1536, n_shared=2),
+        grad_accum=8)
 
 
 def jamba_52b() -> ModelConfig:
@@ -108,7 +111,8 @@ def jamba_52b() -> ModelConfig:
         mlp_types=tuple("moe" if i % 2 == 1 else "dense" for i in range(L)),
         pos_emb="none",
         ssm=SSMConfig(kind="mamba", d_state=16, d_conv=4, expand=2),
-        moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=14336))
+        moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=14336),
+        grad_accum=8)
 
 
 def rwkv6_7b() -> ModelConfig:
@@ -119,7 +123,8 @@ def rwkv6_7b() -> ModelConfig:
         n_heads=64, n_kv_heads=64, d_head=64, d_ff=14336, vocab=65536,
         layer_types=("rwkv",) * L, mlp_types=("channelmix",) * L,
         pos_emb="none", norm="layernorm",
-        ssm=SSMConfig(kind="rwkv6", head_dim=64, impl="chunked", chunk=64))
+        ssm=SSMConfig(kind="rwkv6", head_dim=64, impl="chunked", chunk=64),
+        grad_accum=4)
 
 
 def _smoke_of(full: ModelConfig, **over) -> ModelConfig:
@@ -129,11 +134,13 @@ def _smoke_of(full: ModelConfig, **over) -> ModelConfig:
     (dropless: ``capacity_factor`` 8 >= E/k), MLA to ranks 32/48 and an
     SSM to state 4, head 16, chunks of 32 -- with the default
     ``impl="scan"``, so the RWKV-6 twin runs the stepwise recurrence
-    where the full config runs the chunked one (as in JAX)."""
+    where the full config runs the chunked one (as in JAX); float32
+    parameters, no rematerialization and one microbatch a step."""
     base = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
                 d_ff=128, vocab=256,
                 n_frontend_tokens=8 if full.n_frontend_tokens else 0,
-                n_enc_layers=2 if full.enc_dec else 0)
+                n_enc_layers=2 if full.enc_dec else 0,
+                param_dtype="float32", remat="none", grad_accum=1)
     base.update(over)
     L = base["n_layers"]
     if len(set(full.layer_types)) == 1:

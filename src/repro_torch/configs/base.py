@@ -70,6 +70,12 @@ class ModelConfig:
     # numerics / paper technique: the RNS datapath on these targets
     rns: RnsDotConfig | None = None
     rns_targets: str = "mlp"               # mlp|attn|all
+    # training: parameter dtype (float32 only in the port), rematerial-
+    # ization per layer ("full": each layer's activations recomputed in
+    # the backward, torch.utils.checkpoint) and microbatches a step
+    param_dtype: str = "float32"
+    remat: str = "full"                    # none|full
+    grad_accum: int = 1
     # sliding-window attention (None: full): query q attends keys
     # [q - attn_window + 1, q]; the serving engines set it from
     # ServeConfig.window_tokens
@@ -88,6 +94,8 @@ class ModelConfig:
         assert len(self.mlp_types) == self.n_layers
         if self.pos_emb not in POS_EMB:
             raise ValueError(f"pos_emb={self.pos_emb!r}: one of {POS_EMB}")
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat={self.remat!r}: none or full")
 
     @property
     def period(self) -> int:

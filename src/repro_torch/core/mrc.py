@@ -22,20 +22,21 @@ __all__ = ["mrc_digits", "is_negative_digits", "is_negative",
 
 
 def mrc_digits(profile, res: torch.Tensor) -> torch.Tensor:
-    """Mixed-radix digits d with X = sum_j d_j * prod_{i<j} m_i."""
+    """Mixed-radix digits d with X = sum_j d_j * prod_{i<j} m_i.  Step i
+    updates only the residues of moduli i+1.. (the others are done)."""
     t = tables(profile)
     K = t.profile.n_digits
     m = moduli_vec(profile, res.ndim, res.device)
     inv = on_device(t.profile, "mrc_inv", res.device)
-    r = res.to(torch.int32)
+    r = res.to(torch.int32)             # residues of moduli i..K-1
     digits = []
     for i in range(K):
-        d = r[i]
+        d = r[0]
         digits.append(d)
         if i + 1 < K:
-            inv_i = inv[i].reshape((-1,) + (1,) * (res.ndim - 1))
+            inv_i = inv[i, i + 1:].reshape((-1,) + (1,) * (res.ndim - 1))
             # (r - d) may be negative: remainder() is a floor-mod
-            r = torch.remainder((r - d[None]) * inv_i, m)
+            r = torch.remainder((r[1:] - d[None]) * inv_i, m[i + 1:])
     return torch.stack(digits, dim=0)
 
 
@@ -124,6 +125,20 @@ def scaled_weights(profile, inv_scale: float, dtype: torch.dtype,
                            else w64.astype(np.float64), device=device)
 
 
+def _negated_digits(p, d: torch.Tensor) -> torch.Tensor:
+    """The mixed-radix digits of M - X from those of X (0 < X < M): the
+    complement M - 1 - X has digits m_j - 1 - d_j, and the one added
+    carries up while a digit wraps to m_j.  Mixed-radix digits are
+    unique, so these are the digits an MRC of M - X gives."""
+    out, carry = [], torch.ones_like(d[0])
+    for j, mj in enumerate(int(m) for m in p.moduli):
+        e = (mj - 1) - d[j] + carry
+        wrap = e == mj
+        out.append(torch.where(wrap, 0, e))
+        carry = wrap.to(d.dtype)
+    return torch.stack(out)
+
+
 def decode_float(profile, res: torch.Tensor, inv_scale: float = 1.0,
                  dtype=torch.float32) -> torch.Tensor:
     """Signed float reconstruction: value * inv_scale.
@@ -137,10 +152,9 @@ def decode_float(profile, res: torch.Tensor, inv_scale: float = 1.0,
     (ROADMAP C.9).
     """
     p = get_profile(profile)
-    m = moduli_vec(p, res.ndim, res.device)
-    neg = is_negative(p, res)
-    mag = torch.where(neg[None], torch.remainder(m - res, m), res)
-    d = mrc_digits(p, mag)
+    d = mrc_digits(p, res)
+    neg = is_negative_digits(p, d)
+    d = torch.where(neg[None], _negated_digits(p, d), d)
     if inv_scale == 1.0 and dtype == torch.float32:
         w = on_device(p, "W_f32", res.device)
     else:

@@ -71,9 +71,12 @@ def absmax_scale(x: torch.Tensor, bits: int, axis=None, eps: float = 1e-12,
     """float32 scale s such that round(x*s) uses <= ``bits`` signed bits.
 
     ``qmax / amax`` is a true float32 division (``qmax / tensor`` in
-    PyTorch would multiply by a reciprocal and round differently).
+    PyTorch would multiply by a reciprocal and round differently).  The
+    scale is detached: no gradient flows through it (the JAX package
+    stop-gradients it; the quantizer's gradient is straight-through).
     """
     qmax = float(2 ** (bits - 1) - 1)
+    x = x.detach()
     if mask is None and axis is None:
         ctx = _context_mask_for(x)
         if ctx is not None:

@@ -5,10 +5,15 @@
       per-slice matmul, lazy modular reduction
   residues [K, ..., N] --MRC normalize--> float y
 
-Serving is forward-only, so ``rns_dot``/``rns_multi_dot`` and the
-resident dots here are the forward of ``repro.core.rns_matmul``'s (the
-custom_vjp comes with the training slice).  On a fused backend each
-projection is one fused kernel (``dispatch.fused_dot``).
+Training: ``rns_dot`` and ``rns_multi_dot`` are ``torch.autograd.Function``s
+with the JAX package's straight-through gradients (its ``custom_vjp``s):
+the quantizer passes gradients through unchanged, and with
+``RnsDotConfig.backward_rns`` (the default) the backward's two products,
+``gx = g @ w.T`` and ``gw = x.T @ g``, run through the RNS datapath too,
+on the forward's backend; otherwise they are float matmuls.  Under
+``torch.no_grad`` / ``inference_mode`` (serving) only the forward runs.
+On a fused backend each projection is one fused kernel
+(``dispatch.fused_dot``).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from repro_torch.core.quantize import absmax_scale
 from repro_torch.core.rns import moduli_vec
 
 __all__ = ["RnsDotConfig", "modular_matmul", "rns_matmul_res", "rns_dot",
-           "rns_multi_dot", "rns_resident_dot", "rns_resident_multi_dot"]
+           "rns_dot_fwd_only", "rns_multi_dot", "rns_resident_dot",
+           "rns_resident_multi_dot"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,12 +37,22 @@ class RnsDotConfig:
     profile: str = "rns9"
     qx: int = 16            # activation fixed-point bits
     qw: int = 16            # weight fixed-point bits
+    qg: int = 16            # gradient fixed-point bits (backward)
     # "auto" (None) | "reference" | "cuda" | "cuda_fused" -- see
     # core/dispatch.py
     backend: str | None = None
+    backward_rns: bool = True   # the backward's products through RNS too
     # residue-domain chaining: the MLP block runs wi -> gate multiply ->
     # wo in residues with one main-path normalize (models/layers.py)
     defer: bool = False
+    # digit slices sharded over a model mesh axis: the distributed slice
+    slice_parallel: bool = False
+
+    def __post_init__(self):
+        if self.slice_parallel:
+            raise NotImplementedError(
+                "RnsDotConfig.slice_parallel shards digit slices over a "
+                "mesh: it comes with the distributed slice (ROADMAP A.11)")
 
 
 def _check_capacity(cfg: RnsDotConfig, contract_dim: int, qa: int, qb: int):
@@ -50,14 +66,15 @@ def _check_capacity(cfg: RnsDotConfig, contract_dim: int, qa: int, qb: int):
 
 
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Integer product-sum of residues through a float64 matmul.
+    """Integer product-sum of residues through a float64 matmul, as
+    float64.
 
     Exact: every partial sum is an integer below chunk * (m-1)**2 < 2**31,
-    far inside float64's 2**53 of exact integers.  (CUDA PyTorch has no
+    far inside float64's 2**53 of exact integers, and a float remainder
+    of such integers is exact too (IEEE fmod).  (CUDA PyTorch has no
     integer matmul; float64 keeps this on the operand's device.)
     """
-    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
-        torch.int64)
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64))
 
 
 def modular_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
@@ -70,7 +87,7 @@ def modular_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
     K, D = a_res.shape[0], a_res.shape[-1]
     lead = a_res.shape[1:-1]
     a2 = a_res.reshape(K, -1, D)
-    m = mvec.reshape(K, 1, 1).to(torch.int64)
+    m = mvec.reshape(K, 1, 1).to(torch.float64)
     acc = None
     for c in range(-(-D // chunk)):
         sl = slice(c * chunk, min((c + 1) * chunk, D))
@@ -105,23 +122,66 @@ def _fused_path(cfg: RnsDotConfig) -> bool:
     return dispatch.fusion_active(cfg.profile, cfg.backend)
 
 
-def rns_dot(x: torch.Tensor, w: torch.Tensor, cfg: RnsDotConfig):
-    """y = x @ w through the RNS digit-sliced datapath (forward)."""
-    _check_capacity(cfg, x.shape[-1], cfg.qx, cfg.qw)
+def _rns_matmul_float(cfg: RnsDotConfig, x: torch.Tensor, w: torch.Tensor,
+                      qa: int, qb: int, w_static: bool = True):
+    """The float -> float RNS product x @ w, no autograd: the forward of
+    :func:`rns_dot` and each product of its RNS backward.  ``w_static``:
+    whether ``w`` is a model weight (its convert tallies a
+    ``weight_converts``; the backward's weight gradient passes False for
+    its cotangent operand)."""
+    _check_capacity(cfg, x.shape[-1], qa, qb)
     if _fused_path(cfg):
-        sx = absmax_scale(x, cfg.qx)
-        b_res, sw = _encode_operand(cfg, w, cfg.qw, weight=True)
-        y = dispatch.fused_dot(cfg.profile, x, sx, b_res, bits=cfg.qx,
+        sx = absmax_scale(x, qa)
+        b_res, sw = _encode_operand(cfg, w, qb, weight=w_static)
+        y = dispatch.fused_dot(cfg.profile, x, sx, b_res, bits=qa,
                                backend=cfg.backend)
         return _unscale(y, sx, sw)
-    a_res, sx = _encode_operand(cfg, x, cfg.qx)
-    b_res, sw = _encode_operand(cfg, w, cfg.qw, weight=True)
+    a_res, sx = _encode_operand(cfg, x, qa)
+    b_res, sw = _encode_operand(cfg, w, qb, weight=w_static)
     y_res = dispatch.matmul(cfg.profile, a_res, b_res, backend=cfg.backend)
     y = dispatch.normalize(cfg.profile, y_res, backend=cfg.backend)
     return _unscale(y, sx, sw)
 
 
-def rns_multi_dot(x: torch.Tensor, ws: tuple, cfg: RnsDotConfig):
+class _RnsDot(torch.autograd.Function):
+    """``rns_dot``'s straight-through gradients (JAX's ``_rns_dot_bwd``):
+    ``gx = g @ w.T`` at (qg, qw) bits and ``gw = x.T @ g`` at (qx, qg)
+    bits through RNS under ``backward_rns``, float matmuls otherwise."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, w)
+        return _rns_matmul_float(cfg, x, w, cfg.qx, cfg.qw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        xf = x.reshape(-1, x.shape[-1])                     # [T, D]
+        gf = g.reshape(-1, g.shape[-1])                     # [T, N]
+        if cfg.backward_rns:
+            gx = _rns_matmul_float(cfg, gf, w.T, cfg.qg, cfg.qw)
+            gw = _rns_matmul_float(cfg, xf.T, gf, cfg.qx, cfg.qg,
+                                   w_static=False)
+        else:
+            gx, gw = gf @ w.T, xf.T @ gf
+        return gx.reshape(x.shape).to(x.dtype), gw.to(w.dtype), None
+
+
+def rns_dot(x: torch.Tensor, w: torch.Tensor, cfg: RnsDotConfig):
+    """y = x @ w through the RNS digit-sliced datapath: x [..., D] float32,
+    w [D, N] float32.  Differentiable (straight-through quantizer, RNS
+    backward products under ``cfg.backward_rns``)."""
+    return _RnsDot.apply(x, w, cfg)
+
+
+def rns_dot_fwd_only(x: torch.Tensor, w: torch.Tensor, cfg: RnsDotConfig):
+    """The inference entry: :func:`rns_dot`'s forward, no autograd."""
+    return _rns_matmul_float(cfg, x, w, cfg.qx, cfg.qw)
+
+
+def _rns_multi_impl(cfg: RnsDotConfig, x: torch.Tensor, ws):
     """(x @ w for w in ws) with ONE shared forward conversion of x.  On a
     fused backend every weight's kernel quantizes x on the same grid, and
     ``shared_encode`` keeps the tally at one conversion."""
@@ -144,6 +204,57 @@ def rns_multi_dot(x: torch.Tensor, ws: tuple, cfg: RnsDotConfig):
         y = dispatch.normalize(cfg.profile, y_res, backend=cfg.backend)
         outs.append(_unscale(y, sx, sw))
     return tuple(outs)
+
+
+def _normalized(cfg: RnsDotConfig, a_res, b_res, sa, sb):
+    y = dispatch.matmul(cfg.profile, a_res, b_res, backend=cfg.backend)
+    return _unscale(dispatch.normalize(cfg.profile, y, backend=cfg.backend),
+                    sa, sb)
+
+
+class _RnsMulti(torch.autograd.Function):
+    """``rns_multi_dot``'s straight-through gradients (JAX's
+    ``_rns_multi_bwd``).  Under ``backward_rns`` the backward shares
+    conversions as the forward does: ``x.T`` is encoded once for every
+    weight's gradient and each cotangent once for its two products, on
+    the primitives of the forward's backend (a fused backend's unfused
+    kernels); ``gx`` sums the weights' terms in order from zeros."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *ws):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *ws)
+        return _rns_multi_impl(cfg, x, ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        cfg = ctx.cfg
+        xf = x.reshape(-1, x.shape[-1])                     # [T, D]
+        gx = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+        gws = []
+        if cfg.backward_rns:
+            _check_capacity(cfg, xf.shape[0], cfg.qx, cfg.qg)
+            xt_res, sxt = _encode_operand(cfg, xf.T, cfg.qx)   # [K, D, T]
+        for w, g in zip(ws, gs):
+            gf = g.reshape(-1, g.shape[-1])                 # [T, N_i]
+            if cfg.backward_rns:
+                _check_capacity(cfg, gf.shape[-1], cfg.qg, cfg.qw)
+                g_res, sg = _encode_operand(cfg, gf, cfg.qg)
+                wt_res, sw = _encode_operand(cfg, w.T, cfg.qw, weight=True)
+                gx_i = _normalized(cfg, g_res, wt_res, sg, sw)
+                gw = _normalized(cfg, xt_res, g_res, sxt, sg)
+            else:
+                gx_i, gw = gf @ w.T, xf.T @ gf
+            gx = gx + gx_i
+            gws.append(gw.to(w.dtype))
+        return (None, gx.reshape(x.shape).to(x.dtype), *gws)
+
+
+def rns_multi_dot(x: torch.Tensor, ws: tuple, cfg: RnsDotConfig):
+    """(x @ w for w in ws) with ONE shared forward conversion of x;
+    differentiable as :func:`rns_dot`."""
+    return _RnsMulti.apply(cfg, x, *ws)
 
 
 # --------------------------------------------- resident-weight forwards ----

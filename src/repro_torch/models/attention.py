@@ -18,6 +18,13 @@ same float ops whether it is prefilled with its whole prompt, in a
 packed chunk, or decoded in a batch of any size (ROADMAP C.10).  The
 JAX package's prefill computes the same function as an online softmax
 over KV chunks.
+
+Training (``gqa_attend(mode="dense" | "flash")``) attends as the JAX
+package's train mode does, in plain PyTorch with autograd:
+:func:`dense_attention` for up to ``cfg.attn_dense_max`` tokens, else the
+q-tiled online softmax :func:`flash_attention` (JAX's ``jnp`` one, not the
+Pallas kernel, which has no gradient), each KV chunk's body recomputed
+in the backward.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.quantize import current_token_mask, token_mask
@@ -34,7 +42,8 @@ from repro_torch.core.rns_matmul import rns_multi_dot
 from repro_torch.models.layers import (RMSNorm, _param, bmm_rows, linear,
                                        matmul_rows, tree_sum)
 
-__all__ = ["rope", "lane_attention", "Attention", "gqa_qkv", "gqa_attend",
+__all__ = ["rope", "lane_attention", "dense_attention", "chunked_attention",
+           "flash_attention", "Attention", "gqa_qkv", "gqa_attend",
            "cross_decode", "gqa_decode", "gqa_decode_paged",
            "gqa_decode_paged_window",
            "gqa_decode_packed", "MLA", "mla_qkv", "mla_attend",
@@ -183,6 +192,118 @@ def lane_attention(q, k, v, lengths, window=None, *, scale_dim=None,
     return torch.cat(outs).to(qs[0].dtype)
 
 
+def _gqa_scores(q, k):
+    """q [B, Tq, H, D], k [B, Tk, Hk, D] float32 -> scores [B, Hk, G, Tq,
+    Tk] divided by sqrt(D)."""
+    B, Tq, H, D = q.shape
+    Hk = k.shape[2]
+    qg = q.reshape(B, Tq, Hk, H // Hk, D)
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / _scale(D, q.device)
+
+
+def _keep(qpos, kpos, window):
+    """[Tq, Tk] the keys each query sees causally (``window``: only the
+    last ``window`` of them)."""
+    keep = qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        keep = keep & (qpos[:, None] - kpos[None, :] < window)
+    return keep
+
+
+def dense_attention(q, k, v, *, causal: bool, kv_mask=None, window=None):
+    """Training-mode attention (JAX's ``dense_attention``): q [B, Tq, H,
+    D], k [B, Tk, Hk, D], v [B, Tk, Hk, Dv]; ``kv_mask`` [B, Tk] optional;
+    ``window`` a sliding window (causal only).  Masked scores are
+    NEG_INF; the softmax's max takes no gradient, as ``jax.nn.softmax``'s."""
+    scores = _gqa_scores(q.to(torch.float32), k.to(torch.float32))
+    Tq, Tk = scores.shape[-2:]
+    if causal:
+        keep = _keep(torch.arange(Tq, device=q.device),
+                     torch.arange(Tk, device=q.device), window)
+        scores = torch.where(keep, scores, NEG_INF)
+    if kv_mask is not None:
+        scores = torch.where(kv_mask[:, None, None, None, :], scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True).detach()
+    e = torch.exp(scores - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    B, Hk, G = probs.shape[:3]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(B, Tq, Hk * G, v.shape[-1]).to(q.dtype)
+
+
+def _chunk_body(qf, kb, vb, mb, c, m, l, acc, *, chunk: int, qpos, causal,
+                window):
+    """One KV chunk of :func:`chunked_attention`'s online softmax."""
+    D = qf.shape[-1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.to(torch.float32))
+    s = s / _scale(D, qf.device)
+    kpos = c * chunk + torch.arange(chunk, device=qf.device)
+    valid = mb[:, None, None, None, :]
+    if causal:
+        valid = valid & _keep(qpos, kpos, window)[None, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p, vb.to(torch.float32))
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024,
+                      kv_mask=None, q_offset=0, window=None):
+    """JAX's ``chunked_attention``: an online softmax over KV chunks of
+    ``chunk`` keys (the last zero-padded and masked), each chunk's body
+    recomputed in the backward (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint``).  A fully masked chunk adds exactly nothing (its
+    weights are cancelled by the next valid chunk's correction)."""
+    B, Tq, H, D = q.shape
+    Tk, Hk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hk
+    nchunk = -(-Tk // chunk)
+    pad = nchunk * chunk - Tk
+    if kv_mask is None:
+        kv_mask = torch.ones((B, Tk), dtype=torch.bool, device=q.device)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_mask = F.pad(kv_mask, (0, pad))
+    qf = q.to(torch.float32).reshape(B, Tq, Hk, G, D)
+    qpos = torch.arange(Tq, device=q.device) + q_offset
+    m = torch.full((B, Hk, G, Tq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hk, G, Tq), device=q.device)
+    acc = torch.zeros((B, Hk, G, Tq, Dv), device=q.device)
+    body = functools.partial(_chunk_body, chunk=chunk, qpos=qpos,
+                             causal=causal, window=window)
+    for c in range(nchunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        args = (qf, k[:, sl], v[:, sl], kv_mask[:, sl], c, m, l, acc)
+        if torch.is_grad_enabled():
+            m, l, acc = torch.utils.checkpoint.checkpoint(
+                body, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            m, l, acc = body(*args)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, Dv).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool, kv_mask=None,
+                    q_chunk: int = 512, kv_chunk: int = 1024, window=None):
+    """JAX's ``jnp`` ``flash_attention``: q in tiles of ``q_chunk`` (the
+    last zero-padded), each tile a :func:`chunked_attention` over the KV
+    chunks at its own query offset: O(T) live memory forward and
+    backward."""
+    B, Tq, H, D = q.shape
+    nq = -(-Tq // q_chunk)
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - Tq))
+    outs = [chunked_attention(qp[:, i * q_chunk:(i + 1) * q_chunk], k, v,
+                              causal=causal, kv_mask=kv_mask, chunk=kv_chunk,
+                              q_offset=i * q_chunk, window=window)
+            for i in range(nq)]
+    return torch.cat(outs, dim=1)[:, :Tq]
+
+
 class Attention(nn.Module):
     """GQA projection weights: wq [d, H*D], wk/wv [d, Hk*D], wo [H*D, d],
     and under ``cfg.qkv_bias`` the biases bq [H*D], bk/bv [Hk*D] (zero
@@ -231,7 +352,8 @@ def gqa_qkv(p: Attention, x, cfg, positions, rns=None):
     return q, k, v.reshape(B, T, Hk, D)
 
 
-def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None):
+def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None,
+               mode: str = "prefill"):
     """Self-attention over a whole (padded) prompt, causal unless
     ``cfg.causal`` is False, or, with ``xkv`` [B, Tk, d] (the encoder's
     output), cross-attention: q from ``x`` through ``wq``, k and v from
@@ -247,9 +369,22 @@ def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None):
     one call over all keys: whisper's causal encoder reads 58% of its
     1500 x 1500 scores); the lanes of a call go through in as few passes
     as ``PREFILL_LANE_ELEMS`` allows (the result does not depend on
-    it)."""
+    it).
+
+    ``mode`` "dense" or "flash" (training, self-attention only): the
+    sequence through :func:`dense_attention` or :func:`flash_attention`
+    (JAX's train modes, with its chunk sizes) instead of lanes."""
     B, T, _ = x.shape
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if mode in ("dense", "flash"):
+        positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        q, k, v = gqa_qkv(p, x, cfg, positions, rns)
+        fn = dense_attention if mode == "dense" else flash_attention
+        out = fn(q, k, v, causal=cfg.causal,
+                 window=cfg.attn_window if cfg.causal else None)
+        return linear(p.wo, out.reshape(B, T, -1), rns), (k, v)
+    if mode != "prefill":
+        raise ValueError(f"mode={mode!r}: prefill, dense or flash")
     if xkv is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
         q, k, v = gqa_qkv(p, x, cfg, positions, rns)

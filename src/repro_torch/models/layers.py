@@ -17,6 +17,12 @@ fixed tree of elementwise adds, so a row's result is the same float ops
 whatever other rows share its call: a whole prompt, a packed step's
 lanes or a decode batch (ROADMAP C.10).
 
+Training: the RNS MLP paths have the JAX package's straight-through
+backwards -- :func:`mlp_rns_deferred` and :func:`mlp_rns_resident_perop`
+differentiate the float MLP over the masters (resident digits take no
+gradient), :func:`rns_linear_chain` the float chain -- and
+:func:`matmul_rows` records its blocks for autograd when it must.
+
 Weight encoding: the JAX engine's steps run under ``jit``, where weights
 are tracers and bypass its encode cache, so every step re-encodes the
 MLP weights (3 weight converts per layer).  The port does the same, so
@@ -48,7 +54,7 @@ from repro_torch.core.tensor import (RnsTensor, rt_decode, rt_dot, rt_encode,
 __all__ = ["ROW_BLOCK", "matmul_rows", "bmm_rows", "tree_sum",
            "init_normal_", "linear", "RMSNorm", "rmsnorm", "LayerNorm",
            "layernorm", "norm", "embed", "unembed", "sinusoidal_positions",
-           "act_fn",
+           "act_fn", "rns_linear_chain",
            "MLP", "mlp", "mlp_rns_deferred", "mlp_rns_resident_perop"]
 
 
@@ -65,7 +71,9 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     shape for every call, a row's result no longer depends on how many
     rows were batched with it, so a prompt prefilled in packed chunks
     gets the same floats as prefilled whole, and a decode lane of a
-    packed step those of the decode step (ROADMAP C.10).
+    packed step those of the decode step (ROADMAP C.10).  Where autograd
+    records (a training step), the blocks are concatenated instead of
+    written in place: the same calls, the same floats.
     """
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
@@ -73,9 +81,13 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Mp = -(-M // ROW_BLOCK) * ROW_BLOCK
     if Mp != M:
         x2 = F.pad(x2, (0, 0, 0, Mp - M))
-    out = x2.new_empty((Mp, w.shape[1]))
-    for i in range(0, Mp, ROW_BLOCK):
-        torch.mm(x2[i:i + ROW_BLOCK], w, out=out[i:i + ROW_BLOCK])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = torch.cat([torch.mm(x2[i:i + ROW_BLOCK], w)
+                         for i in range(0, Mp, ROW_BLOCK)])
+    else:
+        out = x2.new_empty((Mp, w.shape[1]))
+        for i in range(0, Mp, ROW_BLOCK):
+            torch.mm(x2[i:i + ROW_BLOCK], w, out=out[i:i + ROW_BLOCK])
     return out[:M].reshape(lead + (w.shape[1],))
 
 
@@ -172,6 +184,49 @@ def linear(w: torch.Tensor, x, rns: RnsDotConfig | None = None, *,
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+class _Chain(torch.autograd.Function):
+    """:func:`rns_linear_chain`: the residue chain forward, the float
+    chain's gradients (straight-through quantizers)."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *ws):
+        ctx.save_for_backward(x, *ws)
+        be = cfg.backend
+        ht = rt_encode(x.to(torch.float32), cfg.profile, bits=cfg.qx,
+                       backend=be)
+        for w in ws:
+            wt = rt_encode(w.to(torch.float32), cfg.profile, bits=cfg.qw,
+                           backend=be, weight=True)
+            ht = rt_matmul(ht, wt, backend=be, renorm_bits=cfg.qx)
+        return rt_decode(ht, backend=be).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *ws = ctx.saved_tensors
+        return (None,) + _float_vjp(
+            lambda x, *ws: functools.reduce(torch.matmul, ws, x),
+            (x, *ws), g)
+
+
+def rns_linear_chain(x: torch.Tensor, ws: tuple, cfg: RnsDotConfig):
+    """x @ w1 @ w2 @ ... entirely in residues: ONE MRC normalization, the
+    magnitude ledger renormalizing only where the profile would
+    overflow.  Backward: the float chain's, straight through the
+    quantizers."""
+    return _Chain.apply(cfg, x, *ws)
+
+
+def _float_vjp(fn, inputs, g):
+    """The gradients of the float function ``fn`` at ``inputs`` against
+    the cotangent ``g``, each in its input's dtype: the straight-through
+    backward of a residue-domain forward."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        y = fn(*leaves)
+        grads = torch.autograd.grad(y, leaves, g.to(y.dtype))
+    return tuple(gr.to(t.dtype) for gr, t in zip(grads, inputs))
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
@@ -304,8 +359,50 @@ def _mlp_resident(p: MLP, gated: bool) -> bool:
     return all(p.resident(n) is not None for n in names)
 
 
+def _mlp_float_ref(x, wi, *rest, gated: bool, act: str):
+    """The float MLP on the masters wi, (wg,) wo."""
+    h = x @ wi
+    h = act_fn(act)(x @ rest[0]) * h if gated else act_fn(act)(h)
+    return h @ rest[-1]
+
+
+def _masters(p: MLP, gated: bool) -> tuple:
+    return (p.wi, p.wg, p.wo) if gated else (p.wi, p.wo)
+
+
+class _MlpSTE(torch.autograd.Function):
+    """An RNS MLP forward (``fwd()``) with the JAX package's
+    float-reference backward: the gradients of the float MLP over the
+    masters at ``x`` (float32), straight through every quantizer;
+    resident digits take none."""
+
+    @staticmethod
+    def forward(ctx, fwd, gated, act, x, *ws):
+        ctx.gated, ctx.act = gated, act
+        ctx.save_for_backward(x, *ws)
+        return fwd()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *ws = ctx.saved_tensors
+        grads = _float_vjp(
+            lambda x, *ws: _mlp_float_ref(x.to(torch.float32), *ws,
+                                          gated=ctx.gated, act=ctx.act),
+            (x, *ws), g.to(torch.float32))
+        return (None, None, None) + grads
+
+
 def mlp_rns_deferred(p: MLP, x: torch.Tensor, gated: bool, act: str,
                      cfg: RnsDotConfig):
+    """The MLP block with a residue-domain main datapath (see
+    :func:`_mlp_deferred`); its backward is the float MLP's over the
+    masters."""
+    return _MlpSTE.apply(lambda: _mlp_deferred(p, x, gated, act, cfg),
+                         gated, act, x, *_masters(p, gated))
+
+
+def _mlp_deferred(p: MLP, x: torch.Tensor, gated: bool, act: str,
+                  cfg: RnsDotConfig):
     """The MLP block with a residue-domain main datapath: wi(x), the gate
     product and wo(.) chain in residues, the ledger renormalizing only
     where the profile would overflow.  Slow ops per block: ONE normalize
@@ -353,7 +450,14 @@ def mlp_rns_resident_perop(p: MLP, x: torch.Tensor, gated: bool, act: str,
                            cfg: RnsDotConfig):
     """Per-op-normalized MLP on resident weights: the arithmetic of the
     re-encode per-op path (same grids, primitives and casts) without its
-    weight conversions."""
+    weight conversions.  Its backward is the float MLP's over the
+    masters."""
+    return _MlpSTE.apply(lambda: _mlp_resident_perop(p, x, gated, act, cfg),
+                         gated, act, x, *_masters(p, gated))
+
+
+def _mlp_resident_perop(p: MLP, x: torch.Tensor, gated: bool, act: str,
+                        cfg: RnsDotConfig):
     xf = x.to(torch.float32)
     if gated:
         hi, hg = rns_resident_multi_dot(

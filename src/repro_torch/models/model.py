@@ -1,9 +1,9 @@
-"""Public model API of the slice: init, parameter counts, the bucketed
-engine's prefill into a dense cache (with the recurrent layers' states
-and an encoder-decoder's cross planes; a frontend's embeddings ahead of
-the prompt or through the encoder), ragged prefill, decode over a dense
-or a paged cache, the speculative-verify window and the packed
-mixed-phase step."""
+"""Public model API of the slice: init, parameter counts, the training
+forward and loss, the bucketed engine's prefill into a dense cache (with
+the recurrent layers' states and an encoder-decoder's cross planes; a
+frontend's embeddings ahead of the prompt or through the encoder),
+ragged prefill, decode over a dense or a paged cache, the
+speculative-verify window and the packed mixed-phase step."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.models.layers import (_param, embed, init_normal_, linear,
                                        norm, sinusoidal_positions, unembed)
 
 __all__ = ["Model", "init_model", "count_params", "count_params_analytic",
+           "forward_train", "loss_fn",
            "DenseKV", "make_cache", "plane_shapes", "stack_planes",
            "set_cache_lengths", "prefill", "prefill_ragged", "decode_step",
            "decode_window", "mixed_step"]
@@ -50,6 +51,10 @@ class Model(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         _check_supported(cfg)
+        if cfg.param_dtype != "float32":
+            raise NotImplementedError(
+                f"param_dtype={cfg.param_dtype!r}: the port holds float32 "
+                "parameters")
         self.cfg = cfg
         self.embed = _param(torch.empty(cfg.vocab, cfg.d_model, device=device))
         self.blocks = nn.ModuleList(
@@ -172,6 +177,52 @@ def _encode(model: Model, cfg, frames):
         h, _ = tf.apply_blocks(model.enc_blocks, h, cfg, mode="prefill",
                                enc=True)
         return model.enc_norm(h)
+
+
+def _check_trainable(cfg):
+    """The configs :func:`forward_train` takes in this slice: dense GQA
+    decoder-only models."""
+    kinds = [name for name, on in (
+        ("MoE", cfg.moe is not None or "moe" in cfg.mlp_types),
+        ("MLA", "mla" in cfg.layer_types),
+        ("SSM", any(t in ("mamba", "rwkv") for t in cfg.layer_types)),
+        ("encoder-decoder", cfg.enc_dec),
+        ("frontend", cfg.frontend is not None)) if on]
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training {' / '.join(kinds)} models comes with "
+            "A slice 4b (ROADMAP); this slice trains the dense GQA "
+            "decoder-only archs")
+
+
+def forward_train(model: Model, cfg, batch: dict):
+    """The training forward: ``batch["tokens"]`` [B, T] -> (logits [B, T,
+    V], aux loss: a float32 zero, the slot of the MoE's in slice 4b).  No
+    cache and no token mask, so every RNS conversion takes one absmax
+    grid over its whole tensor, as JAX's ``forward_train``."""
+    _check_trainable(cfg)
+    tokens = batch["tokens"]
+    h = _add_abs_pos(cfg, _embed_tokens(model, cfg, tokens.long()))
+    h, _ = tf.apply_blocks(model.blocks, h, cfg, mode="train")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(model, h), aux
+
+
+def loss_fn(model: Model, cfg, batch: dict):
+    """Next-token cross-entropy in float32 over ``batch["tokens"]``,
+    weighted by ``batch["loss_mask"]`` [B, T] where given (its first
+    column unused), plus the aux loss.  Returns (loss, {"ce", "aux"})."""
+    logits, aux = forward_train(model, cfg, batch)
+    tokens = batch["tokens"].long()
+    lg = logits[:, :-1].to(torch.float32)
+    tg = tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tg.shape, dtype=torch.float32, device=lg.device)
+            if mask is None else mask[:, 1:].to(torch.float32))
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tg[..., None])[..., 0]
+    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 @dataclasses.dataclass

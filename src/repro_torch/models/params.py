@@ -11,8 +11,10 @@ the encoder stack's period is 1 (``enc_blocks["l0"]``, one entry a
 layer).  :func:`params_from_jax` takes
 that tree as numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``),
 undoes the stacking and fills the port's modules; it fails unless every
-entry of every leaf landed in a parameter.  The port itself never
-imports JAX.
+entry of every leaf landed in a parameter.  :func:`opt_state_from_jax`
+does the same for JAX's AdamW state (``m`` and ``v`` are trees like the
+parameters), giving the port's state keyed by parameter name.  The port
+itself never imports JAX.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from repro_torch.models.attention import MLA
 from repro_torch.models.model import Model
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 _MLA_LINEARS = ("wdq", "wuqn", "wuqr", "wdkv", "wkr", "wuk", "wuv", "wo")
 # port name -> JAX path inside the layer's "mamba" / "rwkv" dict
@@ -136,3 +138,16 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> Model:
         raise ValueError(f"{len(missed)} JAX leaf entries landed nowhere, "
                          f"e.g. {missed[:3]}")
     return model
+
+
+def opt_state_from_jax(tree: dict, cfg, device="cuda") -> dict:
+    """The port's AdamW state ({"m": {name: tensor}, "v": ..., "step":
+    int32}, names those of ``Model.named_parameters``) from JAX's
+    ``init_opt_state`` / ``adamw_update`` state (numpy leaves)."""
+    out = {}
+    for key in ("m", "v"):
+        trees = params_from_jax(tree[key], cfg, device)
+        out[key] = {n: p.detach() for n, p in trees.named_parameters()}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out

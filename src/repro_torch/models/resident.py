@@ -22,8 +22,15 @@ port keeps one block a layer and gives every block of a slot the slot's
 profile and ``mag_bits``.  An encoder-decoder model's encoder is a stack
 of its own (period 1: one slot), apart from the decoder's.
 
-The port of ``repro.models.resident`` without masters dropped, the
-traced train-step attach or a digit mesh (later slices).
+Training (:func:`attach_resident`, :func:`strip_resident`): a train step
+with resident weights encodes every MLP master once at its start, on the
+config's profile, into the MLPs' resident buffers (in place, so a
+captured step keeps their addresses); the forward reads the digits, the
+straight-through backward the masters, and the optimizer sees only the
+masters (parameters; the digits are buffers).
+
+The port of ``repro.models.resident`` without masters dropped or a digit
+mesh (later slices).
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from repro_torch.core.quantize import absmax_scale, quantize_with_scale
 from repro_torch.core.tensor import _SAFETY_BITS, RnsTensor
 from repro_torch.models.layers import MLP
 
-__all__ = ["encode_resident", "has_resident", "resident_profiles"]
+__all__ = ["encode_resident", "attach_resident", "strip_resident",
+           "has_resident", "resident_profiles"]
 
 
 def _encode_one(w: torch.Tensor, profile: str, qw: int, mag_bits: float,
@@ -138,6 +146,51 @@ def encode_resident(model, cfg, *, per_layer_profiles: bool = False):
                 if w is not None:
                     mlp.set_resident(name, _encode_one(
                         w, prof, rns.qw, mags[name], rns.backend))
+    return model
+
+
+def attach_resident(model, cfg):
+    """Encode every RNS-target MLP master of ``model`` now (biased MLPs
+    excepted) on ``cfg.rns.profile`` at ``qw`` bits with the ledger bound
+    ``qw - 1`` -- JAX's traced attach -- writing the digits and scales
+    into the MLPs' resident buffers in place where they are already
+    there.  Returns ``model``."""
+    rns = cfg.rns
+    if rns is None or cfg.rns_targets not in ("all", "mlp"):
+        return model
+    for _, m in _mlps(model):
+        if m.has_bias():
+            continue
+        for name in MLP.NAMES:
+            w = getattr(m, name)
+            if w is None:
+                continue
+            rt = _encode_one(w, rns.profile, rns.qw, float(rns.qw - 1),
+                             rns.backend)
+            old = m.resident(name)
+            if (old is None or old.profile != rt.profile
+                    or old.digits.shape != rt.digits.shape
+                    or old.digits.dtype != rt.digits.dtype):
+                # new buffers, then the same copies as every later attach
+                # (a captured step replays what its warm-up launched)
+                m.set_resident(name, RnsTensor(
+                    torch.empty_like(rt.digits), torch.empty_like(rt.scale),
+                    rt.profile, rt.mag_bits))
+                old = m.resident(name)
+            old.digits.copy_(rt.digits)
+            old.scale.copy_(rt.scale)
+    return model
+
+
+def strip_resident(model):
+    """Drop every MLP's resident digits (the float masters stay): the
+    re-encode path again, or a checkpoint of masters only.  Returns
+    ``model``."""
+    for _, m in _mlps(model):
+        for name in list(m._resident_meta):
+            delattr(m, f"{name}_digits")
+            delattr(m, f"{name}_scale")
+        m._resident_meta.clear()
     return model
 
 

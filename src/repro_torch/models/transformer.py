@@ -5,10 +5,19 @@ dense or a MoE MLP or (RWKV) the channel-mix, as its config's
 ``layer_types`` / ``mlp_types`` say; in an encoder-decoder model each
 attention layer also cross-attends to the encoder's output.  An encoder
 layer (MLP type ``"__enc__"``, as in JAX) is self-attention and a dense
-MLP."""
+MLP.
+
+``mode="train"`` runs the stack with no cache and no token mask, its
+attention JAX's train rule (dense up to ``cfg.attn_dense_max`` tokens,
+else the q-tiled flash), and under ``cfg.remat == "full"`` each layer
+(a dense model's period) recomputed in the backward
+(``torch.utils.checkpoint``, non-reentrant): the counterpart of JAX's
+``jax.checkpoint`` around its scanned period."""
 
 from __future__ import annotations
 
+import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
@@ -76,6 +85,12 @@ def _attend(blk: Block, hn, cfg, *, mode: str, cache, slot: int, packed,
             rns):
     """The layer's self-attention: (y, prefill cache planes or None)."""
     mla = isinstance(blk.attn, attn.MLA)
+    if mode == "train":
+        if mla:
+            raise NotImplementedError("training MLA comes with A slice 4b")
+        T = hn.shape[1]
+        amode = "dense" if T <= cfg.attn_dense_max else "flash"
+        return attn.gqa_attend(blk.attn, hn, cfg, rns=rns, mode=amode)
     if mode != "decode":
         if mla:
             return attn.mla_attend(blk.attn, hn, cfg, rns=rns)
@@ -194,6 +209,10 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
     return h + y, planes
 
 
+def _train_layer(blk: Block, h, cfg):
+    return _apply_layer(blk, h, cfg, mode="train", cache=None, slot=0)[0]
+
+
 def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None,
                  enc_out=None, enc: bool = False):
     """Run every layer.  ``mode``: "prefill" (returns each layer's cache
@@ -208,7 +227,17 @@ def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None,
     ``(seg, pos, dec)`` triple of [N] tensors giving every token of the
     [1, N, d] stream its own row, absolute position and phase -- the
     mixed chunked-prefill/decode layout.  ``enc``: ``blocks`` is the
-    encoder stack (its prefill planes are not kept)."""
+    encoder stack (its prefill planes are not kept).  "train": the
+    stack for a loss (see the module docstring); no planes."""
+    if mode == "train":
+        for blk in blocks:
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(
+                    _train_layer, blk, h, cfg, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                h = _train_layer(blk, h, cfg)
+        return h, []
     ys = []
     slots = range(len(blocks)) if enc else layer_slots(cfg)
     for blk, slot in zip(blocks, slots):

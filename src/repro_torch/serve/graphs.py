@@ -24,6 +24,8 @@ wrapper calls for ``dispatch.count_ops`` to see.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 from repro_torch.core import dispatch
@@ -56,10 +58,22 @@ class StepProgram:
         self.ops = self._call()
 
     def capture(self, stream: torch.cuda.Stream, pool):
-        """Capture ``fn`` on ``stream`` into the shared memory ``pool``."""
+        """Capture ``fn`` on ``stream`` into the shared memory ``pool``.
+
+        Dead reference cycles are collected first and the collector is
+        off during the capture: a cycle collected mid-capture, in any
+        thread, could free a CUDA graph or tensor of an earlier program,
+        a call the capture does not permit (it invalidates the capture)."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            ops = self._call()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                ops = self._call()
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         if ops.as_dict() != self.ops.as_dict():
             raise RuntimeError(f"{self.name}: the captured run tallied "
