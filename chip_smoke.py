@@ -168,8 +168,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 main path's decode and prefill inputs, one timed row of
                 each beside the same inputs unscaled.
 
-  [serve_archs] tinyllama-1.1b and granite-3-8b at full width and depth,
-                qwen2.5-32b (q/k/v bias) at full width, depth 8, and
+  [serve_archs] tinyllama-1.1b at full width and depth, granite-3-8b at
+                full width, depth 20,
+                qwen2.5-32b (q/k/v bias) at full width, depth 4, and
                 Llama-4-Scout at full width, depth 2, capacity 16
                 (dropless), rns9, random weights from seed 0: the
                 [serve] traffic through ContinuousEngine (tinyllama,
@@ -186,7 +187,7 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 chunked tokens equal its whole-prompt ones, Scout's
                 bucketed tokens its ContinuousEngine's; each model's
                 peak memory;
-  [serve_ssm]   rwkv6-7b at full width and depth 16 and jamba-v0.1-52b at
+  [serve_ssm]   rwkv6-7b at full width and depth 8 and jamba-v0.1-52b at
                 full width, depth 8 (one period), capacity 8, through the
                 bucketed Engine on 8 x 33 prompts, 16 new tokens: float,
                 per-op rns9 and (Jamba) fused resident, checked as in
@@ -196,10 +197,10 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 message.  These two run after [kernels] has freed
                 the other serves' recorded inputs: Jamba's 49.5 GiB of
                 weights is the largest model the port holds.
-  [serve_encdec] whisper-medium (12 encoder + 12 decoder layers of its
+  [serve_encdec] whisper-medium (2 encoder + 2 decoder layers of its
                 24 + 24, over 1500 frames, cross-attention, sinusoidal
-                positions) and paligemma-3b (18 layers behind 256 patch
-                embeddings, whole) at full width, random weights from
+                positions) and paligemma-3b (4 of its 18 layers behind
+                256 patch embeddings) at full width, random weights from
                 seed 0,
                 through the bucketed Engine on 8 x 33 prompts with their
                 frontend frames (N(0, 1), drawn after the prompts from
@@ -236,7 +237,33 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 step 1 (per-op loss and gradients, the deferred loss:
                 minutes of the plain MRC) runs in a child process on
                 cores of its own, started at [train]'s beginning with
-                the seed-0 weights and read at its end.
+                the seed-0 weights and read at its end.  Each
+                warm-up's state copy goes to a reused page-locked host
+                buffer (``train_step.HostStage``), not the card.
+  [train_archs] the other families trained at published width (A slice
+                4b), each config's ``grad_accum``, ``remat="full"``, the
+                same data and optimizer, the Trainer's frontend stub:
+                DeepSeek-V2 depth 1 with 16 of its 160 routed experts
+                (top-6, 2 shared, capacity factor 1.25), Jamba depth 2
+                (Mamba + dense, Mamba + MoE) with 4 of 16 experts,
+                RWKV-6 depth 2 (chunked), whisper-medium 2 + 2 over 8 x
+                1500 frames and paligemma-3b depth 4 behind 256 patches
+                (TRAIN_ARCHS; every cut printed).  Each: float, 3 eager
+                steps = the first 3 of 10 captured bit for bit, the loss
+                after them below step 1's, the MoE aux loss positive
+                where there are experts; per-op rns9 at 16 bits with the
+                RNS backward, step 1's loss, aux loss and every gradient
+                on the kernels bit-equal to ``backend="reference"`` on the
+                card, 1 eager step (its distinct B.1-B.6 calls checked bit
+                for bit and timed) = the first of 3 captured.
+                DeepSeek-V2 also: ``cuda_fused`` (step 1 and 2 captured
+                losses bit-equal to per-op), the resident deferred shared
+                experts (B.5, B.6; every master moves, the optimizer holds
+                no digits), and a Trainer resumed from a checkpoint of
+                its smoke twin (a full-width checkpoint is 19.5 GB)
+                bit-equal to an uninterrupted run.  Per path: step ms
+                captured and eager, tokens/s, kernel nodes and RNS
+                kernels a step, first step s, peak GiB, aux loss.
 
 Then it prints the card's name and power limit, the peak device memory,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -1599,17 +1626,19 @@ def _mla_bucketed(torch, model, cfg, launches, calls):
 
 # [serve_archs] and [serve_ssm]: the dense archs with the q/k/v bias,
 # Llama-4-Scout, RWKV-6 and Jamba at their published widths
-# (configs/all_archs.py).  Depth: tinyllama 22 of 22, granite 40 of 40
-# (4.1, 31.2 GiB of float32 weights); rwkv6 16 of 32 (14.1 GiB; whole
-# 28.1, cut to keep the run's time within its limit once
-# [serve_encdec] came); qwen2.5-32b 8 of 64 (20.3 GiB; whole 122.1),
+# (configs/all_archs.py).  Depth: tinyllama 22 of 22 (4.1 GiB of float32
+# weights), granite 20 of 40 (whole 31.2 GiB: cut when [train_archs]
+# came, for the run's time); rwkv6 8 of 32 (whole 28.1 GiB; 16 when
+# [serve_encdec] came, 8 when [train_archs] came); qwen2.5-32b 4 of 64
+# (whole 122.1 GiB; 8 until [train_archs] came),
 # Scout 2 of 48 (24.1 GiB), Jamba 8 of 32 (one period: 7 mamba + 1
 # attention layer, 4 MoE; 49.5 GiB).
 # label -> (arch, depth (None: all), rns_targets (None: float), engine,
 # ServeConfig overrides).  An arch's cells share one model, drawn once,
 # the fused cell last (it encodes the dense MLPs resident in place).
-ARCH_DEPTH = {"qwen2.5-32b": 8, "llama4-scout-17b-a16e": 2,
-              "jamba-v0.1-52b": 8, "rwkv6-7b": 16, "whisper-medium": 12}
+ARCH_DEPTH = {"qwen2.5-32b": 4, "llama4-scout-17b-a16e": 2,
+              "jamba-v0.1-52b": 8, "rwkv6-7b": 8, "whisper-medium": 2,
+              "granite-3-8b": 20, "paligemma-3b": 4}
 # >= E / k: dropless, so chunked and bucketed tokens can equal
 # whole-prompt ones (the published 1.25 drops tokens a prompt's chunks
 # keep)
@@ -1641,11 +1670,13 @@ SSM_CELLS = {
 }
 # rows of the 8 x 33 batch served again alone (batch invariance)
 SOLO_ROWS = (0, 5)
-# whisper-medium (12 + 12 of its 24 + 24 layers over 1500 frames, cut for
-# the run's time when [train] came) and paligemma-3b (18 layers behind
-# 256 patch embeddings, whole) at full width, through
-# the bucketed Engine on 8 x 33 prompts with their frames (seed 0); the
-# fused cell of an arch last (it encodes the MLPs resident in place)
+# whisper-medium (2 + 2 of its 24 + 24 layers over 1500 frames: 12 + 12
+# when [train] came, 2 + 2 when [train_archs] came, for the run's time)
+# and paligemma-3b (4 of its 18 layers behind 256 patch embeddings; whole
+# until [train_archs] came) at full
+# width, through the bucketed Engine on 8 x 33 prompts with their frames
+# (seed 0); the fused cell of an arch last (it encodes the MLPs resident
+# in place)
 ENCDEC_CELLS = {
     "serve_encdec_whisper_float": ("whisper-medium", None, "bucketed", {}),
     "serve_encdec_whisper": ("whisper-medium", "mlp", "bucketed", {}),
@@ -1974,12 +2005,13 @@ def _serve_cells(torch, cells, launches, record, *, solo=()):
 
 
 def phase_serve_archs(torch, launches, record):
-    """tinyllama-1.1b and granite-3-8b (full depth), qwen2.5-32b (depth 8,
-    q/k/v bias) and Llama-4-Scout (depth 2, dropless) at their published
-    widths through the engines (ARCH_CELLS): eager then captured, every
-    distinct kernel input checked against its plain version while the
-    model is on the card; qwen's chunked tokens equal its whole-prompt
-    ones, Scout's bucketed tokens its ContinuousEngine's."""
+    """tinyllama-1.1b (full depth), granite-3-8b (depth 20), qwen2.5-32b
+    (depth 4, q/k/v bias) and Llama-4-Scout (depth 2, dropless) at their
+    published widths through the engines (ARCH_CELLS): eager then
+    captured, every distinct kernel input checked against its plain
+    version while the model is on the card; qwen's chunked tokens equal
+    its whole-prompt ones, Scout's bucketed tokens its
+    ContinuousEngine's."""
     out, tokens = _serve_cells(torch, ARCH_CELLS, launches, record)
     if tokens["serve_archs_qwen_chunked"] != tokens["serve_archs_qwen"]:
         raise AssertionError("qwen2.5-32b: chunked greedy tokens differ "
@@ -2011,7 +2043,7 @@ def phase_serve_archs(torch, launches, record):
 
 
 def phase_serve_ssm(torch, launches, record):
-    """rwkv6-7b (depth 16) and jamba-v0.1-52b (depth 8, dropless) at their
+    """rwkv6-7b (depth 8) and jamba-v0.1-52b (depth 8, dropless) at their
     published widths through the bucketed Engine (SSM_CELLS: float,
     per-op rns9, and fused for Jamba), eager then captured; rows
     SOLO_ROWS of the 8 x 33 batch served alone give the same tokens and
@@ -2040,8 +2072,8 @@ def phase_serve_ssm(torch, launches, record):
 
 
 def phase_serve_encdec(torch, launches, record):
-    """whisper-medium and paligemma-3b at their published widths and
-    depths through the bucketed Engine (ENCDEC_CELLS: whisper float,
+    """whisper-medium and paligemma-3b at their published widths (depths
+    ARCH_DEPTH) through the bucketed Engine (ENCDEC_CELLS: whisper float,
     per-op rns9 and fused; paligemma per-op, ``rns_targets="all"`` and
     fused), each prompt with its frontend's frames, eager then captured
     (the same tokens and rns_ops, one capture a program, a replayed
@@ -3342,33 +3374,61 @@ def _train_cfg(arch: str, kind: str):
     return dataclasses.replace(cfg, rns=r, rns_targets="mlp")
 
 
-def _host_state(torch, state: dict) -> list:
-    """Every parameter, m, v and the step of a train state, copied to the
-    host, in one order."""
+def _state_list(state: dict) -> list:
+    """Every parameter, m, v and the step of a train state, in one
+    order."""
     from repro_torch.train.train_step import state_tree
 
     t = state_tree(state)
-    return [x.detach().cpu() for x in (
+    return [x.detach() for x in (
         *t["params"].values(), *t["opt"]["m"].values(),
         *t["opt"]["v"].values(), t["opt"]["step"])]
 
 
+#: the host buffer ``_host_state`` copies into (page-locked, reused)
+_HOST_STAGE: list = []
+
+
+def _host_state(torch, state: dict) -> list:
+    """``_state_list`` copied to the host, into one reused page-locked
+    buffer (``train_step.HostStage``): the previous copy is
+    overwritten."""
+    from repro_torch.train.train_step import HostStage
+
+    if not _HOST_STAGE:
+        _HOST_STAGE.append(HostStage())
+    return _HOST_STAGE[0].copy(_state_list(state))
+
+
 def _state_equal(torch, a, b) -> bool:
-    """Two train states (or their ``_host_state``) bit-equal: every
-    parameter, m, v and the step."""
-    a = a if isinstance(a, list) else _host_state(torch, a)
-    b = b if isinstance(b, list) else _host_state(torch, b)
-    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    """Two train states (each a state dict on the card or its
+    ``_host_state``) bit-equal: every parameter, m, v and the step,
+    compared on the card."""
+    a = a if isinstance(a, list) else _state_list(a)
+    b = b if isinstance(b, list) else _state_list(b)
+    dev = torch.device("cuda")
+    return len(a) == len(b) and all(
+        torch.equal(x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))
+        for x, y in zip(a, b))
 
 
 def _loss_grads(torch, model, cfg, batch):
-    """(loss, {name: gradient}) of one eager loss evaluation."""
+    """(loss, aux loss, {name: gradient}) of one eager loss
+    evaluation."""
     from repro_torch.models import model as M
 
     params = dict(model.named_parameters())
-    loss, _ = M.loss_fn(model, cfg, batch)
+    loss, parts = M.loss_fn(model, cfg, batch)
     grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), dict(zip(params, grads))
+    return loss.detach(), parts["aux"].detach(), dict(zip(params, grads))
+
+
+def _differ(torch, a, b) -> list:
+    """What differs between two ``_loss_grads`` results: "loss", "aux"
+    and the names of the gradients not bit-equal."""
+    bad = [k for k, x, y in (("loss", a[0], b[0]), ("aux", a[1], b[1]))
+           if not torch.equal(x, y)]
+    return bad + [k for k in a[2] if not torch.equal(a[2][k], b[2][k])]
 
 
 def _grad_diff(torch, got: dict, want: dict) -> tuple[float, str]:
@@ -3528,13 +3588,18 @@ def _kernel_nodes(graph) -> dict:
 
 def _train_path(torch, label: str, cfg, steps: int, launches: dict, *,
                 eager: int = 0, resident: bool = False, data=None,
-                compare: bool = True):
+                compare: bool = True, calls: dict | None = None,
+                after_eager=None):
     """``steps`` captured steps of ``cfg`` from the seed-0 weights (counts
     from 0 before, read after: the python-counted launches of the warm-up
     and capture plus the graph's kernel nodes times the replays after
     the first), and ``eager`` eager steps from the same weights (timed;
-    with ``compare``, held to the captured ones bit for bit).  Returns
-    (numbers, captured state, TrainStep)."""
+    with ``compare``, held to the captured ones bit for bit).  ``data``:
+    anything with ``batch(step)`` (SyntheticLM, or a Trainer's batches
+    with their frontend stub).  ``calls``: the eager steps' RNS wrapper
+    calls are recorded into it (``_recording``); ``after_eager()`` runs
+    once the eager state is off the card, before the captured run.
+    Returns (numbers, captured state, TrainStep)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import train_step as ts
@@ -3554,27 +3619,34 @@ def _train_path(torch, label: str, cfg, steps: int, launches: dict, *,
         step = ts.make_train_step(cfg, opt, resident_weights=resident,
                                   graphs=False)
         times, eager_losses = [], []
-        for i in range(eager):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, m = step(eager_state, data.batch(i))
-            eager_losses.append(float(m["loss"]))
-            times.append(time.perf_counter() - t0)
+        with (_recording(torch, calls) if calls is not None
+              else contextlib.nullcontext()):
+            for i in range(eager):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = step(eager_state, data.batch(i))
+                eager_losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
         out["step_ms_eager"] = statistics.median(times) * 1e3
         eager_state = _host_state(torch, eager_state) if compare else None
         del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if after_eager is not None:
+        after_eager()
         gc.collect()
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = ts.init_train_state(cfg, 0, dev)
     step = ts.make_train_step(cfg, opt, resident_weights=resident)
     _reset_launches()
-    losses, times = [], []
+    losses, auxes, times = [], [], []
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, m = step(state, data.batch(i))
         losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
         times.append(time.perf_counter() - t0)
         if compare and eager and i + 1 == eager:
             if losses != eager_losses or not _state_equal(torch, state,
@@ -3595,23 +3667,41 @@ def _train_path(torch, label: str, cfg, steps: int, launches: dict, *,
                tokens_per_s=out["tokens_per_step"] / med * 1e3,
                rns_kernels_per_step=sum(nodes.values()), by_kernel=nodes,
                all_kernel_nodes=len(_graph_kernel_names(step.program.graph)),
-               captures=step.captures, losses=losses,
+               captures=step.captures, losses=losses, aux=auxes,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     return out, state, step
 
 
+#: [train]'s CPU check while it runs: the child process and the card's
+#: side of the comparison, read by [train_cpu]
+_TRAIN_CPU: dict = {}
+
+
 def phase_train(torch, launches: dict, record: dict):
     """[train] (:func:`_train_paths`) beside the CPU port's step 1 in a
-    child process (:func:`_start_train_cpu_check`), killed if [train]
-    fails before reading it."""
+    child process (:func:`_start_train_cpu_check`), which runs on through
+    [train_archs] and is read by [train_cpu]; killed if [train] fails."""
     proc = _start_train_cpu_check(torch)
     try:
-        return _train_paths(torch, launches, record, proc)
-    finally:
+        results, check = _train_paths(torch, launches, record)
+    except BaseException:
         _stop_train_cpu_check(proc)
+        raise
+    _TRAIN_CPU.update(proc=proc, check=check)
+    return results
 
 
-def _train_paths(torch, launches: dict, record: dict, proc):
+def phase_train_cpu(torch):
+    """[train]'s card step 1 against the CPU port's (the child started
+    with [train], waited for here, after [train_archs] ran beside it)."""
+    if not _TRAIN_CPU:
+        print("  [train] did not start a CPU check")
+        return None
+    proc, check = _TRAIN_CPU.pop("proc"), _TRAIN_CPU.pop("check")
+    return check(_finish_train_cpu_check(torch, proc))
+
+
+def _train_paths(torch, launches: dict, record: dict):
     """Training at published width (A slice 4a): smollm-135m whole, float
     (20 captured steps, the loss down by 0.3; the first 3 equal 3 eager
     steps bit for bit), per-op rns9 at 16 bits with the RNS backward (the
@@ -3623,8 +3713,8 @@ def _train_paths(torch, launches: dict, record: dict, proc):
     optimizer holds no digits); tinyllama-1.1b whole, float and per-op,
     ``grad_accum=2``; a resumed run bit-equal to an uninterrupted one;
     every distinct B.1-B.6 call of the eager steps bit-equal to its plain
-    version, checked and timed.  ``proc``: the CPU port's step 1, read
-    last."""
+    version, checked and timed.  Returns (results, ``check(cpu_out)``:
+    the card's step 1 against the CPU port's, once the child wrote it)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import model as M
     from repro_torch.models.resident import attach_resident
@@ -3669,14 +3759,12 @@ def _train_paths(torch, launches: dict, record: dict, proc):
     # the card: the kernels' loss and gradients vs the plain versions on
     # the card, fused vs per-op; op counts vs JAX
     with _recording(torch, calls):
-        loss_k, grads_k = _loss_grads(torch, model, cfg, batch0)
-    loss_r, grads_r = _loss_grads(torch, model, ref, batch0)
-    bad = [k for k in grads_k if not torch.equal(grads_k[k], grads_r[k])]
-    if not torch.equal(loss_k, loss_r) or bad:
+        got = _loss_grads(torch, model, cfg, batch0)
+    bad = _differ(torch, got, _loss_grads(torch, model, ref, batch0))
+    if bad:
         raise AssertionError(f"[train] rns: kernels vs reference on the "
-                             f"card: loss {float(loss_k)} / {float(loss_r)}, "
-                             f"{len(bad)} gradients differ, e.g. {bad[:3]}")
-    del grads_r
+                             f"card differ at {bad[:3]} ({len(bad)})")
+    loss_k, _, grads_k = got
     ops = ts.measure_rns_ops(model, cfg, batch0).as_dict()
     want = {k: v * cfg.n_layers for k, v in JAX_TRAIN_RNS_OPS.items()}
     if ops != want:
@@ -3684,16 +3772,14 @@ def _train_paths(torch, launches: dict, record: dict, proc):
                              f"{cfg.n_layers}: {want}")
     fcfg = _train_cfg(TRAIN_ARCH, "fused")
     with _recording(torch, calls):
-        loss_f, grads_f = _loss_grads(torch, model, fcfg, batch0)
-    bad = [k for k in grads_k if not torch.equal(grads_k[k], grads_f[k])]
-    if not torch.equal(loss_k, loss_f) or bad:
-        raise AssertionError(f"[train] fused vs per-op: loss {float(loss_f)}"
-                             f" / {float(loss_k)}, {len(bad)} gradients "
-                             f"differ, e.g. {bad[:3]}")
-    del grads_f
+        bad = _differ(torch, got, _loss_grads(torch, model, fcfg, batch0))
+    if bad:
+        raise AssertionError(f"[train] fused vs per-op differ at "
+                             f"{bad[:3]} ({len(bad)})")
+    del got
     attach_resident(model, dcfg)
     with _recording(torch, calls):
-        loss_d, _ = _loss_grads(torch, model, dcfg, batch0)
+        loss_d = _loss_grads(torch, model, dcfg, batch0)[0]
     del model
 
     # the captured runs of paths 2-4
@@ -3784,23 +3870,304 @@ def _train_paths(torch, launches: dict, record: dict, proc):
                   seen=set(), tag="train ")
     calls.clear()
 
-    # the CPU port's step 1 (the child process started with [train])
-    cpu_out = _finish_train_cpu_check(torch, proc)
-    loss_c, grads_c = cpu_out["rns"]
-    gdiff, gwhere = _grad_diff(torch, grads_k, grads_c)
-    check = {"rns_loss_card": float(loss_k), "rns_loss_cpu": float(loss_c),
-             "rns_loss_diff": abs(float(loss_k) - float(loss_c)),
-             "rns_max_grad_diff": gdiff, "rns_max_grad_diff_at": gwhere,
-             "rns_cpu_s": cpu_out["rns_s"],
-             "deferred_loss_card": float(loss_d),
-             "deferred_loss_cpu": float(cpu_out["deferred"]),
-             "deferred_loss_diff": abs(float(loss_d)
-                                       - float(cpu_out["deferred"])),
-             "deferred_cpu_s": cpu_out["deferred_s"]}
-    report("cpu", check)
-    if not (check["rns_loss_diff"] <= TRAIN_CPU_TOL
-            and check["deferred_loss_diff"] <= TRAIN_CPU_TOL):
-        raise AssertionError(f"[train] card vs CPU: {check}")
+    def check(cpu_out):
+        """The card's step 1 against the CPU port's (``cpu_out``, what the
+        child wrote)."""
+        loss_c, _, grads_c = cpu_out["rns"]
+        gdiff, gwhere = _grad_diff(torch, grads_k, grads_c)
+        out = {"rns_loss_card": float(loss_k), "rns_loss_cpu": float(loss_c),
+               "rns_loss_diff": abs(float(loss_k) - float(loss_c)),
+               "rns_max_grad_diff": gdiff, "rns_max_grad_diff_at": gwhere,
+               "rns_cpu_s": cpu_out["rns_s"],
+               "deferred_loss_card": float(loss_d),
+               "deferred_loss_cpu": float(cpu_out["deferred"]),
+               "deferred_loss_diff": abs(float(loss_d)
+                                         - float(cpu_out["deferred"])),
+               "deferred_cpu_s": cpu_out["deferred_s"]}
+        report("cpu", out)
+        if not (out["rns_loss_diff"] <= TRAIN_CPU_TOL
+                and out["deferred_loss_diff"] <= TRAIN_CPU_TOL):
+            raise AssertionError(f"[train] card vs CPU: {out}")
+        return out
+
+    return results, check
+
+
+# ------------------------------------------------------- [train_archs] ----
+#: the other families trained at their published widths (A slice 4b):
+#: arch -> (decoder depth, encoder depth, routed experts); None keeps the
+#: published value.  One full MoE layer does not fit one card at 16
+#: bytes a parameter (float32 parameters, gradients, m, v): DeepSeek-V2's
+#: 160 routed experts are 3.77 B parameters, Jamba's 16 are 2.82 B
+TRAIN_ARCHS = {
+    "deepseek-v2-236b": (1, None, 16),
+    "jamba-v0.1-52b": (2, None, 4),
+    "rwkv6-7b": (2, None, None),
+    "whisper-medium": (2, 2, None),
+    "paligemma-3b": (4, None, None),
+}
+#: captured float steps a model (the loss after them below step 1's)
+TRAIN_ARCH_STEPS = 10
+#: the MoE model that also trains on ``cuda_fused``, with resident
+#: deferred shared experts, and resumes from a checkpoint
+TRAIN_MOE = "deepseek-v2-236b"
+
+
+def _train_arch_cfg(arch: str, kind: str):
+    """``arch`` at its published width with TRAIN_ARCHS' cuts and
+    ``remat="full"``, float or on an RNS path (``_train_cfg``'s kinds).
+    Returns (config, {field: "published -> run"})."""
+    from repro_torch.configs.base import at_depth, get_config
+    from repro_torch.core.rns_matmul import RnsDotConfig
+
+    full = get_config(arch)
+    depth, enc, experts = TRAIN_ARCHS[arch]
+    cfg, changed = dataclasses.replace(full, remat="full"), {}
+    if depth is not None and depth != full.n_layers:
+        cfg = at_depth(cfg, depth)
+        changed["n_layers"] = f"{full.n_layers} -> {depth}"
+    if enc is not None and enc != full.n_enc_layers:
+        cfg = dataclasses.replace(cfg, n_enc_layers=enc)
+        changed["n_enc_layers"] = f"{full.n_enc_layers} -> {enc}"
+    if experts is not None and experts != full.moe.n_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=experts))
+        changed["n_experts"] = (f"{full.moe.n_experts} -> {experts} (top-"
+                                f"{full.moe.top_k}, capacity factor "
+                                f"{full.moe.capacity_factor} kept)")
+    if kind != "float":
+        backend = "cuda" if kind == "rns" else "cuda_fused"
+        cfg = dataclasses.replace(cfg, rns=RnsDotConfig(
+            **TRAIN_RNS, backend=backend, defer=kind == "deferred"),
+            rns_targets="mlp")
+    return cfg, changed
+
+
+def _twin_train_cfg(arch: str):
+    """``arch``'s smoke twin with ``remat="full"``, per-op rns9 at 16 bits
+    on the kernels (the resume's model)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.rns_matmul import RnsDotConfig
+
+    return dataclasses.replace(
+        get_config(arch, smoke=True), remat="full",
+        rns=RnsDotConfig(**TRAIN_RNS, backend="cuda"), rns_targets="mlp")
+
+
+def phase_train_archs(torch, launches: dict, record: dict):
+    """Training the other families at published width (A slice 4b):
+    DeepSeek-V2 (MLA + MoE with shared experts), Jamba (Mamba + dense,
+    Mamba + MoE), RWKV-6 (chunked time-mix + channel-mix), whisper-medium
+    (encoder-decoder over 1500 stub frames) and paligemma-3b (256 stub
+    patches ahead of the tokens), cut as TRAIN_ARCHS says, each config's
+    own ``grad_accum`` and ``remat="full"``, [8, 128] SyntheticLM tokens a
+    step over 1024 ids with the Trainer's frontend stub, AdamW as the CLI.
+    Each model: float, 3 eager steps = the first 3 of 10 captured bit for
+    bit and the loss after them below step 1's; per-op rns9 at 16 bits
+    with the RNS backward, step 1's loss, aux loss and every gradient on
+    the kernels bit-equal to ``backend="reference"`` on the card, 1 eager
+    step (its distinct B.1-B.6 calls recorded, then checked against
+    their plain versions and timed) = the first of 3 captured.
+    DeepSeek-V2 also: ``cuda_fused`` bit-equal to per-op (step 1 and 2
+    captured losses), the resident deferred shared experts (B.5, B.6;
+    the masters move, the optimizer holds no digits), and a Trainer
+    resumed from a checkpoint bit-equal to an uninterrupted run."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.resident import resident_profiles
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    smi = _smi()
+    results, calls, seen = {}, {}, set()
+    ckdir = ROOT / "build" / "train_archs_ckpt"
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        print(f"  [+{time.perf_counter() - t_phase:.1f} s] {what}", flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def report(label, out):
+        out["card"] = smi
+        results[label] = out
+        print(json.dumps({f"train_{label}": out}), flush=True)
+        print(f"  {label}: step {out['step_ms_captured']:.2f} ms captured "
+              f"({out.get('step_ms_eager', float('nan')):.1f} eager), "
+              f"{out['tokens_per_s']:.1f} tokens/s, "
+              f"{out['all_kernel_nodes']} kernel nodes "
+              f"({out['rns_kernels_per_step']} RNS), first step "
+              f"{out['first_step_s']:.2f} s, peak {out['peak_gib']:.2f} GiB, "
+              f"aux {out['aux'][0]:.6g} on {smi}", flush=True)
+
+    def trainer(cfg, d, total, every=100):
+        opt = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=total)
+        return Trainer(cfg, opt, TrainerConfig(
+            total_steps=total, ckpt_every=every, ckpt_dir=str(d),
+            log_every=100, async_ckpt=False), DataConfig(**dict(
+                TRAIN_DATA, vocab=min(TRAIN_DATA["vocab"], cfg.vocab))),
+            device=dev)
+
+    class Batches:
+        """The Trainer's batches (tokens and the frontend stub)."""
+
+        def __init__(self, cfg):
+            self.t = trainer(cfg, ckdir / "data", TRAIN_ARCH_STEPS)
+
+        def batch(self, step):
+            return self.t._batch(step)
+
+    for arch in TRAIN_ARCHS:
+        short = arch.split("-")[0]
+        cfg, changed = _train_arch_cfg(arch, "float")
+        n = sum(p.numel() for p in Model(cfg, device="meta").parameters())
+        print(f"  {arch}: d_model {cfg.d_model}, {n} parameters, "
+              f"grad_accum {cfg.grad_accum}, remat {cfg.remat}; changed "
+              f"from the published config: {changed or 'nothing'}",
+              flush=True)
+        data = Batches(cfg)
+        stamp(f"{arch}: float")
+        # float: 3 eager = the first 3 of TRAIN_ARCH_STEPS captured
+        out = _train_path(torch, f"{short}_float", cfg, TRAIN_ARCH_STEPS,
+                          launches, eager=3, data=data)[0]
+        out.update(params=n, changed=changed)
+        report(f"{short}_float", out)
+        if not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError(f"[train_archs] {arch} float: loss "
+                                 f"{out['losses']} did not fall")
+        if (cfg.moe is not None) != (out["aux"][0] > 0):
+            raise AssertionError(f"[train_archs] {arch}: aux {out['aux']}")
+        # per-op rns9: step 1 on the kernels = the plain versions
+        stamp(f"{arch}: rns step 1, kernels vs reference")
+        rcfg = _train_arch_cfg(arch, "rns")[0]
+        ref = dataclasses.replace(rcfg, rns=dataclasses.replace(
+            rcfg.rns, backend="reference"))
+        batch0 = {k: torch.as_tensor(v, device=dev)
+                  for k, v in data.batch(0).items()}
+        model = ts.init_train_state(rcfg, 0, dev)["model"]
+        got = _loss_grads(torch, model, rcfg, batch0)
+        bad = _differ(torch, got, _loss_grads(torch, model, ref, batch0))
+        if bad:
+            raise AssertionError(f"[train_archs] {arch} rns: kernels vs "
+                                 f"reference on the card differ at "
+                                 f"{bad[:5]} ({len(bad)})")
+        fused_loss = None
+        if arch == TRAIN_MOE:
+            fcfg = _train_arch_cfg(arch, "fused")[0]
+            bad = _differ(torch, got, _loss_grads(torch, model, fcfg,
+                                                  batch0))
+            if bad:
+                raise AssertionError(f"[train_archs] {arch} fused vs per-op "
+                                     f"differ at {bad[:5]}")
+            fused_loss = float(got[0])
+        print(f"  {arch} rns step 1: loss {float(got[0]):.6f}, aux "
+              f"{float(got[1]):.6g}, {len(got[2])} gradients bit-equal to "
+              f"the reference on the card"
+              + (" and to cuda_fused" if fused_loss is not None else ""),
+              flush=True)
+        del model, got, batch0
+
+        def check_calls(tag=f"train {short} "):
+            phase_kernels(torch, dev, record, calls, launches,
+                          main_path_only=True, seen=seen, tag=tag)
+            calls.clear()
+
+        stamp(f"{arch}: rns steps")
+        out = _train_path(torch, f"{short}_rns", rcfg, 3, launches, eager=1,
+                          data=data, calls=calls, after_eager=check_calls)[0]
+        out.update(kernels_equal_reference=True)
+        report(f"{short}_rns", out)
+        idle = [k for k in TRAIN_KERNELS["rns"]
+                if not launches[f"train_{short}_rns"][k]]
+        if idle:
+            raise AssertionError(f"[train_archs] {arch} rns: {idle} never "
+                                 "launched")
+        if arch == TRAIN_MOE:
+            rns_losses = out["losses"]
+            stamp(f"{arch}: fused steps")
+            out = _train_path(torch, f"{short}_fused", fcfg, 2, launches,
+                              eager=1, data=data, calls=calls,
+                              after_eager=check_calls)[0]
+            report(f"{short}_fused", out)
+            if out["losses"] != rns_losses[:2]:
+                raise AssertionError(f"[train_archs] {arch} fused losses "
+                                     f"{out['losses']} != per-op "
+                                     f"{rns_losses[:2]}")
+            dcfg = _train_arch_cfg(arch, "deferred")[0]
+            stamp(f"{arch}: deferred resident steps")
+            out, state = _train_path(torch, f"{short}_deferred", dcfg, 2,
+                                     launches, eager=1, resident=True,
+                                     data=data, calls=calls,
+                                     after_eager=check_calls)[:2]
+            init = ts.init_train_state(dcfg, 0, dev)["model"]
+            params = {k for k, _ in state["model"].named_parameters()}
+            moved = sum(not torch.equal(p, init.get_parameter(k))
+                        for k, p in state["model"].named_parameters())
+            names = set(state["opt"]["m"])
+            out.update(masters_moved=moved, opt_state_tensors=len(names),
+                       resident=sorted(resident_profiles(state["model"])))
+            report(f"{short}_deferred", out)
+            if moved != len(params) or names != params or any(
+                    k.endswith(("_digits", "_scale")) for k in names):
+                raise AssertionError(f"[train_archs] {arch} deferred: "
+                                     f"{moved} of {len(params)} masters "
+                                     "moved, or digits in the opt state")
+            del state, init
+            for label in ("fused", "deferred"):
+                idle = [k for k in TRAIN_KERNELS[label]
+                        if not launches[f"train_{short}_{label}"][k]]
+                if idle:
+                    raise AssertionError(f"[train_archs] {arch} {label}: "
+                                         f"{idle} never launched")
+            # resume, on the MoE model's smoke twin (MLA + MoE with shared
+            # experts, per-op on the kernels, its config's grad_accum and
+            # remat): a checkpoint of the full-width state is 19.5 GB, and
+            # writing, hashing and restoring two took 214 s of run 1 (bit-
+            # equal).  A Trainer takes steps 1-2 and checkpoints, a new
+            # one restores step 2 and takes step 3: bit-equal to 3
+            # uninterrupted captured steps on the same batches
+            stamp(f"{arch}: resume (smoke twin)")
+            tcfg = dataclasses.replace(
+                _twin_train_cfg(arch), grad_accum=rcfg.grad_accum)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out, state = _train_path(torch, f"{short}_twin", tcfg, 3,
+                                     launches, data=Batches(tcfg))[:2]
+            twin_losses, twin_host = out["losses"], _host_state(torch, state)
+            del state
+            replayed: dict = {}
+
+            def run(t, **kw):
+                state, hist = t.run(**kw)
+                for k, c in _kernel_nodes(t.step_fn.program.graph).items():
+                    replayed[k] = replayed.get(k, 0) + c * (len(hist) - 1)
+                return state, hist
+
+            _reset_launches()
+            run(trainer(tcfg, ckdir / "b", 3), max_steps=2)
+            state_b, hist_b = run(trainer(tcfg, ckdir / "b", 3))
+            counted = _launches()
+            launches[f"train_{short}_resume"] = {
+                k: counted[k] + replayed.get(k, 0) for k in counted}
+            if hist_b != twin_losses[2:] or not _state_equal(
+                    torch, twin_host, state_b):
+                raise AssertionError(f"[train_archs] {arch} resume: "
+                                     f"{hist_b} vs {twin_losses[2:]}")
+            results[f"{short}_resume"] = {
+                "config": "smoke twin", "uninterrupted": twin_losses,
+                "resumed_step_3": hist_b, "bit_equal": True,
+                "s": time.perf_counter() - t0, "card": smi}
+            print(json.dumps({f"train_{short}_resume":
+                              results[f"{short}_resume"]}), flush=True)
+            del state_b, twin_host
+            shutil.rmtree(ckdir / "b", ignore_errors=True)
+        del data
+        gc.collect()
+        torch.cuda.empty_cache()
+        stamp(f"{arch}: done")
+    shutil.rmtree(ckdir, ignore_errors=True)
     return results
 
 
@@ -3930,8 +4297,13 @@ def main() -> int:
             ("serve_ssm", lambda: phase_serve_ssm(torch, launches, record)),
             ("serve_encdec", lambda: phase_serve_encdec(torch, launches,
                                                         record)),
-            ("train", lambda: phase_train(torch, launches, record))]:
-        if only is not None and name not in only:
+            ("train", lambda: phase_train(torch, launches, record)),
+            ("train_archs", lambda: phase_train_archs(torch, launches,
+                                                      record)),
+            # [train]'s CPU check, run beside [train_archs]
+            ("train_cpu", lambda: phase_train_cpu(torch))]:
+        if only is not None and name not in only and not (
+                name == "train_cpu" and "train" in only):
             continue
         print(f"[{name}]", flush=True)
         t0 = time.perf_counter()
@@ -3942,6 +4314,8 @@ def main() -> int:
             failed.append(name)
             print(f"[{name}] FAILED", flush=True)
         print(f"[{name}] {time.perf_counter() - t0:.1f}s", flush=True)
+    if _TRAIN_CPU:                  # [train_cpu] did not run
+        _stop_train_cpu_check(_TRAIN_CPU.pop("proc"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -79,9 +79,9 @@ class Recorder:
         def apply_layer(orig):
             def f(blk, h, cfg, *, slot, **kw):
                 rec.layer = slot        # the layer (one layer type here)
-                h, kv_ = orig(blk, h, cfg, slot=slot, **kw)
+                h, kv_, aux = orig(blk, h, cfg, slot=slot, **kw)
                 rec.put("h", h)
-                return h, kv_
+                return h, kv_, aux
             return f
 
         def outputs(op):

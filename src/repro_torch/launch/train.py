@@ -1,8 +1,15 @@
 """End-to-end training launcher: the JAX package's ``repro.launch.train``
-on the port.
+on the port.  Every arch trains: the dense GQA models (smollm-135m,
+tinyllama-1.1b, granite-3-8b, qwen2.5-32b), the MoE ones (the MoE aux
+loss in the loss; deepseek-v2-236b with MLA, llama4-scout-17b-a16e),
+the recurrent ones (rwkv6-7b, jamba-v0.1-52b) and the audio and vision
+ones (whisper-medium, paligemma-3b: each batch carries its frontend
+stub, drawn as the JAX trainer draws it).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --smoke --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+        --smoke --steps 5 --device cpu --rns
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 50 --rns      # full width on the card, through RNS
 
@@ -28,7 +35,8 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m", choices=list_archs())
+    ap.add_argument("--arch", default="smollm-135m", choices=list_archs(),
+                    help="any of the ten archs: " + ", ".join(list_archs()))
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced smoke twin")
     ap.add_argument("--steps", type=int, default=200)

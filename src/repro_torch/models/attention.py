@@ -19,7 +19,8 @@ packed chunk, or decoded in a batch of any size (ROADMAP C.10).  The
 JAX package's prefill computes the same function as an online softmax
 over KV chunks.
 
-Training (``gqa_attend(mode="dense" | "flash")``) attends as the JAX
+Training (``gqa_attend`` / ``mla_attend(mode="dense" | "flash")``, the
+cross-attention ``gqa_attend(mode="dense", xkv=)``) attends as the JAX
 package's train mode does, in plain PyTorch with autograd:
 :func:`dense_attention` for up to ``cfg.attn_dense_max`` tokens, else the
 q-tiled online softmax :func:`flash_attention` (JAX's ``jnp`` one, not the
@@ -371,19 +372,14 @@ def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None,
     as ``PREFILL_LANE_ELEMS`` allows (the result does not depend on
     it).
 
-    ``mode`` "dense" or "flash" (training, self-attention only): the
-    sequence through :func:`dense_attention` or :func:`flash_attention`
-    (JAX's train modes, with its chunk sizes) instead of lanes."""
+    ``mode`` "dense" or "flash" (training): the sequence through
+    :func:`dense_attention` or :func:`flash_attention` (JAX's train
+    modes, with its chunk sizes) instead of lanes; training installs no
+    token mask, so the cross k/v conversion takes one grid over the
+    whole encoder output, as JAX's."""
     B, T, _ = x.shape
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if mode in ("dense", "flash"):
-        positions = torch.arange(T, device=x.device)[None].expand(B, T)
-        q, k, v = gqa_qkv(p, x, cfg, positions, rns)
-        fn = dense_attention if mode == "dense" else flash_attention
-        out = fn(q, k, v, causal=cfg.causal,
-                 window=cfg.attn_window if cfg.causal else None)
-        return linear(p.wo, out.reshape(B, T, -1), rns), (k, v)
-    if mode != "prefill":
+    if mode not in ("prefill", "dense", "flash"):
         raise ValueError(f"mode={mode!r}: prefill, dense or flash")
     if xkv is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
@@ -399,6 +395,11 @@ def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None,
             k, v = _multi_proj(xkv, (p.wk, p.wv), rns, (p.bk, p.bv))
         Tk, causal = xkv.shape[1], False
         k, v = k.reshape(B, Tk, Hk, D), v.reshape(B, Tk, Hk, D)
+    window = cfg.attn_window if causal else None
+    if mode != "prefill":
+        fn = dense_attention if mode == "dense" else flash_attention
+        out = fn(q, k, v, causal=causal, window=window)
+        return linear(p.wo, out.reshape(B, T, -1), rns), (k, v)
     # runs of (first lane, end lane, keys read)
     if causal:
         lengths = torch.arange(1, T + 1, device=x.device)
@@ -407,7 +408,6 @@ def gqa_attend(p: Attention, x, cfg, *, rns=None, xkv=None,
     else:
         lengths = torch.full((T,), Tk, device=x.device)
         runs = [(0, T, Tk)]
-    window = cfg.attn_window if causal else None
     out = torch.stack([torch.cat([
         lane_attention(q[b, i:j], k[b:b + 1, :n], v[b:b + 1, :n],
                        lengths[i:j], window, lane_block=j - i,
@@ -597,13 +597,25 @@ def mla_qkv(p: MLA, x, cfg, positions, rns=None):
     return q, k, v, (c_kv, k_rope)
 
 
-def mla_attend(p: MLA, x, cfg, *, rns=None):
+def mla_attend(p: MLA, x, cfg, *, rns=None, mode: str = "prefill"):
     """Causal MLA prefill over a whole (padded) prompt, in the expanded
     form; returns (y, (c_kv, k_rope)) for the latent cache.  Every
     prompt token is a lane of :func:`lane_attention` over the prompt's
-    keys, as a packed chunk token is over its row's gathered latents."""
+    keys, as a packed chunk token is over its row's gathered latents.
+
+    ``mode`` "dense" or "flash" (training): the expanded q, k, v of
+    :func:`mla_qkv` through :func:`dense_attention` or
+    :func:`flash_attention`, as JAX's train modes."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    if mode in ("dense", "flash"):
+        q, k, v, latent = mla_qkv(p, x, cfg, positions, rns)
+        fn = dense_attention if mode == "dense" else flash_attention
+        out = fn(q, k, v, causal=cfg.causal,
+                 window=cfg.attn_window if cfg.causal else None)
+        return linear(p.wo, out.reshape(B, T, -1), rns), latent
+    if mode != "prefill":
+        raise ValueError(f"mode={mode!r}: prefill, dense or flash")
     q_nope, q_rope, c_kv, k_rope = _mla_proj_at(p, x, cfg, positions, rns)
     ks, v = _mla_expand(p, cfg, c_kv, k_rope, rns)
     lengths = torch.arange(1, T + 1, device=x.device)

@@ -166,12 +166,20 @@ def _row_grids(cfg, x):
                                  device=x.device))
 
 
-def _encode(model: Model, cfg, frames):
+def _encode(model: Model, cfg, frames, *, train: bool = False):
     """The encoder over the frontend's frames [B, Te, d]: sinusoidal
     positions, ``enc_blocks``, ``enc_norm``.  Its attention follows
     ``cfg.causal``, as JAX's does (``enc_causal`` is never read, ROADMAP
-    C.15).  On the RNS path every conversion of the encoder's stream
-    takes one grid a row over all its frames."""
+    C.15).  Serving (``train=False``): on the RNS path every conversion
+    of the encoder's stream takes one grid a row over all its frames
+    (C.11).  ``train``: the stack in train mode with no token mask, so
+    every conversion takes one grid over the whole [B, Te, d] tensor, as
+    JAX's ``forward_train``."""
+    if train:
+        h = _add_abs_pos(cfg, frames)
+        h, _ = tf.apply_blocks(model.enc_blocks, h, cfg, mode="train",
+                               enc=True)
+        return model.enc_norm(h)
     with _row_grids(cfg, frames):
         h = _add_abs_pos(cfg, frames)
         h, _ = tf.apply_blocks(model.enc_blocks, h, cfg, mode="prefill",
@@ -179,42 +187,50 @@ def _encode(model: Model, cfg, frames):
         return model.enc_norm(h)
 
 
-def _check_trainable(cfg):
-    """The configs :func:`forward_train` takes in this slice: dense GQA
-    decoder-only models."""
-    kinds = [name for name, on in (
-        ("MoE", cfg.moe is not None or "moe" in cfg.mlp_types),
-        ("MLA", "mla" in cfg.layer_types),
-        ("SSM", any(t in ("mamba", "rwkv") for t in cfg.layer_types)),
-        ("encoder-decoder", cfg.enc_dec),
-        ("frontend", cfg.frontend is not None)) if on]
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training {' / '.join(kinds)} models comes with "
-            "A slice 4b (ROADMAP); this slice trains the dense GQA "
-            "decoder-only archs")
+def _frontend_len(cfg, batch: dict) -> int:
+    """The frontend positions ahead of a decoder-only model's tokens:
+    ``batch["frontend"]``'s length, else 0 (an encoder-decoder model's
+    frames go through its encoder)."""
+    if cfg.frontend is None or cfg.enc_dec or "frontend" not in batch:
+        return 0
+    return batch["frontend"].shape[1]
 
 
 def forward_train(model: Model, cfg, batch: dict):
-    """The training forward: ``batch["tokens"]`` [B, T] -> (logits [B, T,
-    V], aux loss: a float32 zero, the slot of the MoE's in slice 4b).  No
-    cache and no token mask, so every RNS conversion takes one absmax
-    grid over its whole tensor, as JAX's ``forward_train``."""
-    _check_trainable(cfg)
+    """The training forward: ``batch["tokens"]`` [B, T] (and
+    ``batch["frontend"]`` [B, F, d], the stub embeddings of an audio or
+    vision model) -> (logits [B, F + T, V], the layers' summed MoE aux
+    loss, a float32 scalar).  An encoder-decoder model runs its encoder
+    over the frontend and cross-attends to its output; a frontend model
+    puts the embeddings ahead of the tokens'.  No cache and no token
+    mask, so every RNS conversion takes one absmax grid over its whole
+    tensor, as JAX's ``forward_train``."""
     tokens = batch["tokens"]
-    h = _add_abs_pos(cfg, _embed_tokens(model, cfg, tokens.long()))
-    h, _ = tf.apply_blocks(model.blocks, h, cfg, mode="train")
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = _embed_tokens(model, cfg, tokens.long())
+    enc_out = None
+    if cfg.enc_dec:
+        if "frontend" not in batch:
+            raise ValueError(f"{cfg.arch_id}: an encoder-decoder batch "
+                             "needs its frontend frames")
+        enc_out = _encode(model, cfg, batch["frontend"].to(h.dtype),
+                          train=True)
+    elif _frontend_len(cfg, batch):
+        h = torch.cat([batch["frontend"].to(h.dtype), h], dim=1)
+    h = _add_abs_pos(cfg, h)
+    h, aux = tf.apply_blocks(model.blocks, h, cfg, mode="train",
+                             enc_out=enc_out)
     return _logits(model, h), aux
 
 
 def loss_fn(model: Model, cfg, batch: dict):
     """Next-token cross-entropy in float32 over ``batch["tokens"]``,
     weighted by ``batch["loss_mask"]`` [B, T] where given (its first
-    column unused), plus the aux loss.  Returns (loss, {"ce", "aux"})."""
+    column unused), plus the aux loss; a frontend model's frontend
+    positions are out of it.  Returns (loss, {"ce", "aux"})."""
     logits, aux = forward_train(model, cfg, batch)
+    F = _frontend_len(cfg, batch)
     tokens = batch["tokens"].long()
-    lg = logits[:, :-1].to(torch.float32)
+    lg = logits[:, F:-1].to(torch.float32)
     tg = tokens[:, 1:]
     mask = batch.get("loss_mask")
     mask = (torch.ones(tg.shape, dtype=torch.float32, device=lg.device)

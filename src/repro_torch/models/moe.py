@@ -87,7 +87,8 @@ def route(p: MoE, x: torch.Tensor, cfg: MoEConfig):
     E, k = cfg.n_experts, cfg.top_k
     C = max(1, int(S * k / E * cfg.capacity_factor))
     logits = matmul_rows(x, p.router).to(torch.float32)          # [B,S,E]
-    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    # the max takes no gradient, as in jax.nn.softmax
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     probs = ex / tree_sum(ex, -1)[..., None]
     # stable descending sort: the lower expert id first on ties
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)

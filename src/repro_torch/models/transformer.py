@@ -9,10 +9,12 @@ MLP.
 
 ``mode="train"`` runs the stack with no cache and no token mask, its
 attention JAX's train rule (dense up to ``cfg.attn_dense_max`` tokens,
-else the q-tiled flash), and under ``cfg.remat == "full"`` each layer
-(a dense model's period) recomputed in the backward
-(``torch.utils.checkpoint``, non-reentrant): the counterpart of JAX's
-``jax.checkpoint`` around its scanned period."""
+else the q-tiled flash; GQA or MLA, and an encoder-decoder's
+cross-attention dense over the encoder's output), sums the MoE layers'
+aux losses in layer order from a float32 zero, and under ``cfg.remat ==
+"full"`` recomputes each layer in the backward (``torch.utils.
+checkpoint``, non-reentrant, the aux loss its second output): the
+counterpart of JAX's ``jax.checkpoint`` around its scanned period."""
 
 from __future__ import annotations
 
@@ -86,11 +88,10 @@ def _attend(blk: Block, hn, cfg, *, mode: str, cache, slot: int, packed,
     """The layer's self-attention: (y, prefill cache planes or None)."""
     mla = isinstance(blk.attn, attn.MLA)
     if mode == "train":
-        if mla:
-            raise NotImplementedError("training MLA comes with A slice 4b")
         T = hn.shape[1]
         amode = "dense" if T <= cfg.attn_dense_max else "flash"
-        return attn.gqa_attend(blk.attn, hn, cfg, rns=rns, mode=amode)
+        fn = attn.mla_attend if mla else attn.gqa_attend
+        return fn(blk.attn, hn, cfg, rns=rns, mode=amode)
     if mode != "decode":
         if mla:
             return attn.mla_attend(blk.attn, hn, cfg, rns=rns)
@@ -172,13 +173,14 @@ def _cross(blk: Block, h, cfg, *, mode: str, cache, slot: int, enc_out,
                                       "bucketed engine's dense cache only")
         return attn.cross_decode(blk.xattn, hx, cfg, cache, slot,
                                  rns=rns), None
-    return attn.gqa_attend(blk.xattn, hx, cfg, rns=rns, xkv=enc_out)
+    return attn.gqa_attend(blk.xattn, hx, cfg, rns=rns, xkv=enc_out,
+                           mode="dense" if mode == "train" else "prefill")
 
 
 def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
                  packed=None, enc_out=None):
-    """Returns (h, prefill cache planes or None); a MoE block's aux loss
-    (a training term) is dropped."""
+    """Returns (h, prefill cache planes or None, the MoE block's aux loss
+    or None)."""
     rns_a, rns_m = _rns_for(cfg, "attn"), _rns_for(cfg, "mlp")
     y, planes = _mix(blk, blk.ln1(h), cfg, mode=mode, cache=cache,
                      slot=slot, packed=packed, rns_a=rns_a, rns_m=rns_m)
@@ -189,9 +191,10 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
         h = h + y
         if mode != "decode":
             planes = (planes, xkv)
+    aux = None
     if hasattr(blk, "moe"):
-        y, _aux = moe_lib.moe_ffn(blk.moe, blk.ln2(h), cfg.moe, act=cfg.act,
-                                  rns=rns_m)
+        y, aux = moe_lib.moe_ffn(blk.moe, blk.ln2(h), cfg.moe, act=cfg.act,
+                                 rns=rns_m)
     elif hasattr(blk, "mlp"):
         y = mlp(blk.mlp, blk.ln2(h), gated=cfg.gated_mlp, act=cfg.act,
                 rns=rns_m)
@@ -205,12 +208,17 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
         else:
             planes = (planes, x_cm)
     else:
-        return h, planes
-    return h + y, planes
+        return h, planes, aux
+    return h + y, planes, aux
 
 
-def _train_layer(blk: Block, h, cfg):
-    return _apply_layer(blk, h, cfg, mode="train", cache=None, slot=0)[0]
+def _train_layer(blk: Block, h, cfg, enc_out):
+    """(h, aux: the layer's MoE aux loss, else a float32 zero)."""
+    h, _, aux = _apply_layer(blk, h, cfg, mode="train", cache=None, slot=0,
+                             enc_out=enc_out)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None,
@@ -228,20 +236,24 @@ def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None,
     [1, N, d] stream its own row, absolute position and phase -- the
     mixed chunked-prefill/decode layout.  ``enc``: ``blocks`` is the
     encoder stack (its prefill planes are not kept).  "train": the
-    stack for a loss (see the module docstring); no planes."""
+    stack for a loss (see the module docstring); returns (h, the summed
+    aux loss, a float32 scalar) in place of the planes."""
     if mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in blocks:
             if cfg.remat == "full" and torch.is_grad_enabled():
-                h = torch.utils.checkpoint.checkpoint(
-                    _train_layer, blk, h, cfg, use_reentrant=False,
+                h, a = torch.utils.checkpoint.checkpoint(
+                    _train_layer, blk, h, cfg, enc_out, use_reentrant=False,
                     preserve_rng_state=False)
             else:
-                h = _train_layer(blk, h, cfg)
-        return h, []
+                h, a = _train_layer(blk, h, cfg, enc_out)
+            aux = aux + a
+        return h, aux
     ys = []
     slots = range(len(blocks)) if enc else layer_slots(cfg)
     for blk, slot in zip(blocks, slots):
-        h, planes = _apply_layer(blk, h, cfg, mode=mode, cache=cache,
-                                 slot=slot, packed=packed, enc_out=enc_out)
+        h, planes, _ = _apply_layer(blk, h, cfg, mode=mode, cache=cache,
+                                    slot=slot, packed=packed,
+                                    enc_out=enc_out)
         ys.append(planes)
     return h, ys

@@ -14,8 +14,11 @@ import logging
 import os
 import time
 
+import numpy as np
+
 from repro_torch.checkpoint import checkpointer as ckpt
-from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                       make_frontend_stub)
 from repro_torch.distributed.fault_tolerance import (Heartbeat,
                                                      PreemptionHandler,
                                                      StragglerMonitor)
@@ -68,6 +71,19 @@ class Trainer:
         log.info("resumed from %s (step %d)", latest, step)
         return state, step
 
+    def _batch(self, step: int) -> dict:
+        """Step ``step``'s batch: the corpus's tokens and, for an audio or
+        vision model, its frontend stub drawn from ``(seed, step, 99)``,
+        as the JAX trainer draws it."""
+        b = self.data.batch(step)
+        cfg = self.model_cfg
+        if cfg.frontend is not None:
+            rng = np.random.default_rng((self.tcfg.seed, step, 99))
+            b["frontend"] = make_frontend_stub(
+                rng, self.data.local_batch, cfg.n_frontend_tokens,
+                cfg.d_model)
+        return b
+
     def _save(self, state, step):
         if self._pending_save is not None:
             self._pending_save.result()     # one write in flight
@@ -87,7 +103,7 @@ class Trainer:
                   start + (max_steps or self.tcfg.total_steps))
         for step in range(start, end):
             t0 = time.perf_counter()
-            state, metrics = self.step_fn(state, self.data.batch(step))
+            state, metrics = self.step_fn(state, self._batch(step))
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             self.straggler.report(self.host, dt)

@@ -407,8 +407,8 @@ def test_layers_match_jax_on_the_ports_inputs(twins):
                     lp, jnp.asarray(h.numpy()), jcfg, cfg.layer_types[i],
                     cfg.mlp_types[i], mode=mode, positions=None,
                     kv_mask=None, enc_out=None, cache=jc)
-                h, planes = T._apply_layer(blk, h, cfg, mode=mode,
-                                           cache=cache, slot=slots[i])
+                h, planes, _ = T._apply_layer(blk, h, cfg, mode=mode,
+                                              cache=cache, slot=slots[i])
                 np.testing.assert_allclose(h.numpy(), np.asarray(jh),
                                            rtol=0, atol=SSM_ATOL)
                 if mode == "decode":

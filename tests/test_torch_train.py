@@ -9,9 +9,10 @@ trainer, and one train step of each dense smoke twin (float and rns9 at
 16 bits, also with ``grad_accum=2`` and resident weights) against JAX's
 ``make_train_step`` from the same parameters and optimizer state.  Also
 ``remat="full"`` = ``"none"`` bit for bit, ``measure_rns_ops`` = JAX's
-x layers (ROADMAP C.3) and the configs training refuses until A slice
-4b.  The ``gpu`` cases hold a card step to the CPU port's, the captured
-step to the eager one, and the fused backend to the per-op one.
+x layers (ROADMAP C.3); the other families are in
+``tests/test_torch_train_archs.py``.  The ``gpu`` cases hold a card step
+to the CPU port's, the captured step to the eager one, and the fused
+backend to the per-op one.
 """
 
 import dataclasses
@@ -576,17 +577,6 @@ def test_jax_train_op_counts_written_in_chip_smoke():
     got = jts.measure_rns_ops(jcfg, {"tokens": jnp.zeros(BATCH, jnp.int32)})
     assert {f: getattr(got, f) for f in smoke.JAX_TRAIN_RNS_OPS} == \
         smoke.JAX_TRAIN_RNS_OPS
-
-
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v2-236b",
-                                  "rwkv6-7b", "whisper-medium",
-                                  "paligemma-3b"])
-def test_forward_train_refuses_until_slice_4b(arch):
-    cfg = get_config(arch, smoke=True)
-    model = M.Model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="A slice 4b"):
-        M.forward_train(model, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int64)})
 
 
 # -------------------------------------------------------------- card ------
