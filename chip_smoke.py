@@ -168,8 +168,8 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 main path's decode and prefill inputs, one timed row of
                 each beside the same inputs unscaled.
 
-  [serve_archs] tinyllama-1.1b at full width and depth, granite-3-8b at
-                full width, depth 20,
+  [serve_archs] tinyllama-1.1b at full width, depth 11, granite-3-8b at
+                full width, depth 10,
                 qwen2.5-32b (q/k/v bias) at full width, depth 4, and
                 Llama-4-Scout at full width, depth 2, capacity 16
                 (dropless), rns9, random weights from seed 0: the
@@ -226,8 +226,9 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 deferred with resident weights, 3 steps (B.5 and B.6
                 forward, the float backward; the masters move, the
                 optimizer's state holds no digits), its loss within 1e-4
-                of the CPU port's; tinyllama-1.1b whole, float and per-op,
-                ``grad_accum=2``, 2 steps each; a Trainer resumed from
+                of the CPU port's; tinyllama-1.1b at full width, depth
+                11 of 22, float and per-op, ``grad_accum=2``, 2 steps
+                each; a Trainer resumed from
                 its step-3 checkpoint bit-equal at step 4 to an
                 uninterrupted one; every distinct B.1-B.6 input of the
                 eager steps checked and timed (transposed operands and
@@ -264,6 +265,36 @@ toolkit.  Phases (any failure makes the exit code non-zero):
                 bit-equal to an uninterrupted run.  Per path: step ms
                 captured and eager, tokens/s, kernel nodes and RNS
                 kernels a step, first step s, peak GiB, aux loss.
+  [dist]        digit sharding over ranks (A.11), last, after [train]'s
+                CPU child has ended: 3 gloo ranks on the one card (the
+                parent empties its cache first), each holding 3 of
+                rns9's 9 digits, serve smollm-135m whole, eagerly (gloo
+                goes through the host: a captured gloo step raises), 3
+                of the [serve] prompts (7/33/120) through
+                ContinuousEngine and 8 x 33 through the bucketed Engine,
+                8 new tokens each (cut for the run's time), per-op and
+                with resident weights: greedy tokens equal to the
+                unsharded eager serves on the card, each rank's resident
+                planes [3, ...],
+                one digit gather a normalize and no other collective,
+                B.1 / B.2 / B.3 launched on every rank, every distinct
+                B.1 and B.2 call on a digit group (3 digits) bit-equal to
+                its plain version and timed, and so B.1 and B.2 on groups
+                of 1, 2 and 4 digits at smollm's widths (DIST_GROUPS);
+                tokens/s, decode step
+                median, each rank's peak GiB and the gloo gather's host
+                time; one nccl rank serves the same traffic eager and
+                captured (the gather inside the CUDA graphs): equal
+                tokens, one capture a program; the DP x digit train
+                step on 2 x 3 gloo ranks (smollm-135m at full width,
+                depth 4, per-op rns9 at 16 bits with the RNS backward)
+                and float DP on the same mesh, 2 steps of [train]'s data
+                against the single card's eager step: losses within rtol
+                1e-5, step 1's gradients and the parameters after 2
+                steps within C.17's bars (rank 0; every rank's
+                parameters the same bits), one gradient all-reduce a
+                step; ``compress_dci``: 3 captured steps bit-equal to 3
+                eager ones (losses, parameters, m, v, error feedback).
 
 Then it prints the card's name and power limit, the peak device memory,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -1626,9 +1657,10 @@ def _mla_bucketed(torch, model, cfg, launches, calls):
 
 # [serve_archs] and [serve_ssm]: the dense archs with the q/k/v bias,
 # Llama-4-Scout, RWKV-6 and Jamba at their published widths
-# (configs/all_archs.py).  Depth: tinyllama 22 of 22 (4.1 GiB of float32
-# weights), granite 20 of 40 (whole 31.2 GiB: cut when [train_archs]
-# came, for the run's time); rwkv6 8 of 32 (whole 28.1 GiB; 16 when
+# (configs/all_archs.py).  Depth: tinyllama 11 of 22 (whole 4.1 GiB of
+# float32 weights: cut when [dist] came, for the run's time), granite 10
+# of 40 (whole 31.2 GiB: 20 when [train_archs] came, 10 when [dist]
+# came); rwkv6 8 of 32 (whole 28.1 GiB; 16 when
 # [serve_encdec] came, 8 when [train_archs] came); qwen2.5-32b 4 of 64
 # (whole 122.1 GiB; 8 until [train_archs] came),
 # Scout 2 of 48 (24.1 GiB), Jamba 8 of 32 (one period: 7 mamba + 1
@@ -1638,7 +1670,7 @@ def _mla_bucketed(torch, model, cfg, launches, calls):
 # the fused cell last (it encodes the dense MLPs resident in place).
 ARCH_DEPTH = {"qwen2.5-32b": 4, "llama4-scout-17b-a16e": 2,
               "jamba-v0.1-52b": 8, "rwkv6-7b": 8, "whisper-medium": 2,
-              "granite-3-8b": 20, "paligemma-3b": 4}
+              "granite-3-8b": 10, "paligemma-3b": 4, "tinyllama-1.1b": 11}
 # >= E / k: dropless, so chunked and bucketed tokens can equal
 # whole-prompt ones (the published 1.25 drops tokens a prompt's chunks
 # keep)
@@ -2005,7 +2037,7 @@ def _serve_cells(torch, cells, launches, record, *, solo=()):
 
 
 def phase_serve_archs(torch, launches, record):
-    """tinyllama-1.1b (full depth), granite-3-8b (depth 20), qwen2.5-32b
+    """tinyllama-1.1b (depth 11), granite-3-8b (depth 10), qwen2.5-32b
     (depth 4, q/k/v bias) and Llama-4-Scout (depth 2, dropless) at their
     published widths through the engines (ARCH_CELLS): eager then
     captured, every distinct kernel input checked against its plain
@@ -3328,6 +3360,8 @@ def phase_fractional(torch, dev, record, launches):
 # ------------------------------------------------------------- [train] ----
 TRAIN_ARCH = "smollm-135m"
 TRAIN_BIG = "tinyllama-1.1b"
+#: its depth in [train]: 11 of 22 since [dist] came, for the run's time
+TRAIN_BIG_LAYERS = 11
 #: the corpus: SyntheticLM over the first 1024 token ids (the models'
 #: logits still span their whole vocabulary).  Over all 49152 of
 #: smollm-135m's ids a 20-step run has nothing to learn: 20 k tokens
@@ -3710,8 +3744,8 @@ def _train_paths(torch, launches: dict, record: dict):
     the CPU port's, ``measure_rns_ops`` = JAX's x 30), the same on
     ``cuda_fused`` (bit-equal to per-op), fused deferred with resident
     weights (B.5 and B.6 forward, the float backward; masters move, the
-    optimizer holds no digits); tinyllama-1.1b whole, float and per-op,
-    ``grad_accum=2``; a resumed run bit-equal to an uninterrupted one;
+    optimizer holds no digits); tinyllama-1.1b at depth
+    TRAIN_BIG_LAYERS, float and per-op, ``grad_accum=2``; a resumed run bit-equal to an uninterrupted one;
     every distinct B.1-B.6 call of the eager steps bit-equal to its plain
     version, checked and timed.  Returns (results, ``check(cpu_out)``:
     the card's step 1 against the CPU port's, once the child wrote it)."""
@@ -3816,9 +3850,13 @@ def _train_paths(torch, launches: dict, record: dict):
         if idle:
             raise AssertionError(f"[train] {label}: {idle} never launched")
 
-    # 5. tinyllama-1.1b whole, grad_accum=2: float and per-op
+    # 5. tinyllama-1.1b at TRAIN_BIG_LAYERS, grad_accum=2: float, per-op
+    from repro_torch.configs.base import at_depth
+
+    print(f"  {TRAIN_BIG}: depth {TRAIN_BIG_LAYERS} of "
+          f"{_train_cfg(TRAIN_BIG, 'float').n_layers} (full width)")
     for kind in ("float", "rns"):
-        big = _train_cfg(TRAIN_BIG, kind)
+        big = at_depth(_train_cfg(TRAIN_BIG, kind), TRAIN_BIG_LAYERS)
         out = _train_path(torch, f"tinyllama_{kind}", big, 2, launches,
                           eager=1, compare=False)[0]
         report(f"tinyllama_{kind}", out)
@@ -4171,6 +4209,531 @@ def phase_train_archs(torch, launches: dict, record: dict):
     return results
 
 
+# ------------------------------------------------------------------ [dist] --
+#: digit sharding (ROADMAP A.11) on the one card: rns9's 9 digits over 3
+#: gloo ranks (3 digits a rank); gloo's collectives go through the host,
+#: so these serve eagerly (a captured step over gloo raises)
+DIST_RANKS = 3
+#: each sharded serve: label -> (engine, ServeConfig overrides); the
+#: [serve] prompts through ContinuousEngine and BUCKETED_SERVE's 8 x 33
+#: through the bucketed Engine (one generate), per-op and with resident
+#: weights.  Three ranks share the card over gloo, eagerly, at ~0.65 s a
+#: decode step (PERF.md): the traffic is cut to 3 requests and 8 new
+#: tokens for the run's time
+DIST_SERVE = dict(SERVE, requests=3, new=8)
+DIST_BUCKETED = dict(BUCKETED_SERVE, new=8)
+DIST_PATHS = {
+    "dist_continuous": ("continuous", {}),
+    "dist_continuous_resident": ("continuous", {"resident_weights": True}),
+    "dist_bucketed": ("bucketed", {}),
+    "dist_bucketed_resident": ("bucketed", {"resident_weights": True}),
+}
+#: the DP x digit train step: 2 data ranks x 3 digit ranks; smollm-135m
+#: at full width, its depth cut to this for the run's time; TRAIN_DATA's
+#: [8, 128] tokens a step, 4 rows a data rank
+DIST_TRAIN_MESH = (2, 3)
+DIST_TRAIN_LAYERS = 4
+DIST_TRAIN_STEPS = 2
+#: AdamW at eps 1e-3, as the step comparisons of the CPU tests run it
+#: (ROADMAP C.17: with eps 1e-8 a gradient element near 0 may flip an
+#: update's sign from float noise alone)
+DIST_ADAM = dict(lr=3e-3, warmup_steps=10, total_steps=DIST_TRAIN_STEPS,
+                 eps=1e-3)
+#: DP losses against the single card's step, relative
+DIST_LOSS_RTOL = 1e-5
+#: C.17's bars: a gradient within this share of its tensor's largest
+#: element plus this share of the model's largest; a parameter within
+#: rtol 1e-4 plus lr / 100 (rns) or 1e-7 (float)
+DIST_GRAD_BAR = {"rns": (1e-3, 1e-4), "float": (1e-4, 1e-6)}
+DIST_PARAM_BAR = {"rns": (1e-4, DIST_ADAM["lr"] / 100),
+                  "float": (1e-4, 1e-7)}
+DIST_COMPRESS_STEPS = 3
+#: each spawn's deadline (its ranks' start-up included)
+DIST_TIMEOUT_S = 420
+DIST_DIR = ROOT / "build" / "dist"
+
+
+def _rank_setup(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _gather_ms(torch, ds, shape, reps: int = 100) -> float:
+    """Host time of one ``gather_digits`` of a [K/n, *shape] int32 CUDA
+    tensor (every rank of the group calls it)."""
+    from repro_torch.distributed import sharding as SH
+
+    x = torch.zeros((3,) + tuple(shape), dtype=torch.int32, device="cuda")
+    SH.gather_digits(ds, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        SH.gather_digits(ds, x)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _dist_serve(torch, kind, kw, mesh, graphs=False):
+    """One serve of [dist]'s traffic on ``mesh`` (None: one rank):
+    (tokens, numbers)."""
+    import numpy as np
+
+    from repro_torch.core import dispatch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.serve import build_model, serve
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh is not None:        # a rank's own peak (the parent keeps its)
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    SH.reset_collective_counts()
+    with dispatch.count_ops() as ops:
+        if kind == "continuous":
+            engine, results, stats = serve(
+                "smollm-135m", full=True, rns="rns9", device="cuda",
+                graphs=graphs, mesh=mesh, **DIST_SERVE, **kw)
+            tokens = _tokens(results)
+            decode = [s["step_time_s"] for s in stats["steps"]
+                      if not s["admitted"] and s["decoded"]]
+            nums = {"tokens_per_s": stats["tokens_per_s"],
+                    "ttft_p50_s": stats["ttft_p50_s"],
+                    "captures": stats["captures"]}
+        else:
+            b = DIST_BUCKETED
+            model = build_model("smollm-135m", full=True, rns="rns9",
+                                device="cuda")
+            prompts = np.random.default_rng(0).integers(
+                0, model.cfg.vocab, (b["batch"], b["prompt_len"]))
+            engine = Engine(model, ServeConfig(
+                max_cache=b["prompt_len"] + b["new"] + 8,
+                max_new_tokens=b["new"], mesh=mesh, **kw), device="cuda",
+                graphs=graphs)
+            t0 = time.perf_counter()
+            toks = engine.generate(prompts)
+            dt = time.perf_counter() - t0
+            stats = dict(engine.last_stats, captures=engine.captures())
+            tokens = toks.tolist()
+            decode = stats["step_time_s"]
+            nums = {"tokens_per_s": toks.size / dt,
+                    "ttft_s": stats["ttft_s"],
+                    "captures": stats["captures"]}
+    torch.cuda.synchronize()
+    res = engine.model.blocks[0].mlp.resident("wi")
+    nums.update(
+        decode_step_ms_median=1e3 * statistics.median(decode),
+        peak_gib=_gib(torch), launches=_launches(),
+        collectives=SH.collective_counts(), normalizes=ops.normalizes,
+        backend=stats.get("collective_backend"),
+        digit_shards=stats.get("digit_shards"),
+        resident_wi_digits=None if res is None else list(res.digits.shape))
+    del engine
+    return tokens, nums
+
+
+def _dist_serve_rank(rank, n, record_calls):
+    """A rank of the sharded serves (DIST_PATHS, eager, over gloo); rank
+    0 records every distinct wrapper call on a digit-group profile and
+    holds each to its plain version (``phase_kernels``), timed."""
+    import torch
+
+    from repro_torch.core.moduli import DigitGroupProfile, get_profile
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_digit_mesh
+
+    dev = _rank_setup(torch)
+    mesh = make_digit_mesh(n)
+    out, calls = {"gloo_gather_ms": {}}, {}
+    for label, (kind, kw) in DIST_PATHS.items():
+        with (_recording(torch, calls) if rank == 0 and record_calls
+              else contextlib.nullcontext()):
+            out[label] = _dist_serve(torch, kind, kw, mesh)
+    ds = SH.DigitSharding(mesh)
+    for name, shape in (("decode [3,8,1,1536]", (8, 1, 1536)),
+                        ("prefill [3,1,144,1536]", (1, 144, 1536))):
+        out["gloo_gather_ms"][name] = _gather_ms(torch, ds, shape)
+    if rank == 0 and record_calls:
+        group = {k: e for k, e in calls.items() if isinstance(
+            get_profile(e["profile"]), DigitGroupProfile)}
+        checked: dict = {}
+        phase_kernels(torch, dev, checked, group, {}, main_path_only=True,
+                      tag="dist ")
+        out["record"] = checked
+    return out
+
+
+def _dist_nccl_rank(rank, n):
+    """One nccl rank: the sharded ContinuousEngine eager, then captured
+    (the digit gather inside the CUDA graphs)."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_digit_mesh
+
+    _rank_setup(torch)
+    mesh = make_digit_mesh(n)
+    out = {}
+    for graphs in (False, True):
+        out["captured" if graphs else "eager"] = _dist_serve(
+            torch, "continuous", {}, mesh, graphs=graphs)
+    out["nccl_gather_ms"] = _gather_ms(torch, SH.DigitSharding(mesh),
+                                       (8, 1, 1536))
+    return out
+
+
+def _dist_train_cfg(kind: str):
+    from repro_torch.configs.base import at_depth
+
+    return at_depth(_train_cfg(TRAIN_ARCH, kind), DIST_TRAIN_LAYERS)
+
+
+def _dist_train_state(torch, cfg):
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import init_opt_state
+
+    model = M.init_model(cfg, seed=0, device="cuda").requires_grad_(True)
+    return {"model": model,
+            "opt": init_opt_state(dict(model.named_parameters()))}
+
+
+def _dist_batches():
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(**TRAIN_DATA))
+    return [data.batch(i) for i in range(DIST_TRAIN_STEPS)]
+
+
+def _dist_train_ref(torch, kind: str) -> dict:
+    """The single card's eager step on [dist]'s training twin: step 1's
+    gradients, the losses and the parameters after DIST_TRAIN_STEPS."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _dist_train_cfg(kind)
+    state = _dist_train_state(torch, cfg)
+    step = make_train_step(cfg, AdamWConfig(**DIST_ADAM), graphs=False)
+    batches = _dist_batches()
+    _, grads = step.gradients(state, {
+        "tokens": torch.as_tensor(batches[0]["tokens"]).long().cuda()})
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches:
+        _, m = step(state, b)
+        losses.append(float(m["loss"]))
+    ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    return {"losses": losses, "step_ms": ms,
+            "grads": {k: v.detach().cpu() for k, v in grads.items()},
+            "params": {k: v.detach().cpu() for k, v in
+                       state["model"].named_parameters()}}
+
+
+def _dist_train_rank(rank, n, refs):
+    """A rank of the DP x digit step (DIST_TRAIN_MESH over gloo, eager):
+    per-op rns9 (residues over the model group) and float.  Rank 0 holds
+    its gradients and parameters to the single card's step (``refs``:
+    files of ``_dist_train_ref``); every rank gives its losses and a hash
+    of its parameters, which must be the same on every rank."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_digit_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import make_dp_train_step
+
+    _rank_setup(torch)
+    mesh = make_digit_mesh(DIST_TRAIN_MESH[1], n_data=DIST_TRAIN_MESH[0])
+    out = {}
+    for kind, path in refs.items():
+        ref = torch.load(path) if rank == 0 else None
+        cfg = _dist_train_cfg(kind)
+        torch.cuda.reset_peak_memory_stats()
+        state = _dist_train_state(torch, cfg)
+        step = make_dp_train_step(cfg, AdamWConfig(**DIST_ADAM), mesh,
+                                  graphs=False)
+        batches = _dist_batches()
+        _reset_launches()
+        SH.reset_collective_counts()
+        _, grads = step.gradients(state, {"tokens": torch.as_tensor(
+            batches[0]["tokens"]).long().cuda()})
+        torch.cuda.synchronize()
+        # the backward's normalizes run on autograd's thread, where
+        # count_ops does not see them: the launch counter does
+        grad_counts = SH.collective_counts()
+        grad_norms = _launches()["rns_normalize"]
+        worst = p_worst = None
+        if ref is not None:
+            top = max(float(g.abs().max()) for g in ref["grads"].values())
+            t_rel, m_rel = DIST_GRAD_BAR[kind]
+            worst = (0.0, "")
+            for k, g in ref["grads"].items():
+                g = g.cuda()
+                d = float((grads[k] - g).abs().max())
+                bar = t_rel * float(g.abs().max()) + m_rel * top
+                if d / bar > worst[0]:
+                    worst = (d / bar, k)
+        del grads
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches:
+            _, m = step(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+        rtol, atol = DIST_PARAM_BAR[kind]
+        digest = hashlib.sha1()
+        for k, p in state["model"].named_parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+            if ref is None:
+                continue
+            want = ref["params"][k].cuda()
+            over = float(((p.detach() - want).abs()
+                          / (rtol * want.abs() + atol)).max())
+            if p_worst is None or over > p_worst[0]:
+                p_worst = (over, k)
+        out[kind] = {"losses": losses, "step_ms": ms,
+                     "params_sha1": digest.hexdigest(),
+                     "grad_over_bar": worst, "param_over_bar": p_worst,
+                     "gradient_collectives": grad_counts,
+                     "gradient_normalizes": grad_norms,
+                     "launches": _launches(), "peak_gib": _gib(torch)}
+        del state, step, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_compress(torch) -> dict:
+    """``compress_dci`` on the card: DIST_COMPRESS_STEPS captured steps
+    of [dist]'s float twin bit-equal to as many eager ones (losses,
+    parameters, m, v and the error feedback)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _dist_train_cfg("float")
+    data = _dist_batches() + _dist_batches()
+    runs = {}
+    for graphs in (False, True):
+        state = _dist_train_state(torch, cfg)
+        step = make_train_step(cfg, AdamWConfig(**DIST_ADAM),
+                               compress_dci=True, graphs=graphs)
+        losses = [float(step(state, data[i % len(data)])[1]["loss"])
+                  for i in range(DIST_COMPRESS_STEPS)]
+        runs[graphs] = (losses, [t.cpu() for t in _state_list(state)] + [
+            e.detach().cpu() for e in state["ef"].values()], step.captures)
+        del state, step
+        gc.collect()
+    (l_e, s_e, _), (l_c, s_c, caps) = runs[False], runs[True]
+    if l_e != l_c or caps != 1 or not _state_equal(torch, s_e, s_c):
+        raise AssertionError(f"compress_dci: captured {l_c} (captures "
+                             f"{caps}) vs eager {l_e}, states equal "
+                             f"{_state_equal(torch, s_e, s_c)}")
+    return {"losses": l_c, "captures": caps}
+
+
+#: B.1 and B.2 at the other digit-group sizes (rns8 over 4 or 8 ranks,
+#: rns16 over 4 or 8: 2, 1, 4, 2 digits), at smollm-135m's widths: a
+#: weight, a decode row and a prefill row
+DIST_GROUPS = ("rns8[0:1]", "rns8[6:8]", "rns16[12:16]", "rns16[0:2]")
+
+
+def _dist_group_grid(torch, record: dict):
+    """B.1 and B.2 on DIST_GROUPS, bit-equal to their plain versions and
+    timed (``phase_kernels`` on these inputs: not a served path's)."""
+    from repro_torch.core.moduli import get_profile
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    calls = {}
+    for name in DIST_GROUPS:
+        p = get_profile(name)
+        for shape in ((576, 1536), (8, 1, 576), (1, 144, 576)):
+            x = torch.randn(shape, generator=g, device="cuda")
+            s = torch.full((), 127.0 / float(x.abs().max()), device="cuda")
+            calls[("rns_convert", name, shape)] = {
+                "kernel": "rns_convert", "profile": p, "calls": 0,
+                "args": (x, s), "kw": {"bits": 8}}
+        b = _residues(torch, p, (576, 1536), g, "cuda").to(torch.int8)
+        for rows in ((8, 1), (1, 144)):
+            a = _residues(torch, p, rows + (576,), g, "cuda").to(torch.int8)
+            calls[("rns_matmul", name, rows)] = {
+                "kernel": "rns_matmul", "profile": p, "calls": 0,
+                "args": (a, b), "kw": {}}
+    checked: dict = {}
+    phase_kernels(torch, torch.device("cuda"), checked, calls, {},
+                  main_path_only=True, tag="group grid ")
+    for kernel, cases in checked.items():
+        for c in cases:
+            c["calls_in_dist"] = c.pop("calls_in_serve", 0)
+            record.setdefault(kernel, []).append(c)
+
+
+def phase_dist(torch, launches: dict, record: dict):
+    """Digit sharding over ranks on the card (A.11): DIST_RANKS gloo
+    ranks serve DIST_SERVE and DIST_BUCKETED at full width, per-op and
+    resident, eager; the tokens equal the unsharded
+    serves' on the card, each rank's resident planes hold 3 of the 9
+    digits, one gather a normalize and no other collective, and the
+    distinct B.1 / B.2 calls on the digit groups bit-equal to their
+    plain versions (timed); one nccl rank's sharded decode captured in
+    CUDA graphs gives the eager tokens; the DP x digit step (2 x 3 gloo
+    ranks) and float DP against the single card's step; ``compress_dci``
+    captured = eager.  Every rank's failure fails the phase."""
+    from repro_torch.launch.mesh import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()      # the earlier phases' cached blocks
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    print(f"  [dist] {DIST_RANKS} gloo ranks on one card, rns9 "
+          f"({9 // DIST_RANKS} digits a rank); training depth "
+          f"{DIST_TRAIN_LAYERS} of {FULL_LAYERS} (full width), mesh "
+          f"{DIST_TRAIN_MESH}")
+    # the unsharded serves on the card (eager: captured = eager holds)
+    want = {kind: _dist_serve(torch, kind, {}, None)[0]
+            for kind in ("continuous", "bucketed")}
+    refs = {}
+    for kind in ("rns", "float"):
+        ref = _dist_train_ref(torch, kind)
+        print(f"  [dist] single card {kind}: losses {ref['losses']}, "
+              f"{ref['step_ms']:.1f} ms a step (eager)")
+        refs[kind] = str(DIST_DIR / f"train_{kind}.pt")
+        torch.save(ref, refs[kind])
+        del ref
+    comp = _dist_compress(torch)
+    print(f"  [dist] compress_dci: {DIST_COMPRESS_STEPS} captured steps "
+          f"= eager, losses {comp['losses']}")
+    _dist_group_grid(torch, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    serves = spawn(DIST_RANKS, _dist_serve_rank, True, backend="gloo",
+                   device="cuda", timeout_s=DIST_TIMEOUT_S)
+    serve_s = time.perf_counter() - t0
+    bad = []
+    for label, (kind, _) in DIST_PATHS.items():
+        total: dict = {}
+        for rank, out in enumerate(serves):
+            toks, nums = out[label]
+            if toks != want[kind]:
+                bad.append(f"{label} rank {rank}: tokens differ from the "
+                           "unsharded serve's")
+            col = nums["collectives"]
+            if col["gather_digits"] != nums["normalizes"] or \
+                    col["all_reduce_sum"] or col["all_reduce_max"]:
+                bad.append(f"{label} rank {rank}: collectives {col}, "
+                           f"normalizes {nums['normalizes']}")
+            if nums["backend"] != "gloo" or \
+                    nums["digit_shards"] != DIST_RANKS:
+                bad.append(f"{label} rank {rank}: {nums['backend']} x "
+                           f"{nums['digit_shards']}")
+            shape = nums["resident_wi_digits"]
+            if "resident" in label and (shape is None or shape[0] != 3):
+                bad.append(f"{label} rank {rank}: resident planes {shape}")
+            for k in ("rns_convert", "rns_matmul", "rns_normalize"):
+                if not nums["launches"][k]:
+                    bad.append(f"{label} rank {rank}: no {k} launch")
+            for k, v in nums["launches"].items():
+                total[k] = total.get(k, 0) + v
+        launches[label] = total
+        nums = serves[0][label][1]
+        print(json.dumps({label: {
+            k: nums[k] for k in ("tokens_per_s", "decode_step_ms_median",
+                                 "collectives", "normalizes",
+                                 "resident_wi_digits")},
+            "peak_gib_by_rank": [o[label][1]["peak_gib"] for o in serves],
+            "launches_all_ranks": total}))
+    for out in serves:
+        print(f"  [dist] gloo gather ms: {out['gloo_gather_ms']}")
+    for kernel, cases in serves[0].get("record", {}).items():
+        for c in cases:
+            c["calls_in_dist"] = c.pop("calls_in_serve", 0)
+            record.setdefault(kernel, []).append(c)
+    if not serves[0].get("record", {}).get("rns_convert") or \
+            not serves[0]["record"].get("rns_matmul"):
+        bad.append("no B.1 / B.2 call on a digit group was checked")
+
+    t0 = time.perf_counter()
+    nccl, = spawn(1, _dist_nccl_rank, backend="nccl", device="cuda",
+                  timeout_s=DIST_TIMEOUT_S)
+    nccl_s = time.perf_counter() - t0
+    (e_toks, e_nums), (c_toks, c_nums) = nccl["eager"], nccl["captured"]
+    if e_toks != c_toks or c_toks != want["continuous"]:
+        bad.append("nccl: captured / eager / unsharded tokens differ")
+    if c_nums["captures"] != {"decode": 1, "prefill": 1} or \
+            c_nums["backend"] != "nccl":
+        bad.append(f"nccl: captures {c_nums['captures']}, backend "
+                   f"{c_nums['backend']}")
+    if not c_nums["collectives"]["gather_digits"]:
+        bad.append("nccl: no gather in the captured engine's build")
+    launches["dist_nccl"] = e_nums["launches"]
+    print(json.dumps({"dist_nccl": {
+        "eager": {k: e_nums[k] for k in ("tokens_per_s",
+                                         "decode_step_ms_median")},
+        "captured": {k: c_nums[k] for k in ("tokens_per_s",
+                                            "decode_step_ms_median",
+                                            "captures", "peak_gib")},
+        "nccl_gather_ms": nccl["nccl_gather_ms"]}}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_train = DIST_TRAIN_MESH[0] * DIST_TRAIN_MESH[1]
+    trains = spawn(n_train, _dist_train_rank, refs, backend="gloo",
+                   device="cuda", timeout_s=DIST_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    for kind in refs:
+        ref = torch.load(refs[kind])
+        total = {}
+        for rank, out in enumerate(trains):
+            o = out[kind]
+            if not all(abs(a - b) <= DIST_LOSS_RTOL * abs(b)
+                       for a, b in zip(o["losses"], ref["losses"])):
+                bad.append(f"dp {kind} rank {rank}: losses {o['losses']} "
+                           f"vs {ref['losses']}")
+            if o["params_sha1"] != trains[0][kind]["params_sha1"]:
+                bad.append(f"dp {kind} rank {rank}: parameters differ from "
+                           "rank 0's")
+            if rank == 0 and (o["grad_over_bar"][0] > 1
+                              or o["param_over_bar"][0] > 1):
+                bad.append(f"dp {kind} rank {rank}: gradient "
+                           f"{o['grad_over_bar']}, parameter "
+                           f"{o['param_over_bar']} (over the bar > 1)")
+            col = o["gradient_collectives"]
+            if col["all_reduce_sum"] != 1 or \
+                    col["gather_digits"] != o["gradient_normalizes"] or \
+                    (col["all_reduce_max"] > 0) != (kind == "rns"):
+                bad.append(f"dp {kind} rank {rank}: collectives {col}, "
+                           f"normalizes {o['gradient_normalizes']}")
+            for k, v in o["launches"].items():
+                total[k] = total.get(k, 0) + v
+        if kind == "rns" and not all(total[k] for k in (
+                "rns_convert", "rns_matmul", "rns_normalize")):
+            bad.append(f"dp rns: launches {total}")
+        launches[f"dist_train_{kind}"] = total
+        o = trains[0][kind]
+        print(json.dumps({f"dist_train_{kind}": {
+            "losses": o["losses"], "single_card_losses": ref["losses"],
+            "step_ms_eager": o["step_ms"],
+            "single_card_step_ms_eager": ref["step_ms"],
+            "grad_over_bar": o["grad_over_bar"],
+            "param_over_bar": o["param_over_bar"],
+            "gradient_collectives": o["gradient_collectives"],
+            "peak_gib_by_rank": [t[kind]["peak_gib"] for t in trains]}}))
+    print(f"  [dist] spawns: serve {serve_s:.1f}s, nccl {nccl_s:.1f}s, "
+          f"train {train_s:.1f}s")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    if bad:
+        raise AssertionError("[dist]:\n" + "\n".join(bad))
+    print("[dist] ok")
+
+
 def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
     matmul_src = "src/repro_torch/kernels/rns_matmul/csrc/rns_matmul.cu"
     mma_src = "src/repro_torch/kernels/rns_fused/csrc/rns_fused_mma.cu"
@@ -4210,7 +4773,7 @@ def _kernel_line(record: dict, launches: dict, tuned: dict) -> dict:
                        default={})
             by_path = {path: run.get(name, 0) for path, run in
                        launches.items()
-                       if path.startswith(("serve", "train"))
+                       if path.startswith(("serve", "train", "dist"))
                        or path == "fractional"}
             n = sum(by_path.values())
         out.append({
@@ -4301,7 +4864,9 @@ def main() -> int:
             ("train_archs", lambda: phase_train_archs(torch, launches,
                                                       record)),
             # [train]'s CPU check, run beside [train_archs]
-            ("train_cpu", lambda: phase_train_cpu(torch))]:
+            ("train_cpu", lambda: phase_train_cpu(torch)),
+            # after [train]'s CPU child: the host holds one of them
+            ("dist", lambda: phase_dist(torch, launches, record))]:
         if only is not None and name not in only and not (
                 name == "train_cpu" and "train" in only):
             continue

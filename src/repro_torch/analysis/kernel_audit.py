@@ -67,13 +67,16 @@ FLASH_DMAX = 128                # csrc/flash_attention.cu DMAX
 
 #: registers per thread of the instantiations built without
 #: ``__launch_bounds__``, from ``ptxas -v`` (sm_90a, CUDA 12.8):
-#: rns_convert by output type and digit count K, rns_normalize by K (one
+#: rns_convert by output type and digit count K (the digit groups of
+#: digit sharding, K = 1-4, included), rns_normalize by K (one
 #: MRC pass in place, so every bt up to 1024 fits)
 REGISTERS = {
-    "rns_convert": {"int8": {5: 32, 6: 32, 7: 32, 8: 32, 9: 32, 12: 32,
-                             16: 32, 18: 32, 21: 32},
-                    "int32": {5: 32, 6: 32, 7: 38, 8: 32, 9: 32, 12: 32,
-                              16: 32, 18: 32, 21: 32}},
+    "rns_convert": {"int8": {1: 26, 2: 28, 3: 32, 4: 30, 5: 32, 6: 32,
+                             7: 32, 8: 32, 9: 32, 12: 32, 16: 32, 18: 32,
+                             21: 32},
+                    "int32": {1: 26, 2: 28, 3: 31, 4: 32, 5: 32, 6: 32,
+                              7: 38, 8: 32, 9: 32, 12: 32, 16: 32, 18: 32,
+                              21: 32}},
     "rns_normalize": {5: 21, 6: 23, 7: 25, 8: 29, 9: 28, 12: 32, 16: 32,
                       18: 32, 21: 32},
 }

@@ -22,7 +22,20 @@ bit-identical to the three stages, without the activation residues or
 the [K, ..., N] accumulator going through device memory.  On a backend
 that is not fused, or for a scale that cannot fold into one scale per
 activation row, they decompose into the primitives; the latter
-downgrade tallies ``fallbacks``.  Digit sharding is a later slice.
+downgrade tallies ``fallbacks``.
+
+Digit sharding: under ``distributed.sharding.use_digit_sharding``, for a
+profile whose digit count divides the digit group, a residue tensor
+holds this rank's digit group ``[K/n, ...]`` (``[lo:hi)`` of the moduli;
+``moduli.digit_group``).  ``convert`` and ``matmul`` then run on the
+local moduli with no communication (the convert and matmul kernels on
+the card, on the digit-group profile's tables; their plain versions on
+the CPU), and ``normalize`` gathers the digits once
+(``sharding.gather_digits``) and decodes the whole profile.  A whole
+``[K, ...]`` operand (a tensor encoded off the context) is cut to the
+rank's group first, as GSPMD reshards a replicated operand.  Under the
+context the composites break into the primitives without tallying a
+fallback, as JAX's do (its shard_map bodies own the layout).
 
 ``inv_scale`` (a static python float, e.g. ``M_f**-frac_exp`` of a
 fractional residue tensor) is folded into the float64 reconstruction
@@ -50,6 +63,7 @@ import threading
 import torch
 
 from repro_torch.core.moduli import get_profile
+from repro_torch.distributed import sharding
 
 __all__ = ["BACKENDS", "resolve_backend", "is_fused", "fusion_active",
            "OpCounts", "count_ops", "convert", "matmul", "normalize",
@@ -81,10 +95,11 @@ def is_fused(name: str | None) -> bool:
 
 
 def fusion_active(profile, backend: str | None) -> bool:
-    """Would the composites launch fused kernels for ``profile``?  The
-    JAX package also says no under a digit-sharding context; the port has
-    none yet (a later slice), so this is :func:`is_fused`."""
-    return is_fused(backend)
+    """Would the composites launch fused kernels for ``profile``?  Not on
+    an unfused backend, and not under a digit-sharding context that
+    splits the profile (callers then keep their unfused structure, e.g.
+    ``rns_multi_dot``'s shared conversion)."""
+    return is_fused(backend) and _digit_ctx(profile)[0] is None
 
 
 def _unfused(name: str | None, operand: torch.Tensor) -> str:
@@ -98,7 +113,10 @@ class OpCounts:
     """Primitive tallies; ``weight_converts`` is the subset of ``converts``
     spent re-encoding static weights (0 on resident weights), ``fused``
     counts composite kernel calls and ``fallbacks`` the composites that
-    decomposed because their scale could not fold into rows."""
+    decomposed because their scale could not fold into rows.
+    ``activation_converts`` is the rest of ``converts`` (resident and
+    re-encode paths agree on it) and ``normalizes_per_matmul`` the
+    amortization figure: 1.0 per-op, below 1 on deferred chains."""
 
     converts: int = 0
     matmuls: int = 0
@@ -112,6 +130,14 @@ class OpCounts:
 
     def as_dict(self) -> dict:
         return {f: getattr(self, f) for f in self.FIELDS}
+
+    @property
+    def normalizes_per_matmul(self) -> float:
+        return self.normalizes / max(self.matmuls, 1)
+
+    @property
+    def activation_converts(self) -> int:
+        return self.converts - self.weight_converts
 
     def add(self, other: "OpCounts", times: int = 1) -> "OpCounts":
         """New OpCounts = self + times * other."""
@@ -141,17 +167,42 @@ def count_ops():
         _counters().remove(c)
 
 
+# ------------------------------------------------------ digit sharding ----
+def _digit_ctx(profile):
+    """(the installed DigitSharding if it splits ``profile``, else None;
+    the profile)."""
+    p = get_profile(profile)
+    ds = sharding.digit_sharding()
+    if ds is None or not ds.shards(p.n_digits):
+        return None, p
+    return ds, p
+
+
+def _local_digits(ds, p, res: torch.Tensor) -> torch.Tensor:
+    """This rank's digit group of ``res``: as it is when it holds K/n
+    planes, cut from a whole [K, ...] tensor."""
+    if res.shape[0] == p.n_digits and ds.n_shards > 1:
+        return ds.local(res)
+    if res.shape[0] * ds.n_shards != p.n_digits:
+        raise ValueError(f"{res.shape[0]} digit planes for {p.name} over "
+                         f"{ds.n_shards} digit shards")
+    return res
+
+
 # ---------------------------------------------------------- primitives ----
 def convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
             backend: str | None = None, weight: bool = False) -> torch.Tensor:
     """Quantize ``x`` by ``scale`` and encode to residues [K, ...]: int8
-    digit planes for an int8-safe profile, else int32."""
+    digit planes for an int8-safe profile, else int32 (under digit
+    sharding this rank's group, [K/n, ...])."""
     _tally("converts")
     if weight:
         _tally("weight_converts")
-    p = get_profile(profile)
+    ds, p = _digit_ctx(profile)
     be = _unfused(backend, x)
     out_dtype = torch.int8 if p.int8_safe else torch.int32
+    if ds is not None:
+        p = ds.local_profile(p)
     if be == "reference":
         from repro_torch.core.quantize import quantize_with_scale
         from repro_torch.core.rns import encode_int32
@@ -165,24 +216,34 @@ def convert(profile, x: torch.Tensor, scale, *, bits: int = 16,
 
 def matmul(profile, a_res: torch.Tensor, b_res: torch.Tensor, *,
            backend: str | None = None) -> torch.Tensor:
-    """Digit-sliced modular matmul: [K,...,M,D] @ [K,D,N] -> [K,...,M,N]."""
+    """Digit-sliced modular matmul: [K,...,M,D] @ [K,D,N] -> [K,...,M,N]
+    (under digit sharding on this rank's moduli: [K/n, ...])."""
     _tally("matmuls")
     be = _unfused(backend, a_res)
+    ds, p = _digit_ctx(profile)
+    if ds is not None:
+        a_res, b_res = _local_digits(ds, p, a_res), _local_digits(ds, p, b_res)
+        p = ds.local_profile(p)
     if be == "reference":
         from repro_torch.core.rns_matmul import rns_matmul_res
 
-        return rns_matmul_res(profile, a_res, b_res)
+        return rns_matmul_res(p, a_res, b_res)
     from repro_torch.kernels.rns_matmul.ops import rns_matmul
 
-    return rns_matmul(profile, a_res, b_res)
+    return rns_matmul(p, a_res, b_res)
 
 
 def normalize(profile, res: torch.Tensor, *, inv_scale: float = 1.0,
               backend: str | None = None) -> torch.Tensor:
     """MRC-normalize residues [K, ...] to signed float32 values times
-    ``inv_scale`` (folded into the weights, see the module docstring)."""
+    ``inv_scale`` (folded into the weights, see the module docstring).
+    Under digit sharding: one gather of every rank's [K/n, ...] group,
+    then the whole profile's normalize."""
     _tally("normalizes")
     be = _unfused(backend, res)
+    ds, p = _digit_ctx(profile)
+    if ds is not None:
+        res = sharding.gather_digits(ds, _local_digits(ds, p, res))
     if be == "reference":
         from repro_torch.core import mrc
 

@@ -11,9 +11,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import re
 
-__all__ = ["greedy_coprime_moduli", "RnsProfile", "PROFILES", "get_profile",
-           "narrowest_profile", "required_digits"]
+__all__ = ["greedy_coprime_moduli", "RnsProfile", "DigitGroupProfile",
+           "digit_group", "PROFILES", "get_profile", "narrowest_profile",
+           "required_digits"]
 
 
 def greedy_coprime_moduli(limit: int, count: int) -> tuple[int, ...]:
@@ -100,6 +102,52 @@ class RnsProfile:
         return self.M // (2 ** (qa + qw - 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class DigitGroupProfile(RnsProfile):
+    """The moduli ``[lo:hi)`` of a registered profile: the digit group one
+    rank holds under digit sharding (``distributed/sharding.py``).
+
+    Convert and matmul run on a group as on a profile of its own (its
+    moduli, their tables); it keeps the whole profile's ``lazy_chunk``,
+    so a group's matmul reduces on the schedule of the whole register's
+    (JAX's sharded body takes ``p.lazy_chunk`` of the full profile).  A
+    group has no fractional base (``frac_digits`` 0): only the whole
+    profile normalizes.  Its name, ``"rns9[3:6]"``, resolves through
+    :func:`get_profile` and never collides with a registered name."""
+
+    parent: str = ""
+    lo: int = 0
+    parent_lazy_chunk: int = 0
+
+    def __post_init__(self):
+        ms = self.moduli
+        if not ms or any(m < 2 for m in ms):
+            raise ValueError(f"digit group {self.name!r}: bad moduli {ms}")
+
+    @property
+    def lazy_chunk(self) -> int:
+        return self.parent_lazy_chunk
+
+
+@functools.lru_cache(maxsize=None)
+def digit_group(profile: "str | RnsProfile", lo: int,
+                hi: int) -> RnsProfile:
+    """The profile of moduli ``[lo:hi)`` of ``profile`` (the profile
+    itself for the whole range)."""
+    p = get_profile(profile)
+    if not 0 <= lo < hi <= p.n_digits:
+        raise ValueError(f"digit group [{lo}:{hi}) of {p.name} "
+                         f"({p.n_digits} digits)")
+    if (lo, hi) == (0, p.n_digits):
+        return p
+    return DigitGroupProfile(f"{p.name}[{lo}:{hi}]", p.moduli[lo:hi], 0,
+                             parent=p.name, lo=lo,
+                             parent_lazy_chunk=p.lazy_chunk)
+
+
+_GROUP_RE = re.compile(r"^(.+)\[(\d+):(\d+)\]$")
+
+
 def _mk(name: str, n: int, frac: int, limit: int = 128) -> RnsProfile:
     return RnsProfile(name, greedy_coprime_moduli(limit, n), frac)
 
@@ -120,11 +168,16 @@ PROFILES: dict[str, RnsProfile] = {
 
 
 def get_profile(profile: str | RnsProfile) -> RnsProfile:
+    """A registered profile by name, a digit group by its name
+    (``"rns9[3:6]"``, :func:`digit_group`), or the profile given."""
     if isinstance(profile, RnsProfile):
         return profile
     try:
         return PROFILES[profile]
     except KeyError:
+        m = _GROUP_RE.match(profile) if isinstance(profile, str) else None
+        if m and m[1] in PROFILES:
+            return digit_group(m[1], int(m[2]), int(m[3]))
         raise KeyError(
             f"unknown RNS profile {profile!r}; have {sorted(PROFILES)}"
         ) from None

@@ -9,6 +9,10 @@ Two grid policies, as in ``repro.core.quantize``:
   only, so padding and batch neighbours never move a row's grid.
 
 Blocks whose absmax sits below ``eps`` flush to the unit grid.
+
+In a data-parallel step (``distributed.sharding.use_batch_sharding``)
+a whole-tensor absmax is the max over the data group: GSPMD reduces it
+over the whole batch, and so must each rank's share of the rows.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from __future__ import annotations
 import threading
 
 import torch
+
+from repro_torch.distributed import sharding
 
 __all__ = ["token_mask", "current_token_mask", "absmax_scale",
            "quantize_with_scale", "quantize", "dequantize"]
@@ -90,6 +96,9 @@ def absmax_scale(x: torch.Tensor, bits: int, axis=None, eps: float = 1e-12,
         amax = torch.where(m, x.abs(), 0.0).amax(dim=red, keepdim=True)
     elif axis is None:
         amax = x.abs().amax()
+        group = sharding.batch_group()
+        if group is not None:
+            sharding.all_reduce_max(amax, group)
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
     return torch.where(amax >= eps, amax.new_full((), qmax) / amax, 1.0)

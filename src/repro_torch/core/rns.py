@@ -4,6 +4,8 @@ Residue layout: a value tensor of shape ``(...)`` is represented by a
 residue tensor of shape ``(K, ...)``, one digit plane per modulus.  Every
 PAC (parallel-array-computation) op is one elementwise floor-mod op per
 digit (``torch.remainder``, as ``jnp.remainder``), all digits independent.
+Under digit sharding a rank holds K/n planes of a tensor, and the PAC ops
+reduce them by its own moduli (:func:`local_profile`).
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ import torch
 
 from repro_torch.core.moduli import RnsProfile, get_profile
 
-__all__ = ["Tables", "tables", "moduli_vec", "encode_int32", "encode_float",
-           "saturate_int32", "encode_exact", "decode_exact", "rns_add",
-           "rns_sub", "rns_neg", "rns_mul", "rns_scale_const",
+__all__ = ["Tables", "tables", "moduli_vec", "local_profile", "encode_int32",
+           "encode_float", "saturate_int32", "encode_exact", "decode_exact",
+           "rns_add", "rns_sub", "rns_neg", "rns_mul", "rns_scale_const",
            "rns_add_const", "to_int8", "from_int8"]
 
 
@@ -92,6 +94,29 @@ def moduli_vec(profile, ndim: int, device) -> torch.Tensor:
     return m.reshape((-1,) + (1,) * (ndim - 1))
 
 
+def local_profile(profile, k: int) -> RnsProfile:
+    """The profile of a residue tensor of ``k`` digit planes: ``profile``
+    itself, or, under digit sharding (``distributed/sharding.py``), this
+    rank's digit group of it."""
+    p = get_profile(profile)
+    if k == p.n_digits:
+        return p
+    from repro_torch.distributed.sharding import digit_sharding
+
+    ds = digit_sharding()
+    if ds is not None and ds.shards(p.n_digits) \
+            and k == p.n_digits // ds.n_shards:
+        return ds.local_profile(p)
+    raise ValueError(f"{k} digit planes for {p.name} ({p.n_digits} digits"
+                     + (f", {ds.n_shards} digit shards)" if ds else ")"))
+
+
+def _mvec(profile, x: torch.Tensor) -> torch.Tensor:
+    """Moduli of the residues ``x`` [k, ...] (see :func:`local_profile`),
+    shaped to broadcast against it."""
+    return moduli_vec(local_profile(profile, x.shape[0]), x.ndim, x.device)
+
+
 @functools.lru_cache(maxsize=256)
 def _const_residues(profile: RnsProfile, c: int, device: torch.device):
     """Residues [K] of the python int ``c`` (any size: reduced per modulus
@@ -128,43 +153,41 @@ def encode_float(profile, x: torch.Tensor, scale: float) -> torch.Tensor:
 
 def rns_add(profile, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """PAC sum of residues [K, ...] (floor-mod, like ``jnp.remainder``)."""
-    return torch.remainder(x + y, moduli_vec(profile, x.ndim, x.device))
+    return torch.remainder(x + y, _mvec(profile, x))
 
 
 def rns_sub(profile, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """PAC difference of residues [K, ...]."""
-    m = moduli_vec(profile, x.ndim, x.device)
+    m = _mvec(profile, x)
     return torch.remainder(x - y + m, m)
 
 
 def rns_neg(profile, x: torch.Tensor) -> torch.Tensor:
     """PAC negation: residues of M - X."""
-    m = moduli_vec(profile, x.ndim, x.device)
+    m = _mvec(profile, x)
     return torch.remainder(m - x, m)
 
 
 def rns_mul(profile, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """PAC product of residues [K, ...]: int32 digits below 2**8 keep the
     product below 2**16, so no int32 overflow."""
-    return torch.remainder(x * y, moduli_vec(profile, x.ndim, x.device))
+    return torch.remainder(x * y, _mvec(profile, x))
 
 
 def _const_vec(profile, c: int, x: torch.Tensor) -> torch.Tensor:
-    p = get_profile(profile)
+    p = local_profile(profile, x.shape[0])
     return _const_residues(p, int(c), x.device).reshape(
         (-1,) + (1,) * (x.ndim - 1))
 
 
 def rns_scale_const(profile, x: torch.Tensor, c: int) -> torch.Tensor:
     """PAC scaling by a python-int constant of any size, exactly."""
-    return torch.remainder(x * _const_vec(profile, c, x),
-                           moduli_vec(profile, x.ndim, x.device))
+    return torch.remainder(x * _const_vec(profile, c, x), _mvec(profile, x))
 
 
 def rns_add_const(profile, x: torch.Tensor, c: int) -> torch.Tensor:
     """PAC sum with a python-int constant of any size, exactly."""
-    return torch.remainder(x + _const_vec(profile, c, x),
-                           moduli_vec(profile, x.ndim, x.device))
+    return torch.remainder(x + _const_vec(profile, c, x), _mvec(profile, x))
 
 
 def to_int8(profile, res: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ the quantizer passes gradients through unchanged, and with
 on the forward's backend; otherwise they are float matmuls.  Under
 ``torch.no_grad`` / ``inference_mode`` (serving) only the forward runs.
 On a fused backend each projection is one fused kernel
-(``dispatch.fused_dot``).
+(``dispatch.fused_dot``).  The backward runs under the forward's digit
+and batch layouts (``distributed/sharding.py``): on the card autograd
+runs it on a thread of its own.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.core import dispatch
 from repro_torch.core.moduli import get_profile
 from repro_torch.core.quantize import absmax_scale
 from repro_torch.core.rns import moduli_vec
+from repro_torch.distributed import sharding
 
 __all__ = ["RnsDotConfig", "modular_matmul", "rns_matmul_res", "rns_dot",
            "rns_dot_fwd_only", "rns_multi_dot", "rns_resident_dot",
@@ -45,14 +48,10 @@ class RnsDotConfig:
     # residue-domain chaining: the MLP block runs wi -> gate multiply ->
     # wo in residues with one main-path normalize (models/layers.py)
     defer: bool = False
-    # digit slices sharded over a model mesh axis: the distributed slice
+    # one digit slice per compute unit (paper Fig. 5): keep the
+    # per-primitive path, whose residues the digit mesh lays out (JAX
+    # adds layout constraints there; a program of one rank needs none)
     slice_parallel: bool = False
-
-    def __post_init__(self):
-        if self.slice_parallel:
-            raise NotImplementedError(
-                "RnsDotConfig.slice_parallel shards digit slices over a "
-                "mesh: it comes with the distributed slice (ROADMAP A.11)")
 
 
 def _check_capacity(cfg: RnsDotConfig, contract_dim: int, qa: int, qb: int):
@@ -119,7 +118,8 @@ def _unscale(y: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor):
 
 
 def _fused_path(cfg: RnsDotConfig) -> bool:
-    return dispatch.fusion_active(cfg.profile, cfg.backend)
+    return (dispatch.fusion_active(cfg.profile, cfg.backend)
+            and not cfg.slice_parallel)
 
 
 def _rns_matmul_float(cfg: RnsDotConfig, x: torch.Tensor, w: torch.Tensor,
@@ -151,11 +151,17 @@ class _RnsDot(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, cfg):
         ctx.cfg = cfg
+        ctx.layout = sharding.snapshot()
         ctx.save_for_backward(x, w)
         return _rns_matmul_float(cfg, x, w, cfg.qx, cfg.qw)
 
     @staticmethod
     def backward(ctx, g):
+        with sharding.restore(ctx.layout):
+            return _RnsDot._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x, w = ctx.saved_tensors
         cfg = ctx.cfg
         xf = x.reshape(-1, x.shape[-1])                     # [T, D]
@@ -223,11 +229,17 @@ class _RnsMulti(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, x, *ws):
         ctx.cfg = cfg
+        ctx.layout = sharding.snapshot()
         ctx.save_for_backward(x, *ws)
         return _rns_multi_impl(cfg, x, ws)
 
     @staticmethod
     def backward(ctx, *gs):
+        with sharding.restore(ctx.layout):
+            return _RnsMulti._backward(ctx, *gs)
+
+    @staticmethod
+    def _backward(ctx, *gs):
         x, *ws = ctx.saved_tensors
         cfg = ctx.cfg
         xf = x.reshape(-1, x.shape[-1])                     # [T, D]

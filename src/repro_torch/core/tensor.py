@@ -36,8 +36,8 @@ from repro_torch.core.rns import encode_int32, rns_add, rns_mul
 __all__ = ["RnsTensor", "ledger_limit_bits", "dot_out_bits",
            "matmul_out_bits", "needs_renormalize", "rt_encode",
            "rt_encode_int", "rt_decode", "rt_renormalize", "rt_matmul",
-           "rt_mul", "rt_add", "rt_stack", "rt_encode_matmul",
-           "rt_matmul_decode", "rt_dot"]
+           "rt_mul", "rt_add", "rt_stack", "rt_digit_sharding",
+           "rt_device_put", "rt_encode_matmul", "rt_matmul_decode", "rt_dot"]
 
 #: headroom (bits) kept below the profile's guaranteed signed range
 _SAFETY_BITS = 1.0
@@ -93,6 +93,37 @@ def _f32(scale, device) -> torch.Tensor:
 def _inv_frac(p: RnsProfile, frac_exp: int) -> float:
     """M_f**-frac_exp as the python float the decode folds in."""
     return 1.0 / float(p.M_f) ** frac_exp if frac_exp else 1.0
+
+
+# ------------------------------------------------------------ mesh layout --
+def rt_digit_sharding(rt: RnsTensor, *, digit_axis: int = 0):
+    """The spec the installed digit mesh gives ``rt.digits`` (its digit
+    axis over the mesh's digit axis, a tuple as ``distributed/
+    sharding.py`` writes specs), or None when no digit context is
+    installed or the profile does not divide the axis.  ``digit_axis``:
+    where K sits, 0 for ``[K, ...]``, 1 for period-major ``[P, K, ...]``."""
+    from repro_torch.distributed.sharding import digit_sharding
+
+    ds = digit_sharding()
+    if ds is None or not ds.shards(rt.rns_profile.n_digits):
+        return None
+    return ds.digit_spec(rt.digits.ndim, axis_pos=digit_axis)
+
+
+def rt_device_put(rt: RnsTensor, *, digit_axis: int = 0) -> RnsTensor:
+    """An encoded tensor in the digit-sharded layout: this rank's digit
+    group of a whole ``[K, ...]`` (or ``[P, K, ...]``) tensor, for an
+    operand encoded before the context (weights encoded once at engine
+    build).  Unchanged without a context, or when the tensor holds the
+    group already."""
+    from repro_torch.distributed.sharding import digit_sharding
+
+    if rt_digit_sharding(rt, digit_axis=digit_axis) is None:
+        return rt
+    if rt.digits.shape[digit_axis] != rt.rns_profile.n_digits:
+        return rt
+    return dataclasses.replace(
+        rt, digits=digit_sharding().local(rt.digits, axis_pos=digit_axis))
 
 
 def rt_stack(rts) -> RnsTensor:

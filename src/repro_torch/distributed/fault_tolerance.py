@@ -3,9 +3,8 @@ preemption.
 
 A copy of the JAX package's pure-Python classes: transport-agnostic
 (file-based heartbeats, a SIGTERM flag), so the same objects drive a
-fleet's hosts and the one-process trainer.  ``plan_remesh`` (elastic
-re-meshing on the surviving chips) comes with the distributed slice
-(ROADMAP A.11).
+fleet's hosts and the one-process trainer, and ``plan_remesh``, the
+elastic re-meshing on the surviving cards.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ import signal
 import statistics
 import time
 
-__all__ = ["StragglerMonitor", "Heartbeat", "PreemptionHandler"]
+__all__ = ["StragglerMonitor", "Heartbeat", "PreemptionHandler",
+           "plan_remesh"]
 
 
 # ------------------------------------------------------------ stragglers ---
@@ -103,3 +103,14 @@ class PreemptionHandler:
 
     def trigger_for_test(self):
         self.requested = True
+
+
+# -------------------------------------------------------------- elastic ----
+def plan_remesh(n_healthy_chips: int, *, model_parallel: int = 16,
+                min_data: int = 1) -> tuple[int, int]:
+    """Largest (data, model) grid on the surviving cards: the model axis
+    stays (its degree is a property of the weight layout) and the data
+    axis shrinks, the standard elastic data-parallel policy.  Returns
+    (data, model)."""
+    data = max(min_data, n_healthy_chips // model_parallel)
+    return data, model_parallel

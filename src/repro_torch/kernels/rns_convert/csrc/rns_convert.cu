@@ -116,7 +116,9 @@ static int launch(const float* x, const float* s, int group, int T,
   return (int)cudaGetLastError();
 }
 
-// Every profile's digit count (rns_normalize.cu's too).
+// Every profile's digit count (rns_normalize.cu's too), and the digit
+// groups of digit sharding (1-4 digits a rank: rns9 over 3 ranks, rns8
+// over 4, rns16 or rns8 over 8).
 template <typename OutT>
 static int launch_k(const float* x, const float* s, int group, int T,
                     float qmax, const RnsTables& t, OutT* out, int threads,
@@ -125,9 +127,11 @@ static int launch_k(const float* x, const float* s, int group, int T,
   case k:                                                                  \
     return launch<k, OutT>(x, s, group, T, qmax, t, out, threads, st);
   switch (t.K) {
-    RNS_CONVERT_CASE(5) RNS_CONVERT_CASE(6) RNS_CONVERT_CASE(7)
-    RNS_CONVERT_CASE(8) RNS_CONVERT_CASE(9) RNS_CONVERT_CASE(12)
-    RNS_CONVERT_CASE(16) RNS_CONVERT_CASE(18) RNS_CONVERT_CASE(21)
+    RNS_CONVERT_CASE(1) RNS_CONVERT_CASE(2) RNS_CONVERT_CASE(3)
+    RNS_CONVERT_CASE(4) RNS_CONVERT_CASE(5) RNS_CONVERT_CASE(6)
+    RNS_CONVERT_CASE(7) RNS_CONVERT_CASE(8) RNS_CONVERT_CASE(9)
+    RNS_CONVERT_CASE(12) RNS_CONVERT_CASE(16) RNS_CONVERT_CASE(18)
+    RNS_CONVERT_CASE(21)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RNS_CONVERT_CASE

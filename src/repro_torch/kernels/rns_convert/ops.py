@@ -13,15 +13,15 @@ elements, with one float4 load where x is 16-byte aligned and T % 4 ==
 0; the scale is read per run of ``group`` elements (a scalar, a row or
 a token grid is never materialised to x's shape), a scalar once, other
 runs found by one 32-bit division and a counter; K is a template
-parameter (an instantiation per profile digit count,
-:data:`SUPPORTED_K`), each residue an offset multiply-high mod while
-qmax <= 65535 (bits <= 17; wider values keep floor-mod's division); one
-32-bit store of 4 int8 residues (an int4 of int32 ones) per digit plane,
-so a warp's stores to each plane coalesce.  Indices are 32-bit: a call
-of more than :data:`MAX_T` elements raises.  Tables travel by value as a
-kernel argument (``build.RnsTablesC``).  Threads per block (the tile
-``bt``) are a launch parameter, chosen per shape bucket through
-``kernels/autotune.py``.
+parameter (an instantiation per profile digit count and per digit
+group of digit sharding, :data:`SUPPORTED_K`), each residue an offset
+multiply-high mod while qmax <= 65535 (bits <= 17; wider values keep
+floor-mod's division); one 32-bit store of 4 int8 residues (an int4 of
+int32 ones) per digit plane, so a warp's stores to each plane coalesce.
+Indices are 32-bit: a call of more than :data:`MAX_T` elements raises.
+Tables travel by value as a kernel argument (``build.RnsTablesC``).
+Threads per block (the tile ``bt``) are a launch parameter, chosen per
+shape bucket through ``kernels/autotune.py``.
 """
 
 from __future__ import annotations
@@ -36,10 +36,10 @@ from repro_torch.core.moduli import get_profile
 from repro_torch.core.quantize import quantize_with_scale
 from repro_torch.core.rns import encode_int32
 from repro_torch.kernels import autotune, build
-from repro_torch.kernels.rns_normalize.ops import SUPPORTED_K
+from repro_torch.kernels.rns_normalize.ops import SUPPORTED_K as _PROFILE_K
 
 __all__ = ["rns_convert", "rns_convert_plain", "SOURCE", "launches",
-           "MAX_T"]
+           "MAX_T", "SUPPORTED_K"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_convert.cu"
 
@@ -47,6 +47,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rns_convert.cu"
 launches = 0
 #: the kernel's 32-bit indices: elements of one call, at most
 MAX_T = 2 ** 31 - 2 ** 16 - 1
+#: digit counts instantiated (csrc/rns_convert.cu): every profile's
+#: (rns_normalize's list) and the digit groups of digit sharding, 1-4
+#: digits a rank (``core/moduli.digit_group``)
+SUPPORTED_K = (1, 2, 3, 4) + _PROFILE_K
 
 
 def _bind(lib):

@@ -40,12 +40,27 @@ recycles the pages behind them.  The bucketed engine captures one
 prefill per (batch, prompt length) and one decode per batch size
 (``captures decode(8)=1 prefill(8,33)=1``); ``--window-tokens`` applies
 to it too.
+
+``--digit-shard`` shards the RNS residue channels over the ranks of the
+world (``ServeConfig.mesh``: a ``("data", "model")`` mesh of 1 x n,
+``launch/mesh.py``): each rank holds K/n moduli and the digits meet once
+a normalize.  Under ``torch.distributed.run`` the world is the one it
+started, else a world of 1; only rank 0 prints.  Several ranks on one
+card share it over gloo, whose collectives go through the host and
+cannot be captured, so they serve with ``--eager``:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 3 \
+        -m repro_torch.launch.serve --continuous --rns rns9 --full \
+        --digit-shard --eager
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
+import sys
 import time
 
 import numpy as np
@@ -90,7 +105,7 @@ def serve_bucketed(arch: str = "smollm-135m", *, full: bool = False,
                    per_layer_profiles: bool = False,
                    window_tokens: int | None = None, prompts=None,
                    max_cache: int | None = None, device="cuda",
-                   graphs: bool = True):
+                   graphs: bool = True, mesh=None):
     """Build the model (:func:`build_model`) and generate for ``batch``
     random prompts of ``prompt_len`` tokens (seed 0), or the [B, T]
     ``prompts`` when given, through the bucketed :class:`Engine`: once
@@ -99,7 +114,8 @@ def serve_bucketed(arch: str = "smollm-135m", *, full: bool = False,
     prompts from the same generator; the cache holds a prefix model's F
     positions too.  Returns (engine,
     tokens [B, new], stats) with each call's wall seconds and tokens/s,
-    and the warm call's TTFT and step times."""
+    and the warm call's TTFT and step times.  ``mesh``: digit sharding
+    (``ServeConfig.mesh``)."""
     model = build_model(arch, full=full, rns=rns, device=device)
     cfg = model.cfg
     rng = np.random.default_rng(0)
@@ -116,7 +132,8 @@ def serve_bucketed(arch: str = "smollm-135m", *, full: bool = False,
         max_new_tokens=new, rns_backend=rns_backend, rns_defer=rns_defer,
         resident_weights=resident_weights,
         per_layer_profiles=per_layer_profiles,
-        window_tokens=window_tokens), device=device, graphs=graphs)
+        window_tokens=window_tokens, mesh=mesh), device=device,
+        graphs=graphs)
     stats = {}
     for run in ("first", "warm"):
         t0 = time.perf_counter()
@@ -137,14 +154,15 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
           token_budget: int = 64, chunk_size: int | None = None,
           spec_decode: bool = False, spec_k: int = 3, spec_ngram: int = 3,
           window_tokens: int | None = None, prompt_pad: int | None = None,
-          prompts=None, device="cuda", graphs: bool = True):
+          prompts=None, device="cuda", graphs: bool = True, mesh=None):
     """Build the model (random weights from seed 0) and serve
     :func:`request_prompts` (seed 0), or ``prompts`` when given (then
     ``prompt_lens`` is not read).  Returns (engine, results, stats).
     ``rns_defer`` and ``prompt_pad`` (no CLI flags, as in the JAX CLI)
     go to ``ServeConfig``; ``graphs=False`` serves eagerly.  The engine
     resolves its kernels' tiles when it captures its steps, so the block
-    table in force at this call is the one it serves with."""
+    table in force at this call is the one it serves with.  ``mesh``:
+    digit sharding (``ServeConfig.mesh``)."""
     model = build_model(arch, full=full, rns=rns, device=device)
     cfg = model.cfg
     if prompts is None:
@@ -160,7 +178,7 @@ def serve(arch: str = "smollm-135m", *, full: bool = False,
         per_layer_profiles=per_layer_profiles, prefix_cache=prefix_cache,
         chunked_prefill=chunked_prefill, token_budget=token_budget,
         chunk_size=chunk_size, spec_decode=spec_decode, spec_k=spec_k,
-        spec_ngram=spec_ngram, window_tokens=window_tokens),
+        spec_ngram=spec_ngram, window_tokens=window_tokens, mesh=mesh),
         device=device, graphs=graphs)
     results, stats = engine.run(prompts)
     return engine, results, stats
@@ -223,18 +241,44 @@ def main(argv=None):
                          "that holds its chain (needs --resident-weights)")
     ap.add_argument("--eager", action="store_true",
                     help="run the step programs without CUDA graphs")
+    ap.add_argument("--digit-shard", action="store_true",
+                    help="shard RNS residue channels over the ranks of "
+                         "the world (torch.distributed.run's, else one); "
+                         "needs --rns with a digit count the ranks divide")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.per_layer_profiles and not args.resident_weights:
         ap.error("--per-layer-profiles requires --resident-weights")
-    if not args.continuous:
-        _bucketed(args)
-        return
-    try:
-        engine, res, stats = _serve_continuous(args)
-    except NotImplementedError as e:    # the engine's refusal
-        raise SystemExit(f"{args.arch}: {e}") from None
-    _report(args, engine, res, stats)
+    args.mesh = _digit_mesh(args)
+    quiet = args.mesh is not None and args.mesh.get_rank() != 0
+    with contextlib.redirect_stdout(
+            open(os.devnull, "w") if quiet else sys.stdout):
+        if not args.continuous:
+            _bucketed(args)
+            return
+        try:
+            engine, res, stats = _serve_continuous(args)
+        except NotImplementedError as e:    # the engine's refusal
+            raise SystemExit(f"{args.arch}: {e}") from None
+        _report(args, engine, res, stats)
+
+
+def _digit_mesh(args):
+    """The 1 x n digit mesh over the world's ranks (``--digit-shard``),
+    or None."""
+    if not args.digit_shard:
+        return None
+    from repro_torch.distributed.sharding import DigitSharding
+    from repro_torch.launch.mesh import init_world, make_digit_mesh
+
+    init_world("gloo" if args.device == "cpu" else None)
+    mesh = make_digit_mesh()            # every rank on "model"
+    ds = DigitSharding(mesh)
+    if mesh.get_rank() == 0:
+        print(f"digit sharding over {ds.n_shards} rank(s), "
+              f"{ds.backend} collectives (residue channels; "
+              "docs/distributed.md)")
+    return mesh
 
 
 def _serve_continuous(args):
@@ -250,7 +294,7 @@ def _serve_continuous(args):
         token_budget=args.token_budget, chunk_size=args.chunk_size,
         spec_decode=args.spec_decode, spec_k=args.spec_k,
         window_tokens=args.window_tokens, device=args.device,
-        graphs=not args.eager)
+        graphs=not args.eager, mesh=args.mesh)
 
 
 def _report(args, engine, res, stats):
@@ -281,6 +325,9 @@ def _report(args, engine, res, stats):
               f"p95={stats['ttft_p95_s']:.3f}s  mixed steps={mixed}")
     print("captures " + " ".join(
         f"{k}={v}" for k, v in sorted(stats["captures"].items())))
+    if "collective_backend" in stats:
+        print(f"digit shards {stats['digit_shards']} over "
+              f"{stats['collective_backend']}")
     print(f"served {stats['n_requests']} requests in {stats['n_steps']} "
           f"steps / {stats['wall_s']:.2f}s -> "
           f"{stats['tokens_per_s']:.1f} tok/s")
@@ -305,7 +352,7 @@ def _bucketed(args):
         rns_backend=args.rns_backend, resident_weights=args.resident_weights,
         per_layer_profiles=args.per_layer_profiles,
         window_tokens=args.window_tokens, device=args.device,
-        graphs=not args.eager)
+        graphs=not args.eager, mesh=args.mesh)
     print(f"{args.arch}: generated {out.shape} tokens in "
           f"{stats['first']['wall_s']:.2f}s "
           f"({stats['first']['tokens_per_s']:.1f} tok/s incl. build)")

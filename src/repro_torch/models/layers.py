@@ -416,7 +416,7 @@ def _mlp_deferred(p: MLP, x: torch.Tensor, gated: bool, act: str,
     be = cfg.backend
     xf = x.to(torch.float32)
     f = act_fn(act)
-    if dispatch.fusion_active(cfg.profile, be):
+    if dispatch.fusion_active(cfg.profile, be) and not cfg.slice_parallel:
         def enc(name):
             return _encode_weight(getattr(p, name), p.resident(name), cfg)
 
@@ -475,11 +475,13 @@ def mlp(p: MLP, x: torch.Tensor, *, gated: bool = True, act: str = "silu",
     """The MLP block.  With ``rns``: resident weights take the resident
     paths, ``rns.defer`` the deferred chain, otherwise the per-op
     normalized branch (one normalize per matmul, one shared conversion
-    of x for wi and wg).  A biased MLP falls back to per-op."""
-    if rns is not None and rns.defer and p.has_bias():
+    of x for wi and wg).  A biased MLP, or ``slice_parallel`` (whose
+    layout the deferred chain does not keep), falls back to per-op."""
+    if rns is not None and rns.defer and (p.has_bias()
+                                          or rns.slice_parallel):
         warnings.warn(
-            "rns.defer requested but the MLP has biases; falling back to "
-            "per-op normalization", stacklevel=2)
+            "rns.defer requested but the MLP has biases or slice_parallel "
+            "is set; falling back to per-op normalization", stacklevel=2)
         rns = dataclasses.replace(rns, defer=False)
     if rns is not None and not p.has_bias():
         if _mlp_resident(p, gated):

@@ -19,7 +19,7 @@ from repro_torch.models.layers import (_param, embed, init_normal_, linear,
                                        norm, sinusoidal_positions, unembed)
 
 __all__ = ["Model", "init_model", "count_params", "count_params_analytic",
-           "forward_train", "loss_fn",
+           "forward_train", "loss_fn", "loss_denominator",
            "DenseKV", "make_cache", "plane_shapes", "stack_planes",
            "set_cache_lengths", "prefill", "prefill_ragged", "decode_step",
            "decode_window", "mixed_step"]
@@ -222,22 +222,40 @@ def forward_train(model: Model, cfg, batch: dict):
     return _logits(model, h), aux
 
 
-def loss_fn(model: Model, cfg, batch: dict):
+def _loss_mask(batch: dict) -> torch.Tensor:
+    """[B, T - 1] float32 weights of the next-token targets."""
+    tokens = batch["tokens"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return torch.ones((tokens.shape[0], tokens.shape[1] - 1),
+                          dtype=torch.float32, device=tokens.device)
+    return mask[:, 1:].to(torch.float32)
+
+
+def loss_denominator(batch: dict) -> torch.Tensor:
+    """The token count :func:`loss_fn` divides its cross-entropy by."""
+    return torch.clamp(_loss_mask(batch).sum(), min=1.0)
+
+
+def loss_fn(model: Model, cfg, batch: dict, denom=None):
     """Next-token cross-entropy in float32 over ``batch["tokens"]``,
     weighted by ``batch["loss_mask"]`` [B, T] where given (its first
     column unused), plus the aux loss; a frontend model's frontend
-    positions are out of it.  Returns (loss, {"ce", "aux"})."""
+    positions are out of it.  ``denom``: the token count to divide by
+    (default this batch's, :func:`loss_denominator`; a data-parallel
+    rank divides its rows' sum by the whole batch's).  Returns (loss,
+    {"ce", "aux"})."""
     logits, aux = forward_train(model, cfg, batch)
     F = _frontend_len(cfg, batch)
     tokens = batch["tokens"].long()
     lg = logits[:, F:-1].to(torch.float32)
     tg = tokens[:, 1:]
-    mask = batch.get("loss_mask")
-    mask = (torch.ones(tg.shape, dtype=torch.float32, device=lg.device)
-            if mask is None else mask[:, 1:].to(torch.float32))
+    mask = _loss_mask(batch)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tg[..., None])[..., 0]
-    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = loss_denominator(batch)
+    ce = ((logz - gold) * mask).sum() / denom
     return ce + aux, {"ce": ce, "aux": aux}
 
 

@@ -29,8 +29,15 @@ captured step keeps their addresses); the forward reads the digits, the
 straight-through backward the masters, and the optimizer sees only the
 masters (parameters; the digits are buffers).
 
-The port of ``repro.models.resident`` without masters dropped or a digit
-mesh (later slices).
+Serving without masters (``drop_masters=True``): each float master is
+dropped once its weight is encoded (the MLP's parameter becomes None),
+so the float weights do not take device memory beside their digits.
+With a digit mesh (``mesh``) each weight is encoded under
+``use_digit_sharding``: a rank keeps only its digit group ``[K/n, d,
+n]`` (the convert kernel on the group's moduli), so the resident memory
+a rank holds falls by n.
+
+The port of ``repro.models.resident``.
 """
 
 from __future__ import annotations
@@ -117,11 +124,18 @@ def _select_profile(mlps, rns, gated: bool):
     return prof.name, mags
 
 
-def encode_resident(model, cfg, *, per_layer_profiles: bool = False):
+def encode_resident(model, cfg, *, per_layer_profiles: bool = False,
+                    drop_masters: bool = False, mesh=None,
+                    digit_axis: str = "model"):
     """Encode every RNS-target MLP weight of ``model`` once, in place, on
     the weights' device; returns ``model``.  Biased MLPs keep the float
     per-op path.  ``per_layer_profiles`` selects each period slot's
-    profile from its weights (never wider than ``cfg.rns.profile``)."""
+    profile from its weights (never wider than ``cfg.rns.profile``);
+    ``drop_masters`` drops the float masters (serving only);  ``mesh``
+    keeps this rank's digit group of each weight over ``digit_axis``
+    (a profile that does not divide the axis stays whole)."""
+    from repro_torch.distributed.sharding import use_digit_sharding
+
     if cfg.rns is None or cfg.rns_targets not in ("all", "mlp"):
         return model
     rns = cfg.rns
@@ -143,9 +157,13 @@ def encode_resident(model, cfg, *, per_layer_profiles: bool = False):
         for mlp in members:
             for name in MLP.NAMES:
                 w = getattr(mlp, name)
-                if w is not None:
+                if w is None:
+                    continue
+                with use_digit_sharding(mesh, digit_axis):
                     mlp.set_resident(name, _encode_one(
                         w, prof, rns.qw, mags[name], rns.backend))
+                if drop_masters:
+                    setattr(mlp, name, None)
     return model
 
 

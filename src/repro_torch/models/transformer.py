@@ -22,6 +22,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -212,6 +213,11 @@ def _apply_layer(blk: Block, h, cfg, *, mode: str, cache, slot: int,
     return h + y, planes, aux
 
 
+def _train_layer_under(layout, blk: Block, h, cfg, enc_out):
+    with sharding.restore(layout):
+        return _train_layer(blk, h, cfg, enc_out)
+
+
 def _train_layer(blk: Block, h, cfg, enc_out):
     """(h, aux: the layer's MoE aux loss, else a float32 zero)."""
     h, _, aux = _apply_layer(blk, h, cfg, mode="train", cache=None, slot=0,
@@ -242,9 +248,12 @@ def apply_blocks(blocks, h, cfg, *, mode: str, cache=None, packed=None,
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in blocks:
             if cfg.remat == "full" and torch.is_grad_enabled():
+                # the recompute runs in the backward (on the card, on
+                # autograd's thread): under the forward's digit and batch
+                # layouts
                 h, a = torch.utils.checkpoint.checkpoint(
-                    _train_layer, blk, h, cfg, enc_out, use_reentrant=False,
-                    preserve_rng_state=False)
+                    _train_layer_under, sharding.snapshot(), blk, h, cfg,
+                    enc_out, use_reentrant=False, preserve_rng_state=False)
             else:
                 h, a = _train_layer(blk, h, cfg, enc_out)
             aux = aux + a

@@ -65,8 +65,16 @@ at engine build, the deferred MLP chain, the fused kernels; with
 ``per_layer_profiles=True`` each layer's weights are encoded on the
 narrowest profile that holds its chain (``models/resident.py``).
 
-Digit sharding (``mesh``) is a later slice of the port (ROADMAP A.11):
-:class:`ServeConfig` refuses it.
+Digit sharding (``ServeConfig.mesh``, a ``DeviceMesh``, and
+``digit_axis``): every step program runs under
+``use_digit_sharding(mesh, digit_axis)``, so each rank's residues hold
+its digit group and each normalize gathers the digits once
+(``core/dispatch.py``); resident weights keep only the rank's group.
+Every rank runs the engine on the same prompts and gives the same
+tokens.  A gloo group's collectives go through the host: an engine that
+would capture one (``graphs=True`` on the card) raises; an nccl group
+(one rank a card) is captured with the rest of the step.  ``stats`` (and
+``Engine.last_stats``) name the group's backend.
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.distributed import sharding
 from repro_torch.models import model as M
 from repro_torch.serve import kv_cache as kv
 from repro_torch.serve.graphs import StepProgram, build_programs
@@ -135,10 +144,11 @@ class ServeConfig:
     # sliding-window attention: a row attends its last window_tokens
     # tokens, and the pages behind the window go back to the pool
     window_tokens: int | None = None
-    # digit sharding, a later slice of the port: setting it raises
+    # residue-channel sharding: a DeviceMesh whose ``digit_axis``
+    # partitions the RNS digit axis (one group of moduli a rank; digits
+    # meet only at MRC normalization).  None: one rank, unchanged.
     mesh: object | None = None
-
-    _LATER = ("mesh",)
+    digit_axis: str = "model"
 
     def __post_init__(self):
         if self.eos_id < -1:
@@ -203,11 +213,6 @@ class ServeConfig:
                 f"window_tokens={self.window_tokens}: a sliding window "
                 "must retain at least the current token (use None for "
                 "full attention)")
-        on = [f for f in self._LATER if getattr(self, f) not in (None, False)]
-        if on:
-            raise NotImplementedError(
-                f"ServeConfig({', '.join(on)}): digit sharding is a later "
-                "slice of the port (ROADMAP A.11)")
 
 
 def _apply_rns_policy(model_cfg, scfg: ServeConfig):
@@ -231,12 +236,37 @@ def _apply_rns_policy(model_cfg, scfg: ServeConfig):
 
 
 def _maybe_resident(model, cfg, scfg: ServeConfig):
-    """Encode resident weights once, at engine build, when asked to."""
+    """Encode resident weights once, at engine build, when asked to (with
+    a mesh, this rank's digit group of each)."""
     if scfg.resident_weights and cfg.rns is not None:
         from repro_torch.models.resident import encode_resident
 
         encode_resident(model, cfg,
-                        per_layer_profiles=scfg.per_layer_profiles)
+                        per_layer_profiles=scfg.per_layer_profiles,
+                        mesh=scfg.mesh, digit_axis=scfg.digit_axis)
+
+
+def _with_digit_ctx(fn, scfg: ServeConfig):
+    """``fn`` run under the digit-sharding context of ``scfg.mesh`` (its
+    warm-up, its capture and every eager run); ``fn`` itself without a
+    mesh."""
+    if scfg.mesh is None:
+        return fn
+
+    def wrapped(*args, **kwargs):
+        with sharding.use_digit_sharding(scfg.mesh, scfg.digit_axis):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def _dist_stats(scfg: ServeConfig) -> dict:
+    """The digit group's size and its collectives' backend ({} without a
+    mesh)."""
+    if scfg.mesh is None:
+        return {}
+    ds = sharding.DigitSharding(scfg.mesh, scfg.digit_axis)
+    return {"digit_shards": ds.n_shards, "collective_backend": ds.backend}
 
 
 class _Programs:
@@ -256,6 +286,7 @@ class _Programs:
         programs = list(programs)
         pin = self.device.type == "cuda"
         for prog in programs:
+            prog.fn = _with_digit_ctx(prog.fn, self.scfg)
             self.programs[prog.name] = prog
             for name, buf in prog.inputs.items():
                 self._staging[(prog.name, name)] = torch.empty(
@@ -296,14 +327,16 @@ class Engine(_Programs):
     a model with a frontend takes each prompt's ``n_frontend_tokens``
     embeddings (``generate(frontend=)``) as a further input of the
     prefill program, and an encoder-decoder model's cross planes live in
-    the dense cache beside its K/V.  Digit sharding and the exactness
-    audit are later slices of the port."""
+    the dense cache beside its K/V.  The exactness audit is a later
+    slice of the port."""
 
     def __init__(self, model: M.Model, scfg: ServeConfig, *, device="cuda",
                  graphs: bool = True):
         if scfg.cache_dtype not in _CACHE_DTYPES:
             raise ValueError(f"cache_dtype={scfg.cache_dtype!r}: one of "
                              f"{sorted(_CACHE_DTYPES)}")
+        sharding.check_capturable(scfg.mesh, (scfg.digit_axis,), device,
+                                  graphs)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = _apply_rns_policy(model.cfg, scfg)
@@ -412,7 +445,7 @@ class Engine(_Programs):
         t0 = time.perf_counter()
         tok = self._run(pre, **inputs).cpu().numpy()
         self.last_stats = {"ttft_s": time.perf_counter() - t0,
-                           "step_time_s": []}
+                           "step_time_s": [], **_dist_stats(self.scfg)}
         done = np.zeros((B,), bool)
         out = [tok]
         for _ in range(max_new - 1):
@@ -460,6 +493,8 @@ class ContinuousEngine(_Programs):
                 "packed chunk tokens re-expand gathered latents, and the "
                 "original per-token quantization grids of earlier chunks "
                 "are not recoverable from the cache; use rns_targets='mlp'")
+        sharding.check_capturable(scfg.mesh, (scfg.digit_axis,), device,
+                                  graphs)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -970,5 +1005,6 @@ class ContinuousEngine(_Programs):
             "pages_window_evicted": self.sched.window_evictions,
             "captures": self.captures(),
             "steps": steps,
+            **_dist_stats(self.scfg),
         }
         return out, stats
